@@ -103,6 +103,34 @@ def test_glm_fused_kernel_rejects_strided_input(cuda_device):
         ops.glm_fused(z, z)
 
 
+def test_newton_step_with_kernels_on_card(cuda_device):
+    """One Newton step over row blocks through both kernels (X @ beta and
+    the two X^T products on the matmul kernel, mu/c/w on the GLM kernel as
+    f32) against the same step in f64 torch.  Errors are relative to the
+    sums of the terms' magnitudes and held to 1e-5, the reference's
+    tolerance for this check (test_glm_newton_with_kernel)."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    Xs = [torch.randn(4096, 32, device=cuda_device, dtype=torch.float64, generator=g)
+          for _ in range(4)]
+    ys = [(torch.rand(4096, 1, device=cuda_device, generator=g) > 0.5).double()
+          for _ in Xs]
+    beta = torch.randn(32, 1, device=cuda_device, dtype=torch.float64, generator=g) * 0.1
+    reset_launches()
+    grad = hess = grad64 = hess64 = scale = 0
+    for X, y in zip(Xs, ys):
+        z = ops.matmul(X, beta)
+        _mu, c, w = ops.glm_fused(z, y)
+        grad = grad + ops.matmul(X.mT, c.double())
+        hess = hess + ops.matmul(X.mT, w.double() * X)
+        mu64 = torch.sigmoid(z)
+        grad64 = grad64 + X.mT @ (mu64 - y)
+        scale = scale + X.abs().mT @ (mu64 - y).abs()
+        hess64 = hess64 + X.mT @ ((mu64 * (1 - mu64)) * X)
+    assert dict(launches) == {"matmul": 3 * len(Xs), "glm_fused": len(Xs)}
+    assert ((grad - grad64).abs().max() / scale.max()).item() < 1e-5
+    assert ((hess - hess64).abs().max() / hess64.abs().max()).item() < 1e-5
+
+
 def test_newton_loop_on_card_matches_torch_backend(cuda_device):
     """A small Newton loop on the card: every 2-D block product launches
     the kernel, and the result equals the torch backend's to 1e-6."""
