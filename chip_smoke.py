@@ -2,23 +2,37 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the hand-written Hopper kernels from ``src/repro_torch/csrc``, holds
-each against its plain PyTorch version at the main path's shapes and times
-both (CUDA events), then drives the main path at full width — the paper's
-logistic-regression Newton loop (n = 2**22 rows x 256 features, float64, 32
-row blocks on a 4-node x 8-worker simulated cluster) and a 16384^2 block
-DGEMM — on backend ``cuda`` (kernels) and on backend ``torch`` (plain torch
-ops), and checks that both agree and schedule identically, that every 2-D
-block product went through the matmul kernel, and that the runtime's bitwise
-contracts hold on the card.  Each phase prints one JSON line; the kernel
-line, the card's name and power limit, and a final ``{"ok": true, ...}``
-line close the output.  Any failure raises and exits non-zero.
+Builds the four hand-written Hopper kernels from ``src/repro_torch/csrc``
+(``matmul``, ``glm_fused``, ``flash_attention``, ``mamba_scan``; one
+``nvcc`` each, all at once), holds each against its plain PyTorch version at
+its main path's shapes and times both (CUDA events), then drives the two
+main paths at full width:
+
+- the block runtime: the paper's logistic-regression Newton loop (n = 2**22
+  rows x 256 features, float64, 32 row blocks on a 4-node x 8-worker
+  simulated cluster) and a 16384^2 block DGEMM, on backend ``cuda`` (every
+  2-D block product through the matmul kernel) and on backend ``torch``
+  (plain torch ops): both agree and schedule identically, and the runtime's
+  bitwise contracts hold on the card;
+- LM serving: hymba-1.5b at its published configuration (32 layers,
+  d 1600, bf16, random weights from a seeded generator on the card) serves
+  8 prompts of 2048 tokens and generates 32 tokens each through
+  ``serve_demo``, with every layer's attention on the flash-attention
+  kernel and every layer's prefill scan on the selective-scan kernel; the
+  same weights served through the plain versions (teacher-forced with the
+  kernel run's tokens) give the same logits to a bf16 tolerance, and an f32
+  run at full width and 8 layers agrees to 1e-4 with the same tokens.
+
+Each phase prints one JSON line; the kernel line, the card's name and power
+limit, and a final ``{"ok": true, ...}`` line close the output.  Any
+failure raises and exits non-zero.
 
 Needs one CUDA device; exits non-zero without printing a result where there
 is none, or where ``src/repro_torch`` is not beside this script.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import subprocess
@@ -33,10 +47,15 @@ import torch  # noqa: E402
 
 from repro_torch.configs.glm_logreg import CONFIG  # noqa: E402
 from repro_torch.core import ArrayContext, ClusterSpec  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, launches, ops, reset_launches  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_ref, visible  # noqa: E402
 from repro_torch.kernels.glm_fused import glm_fused_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.matmul import matmul_ref  # noqa: E402
+from repro_torch.launch.serve import serve_demo  # noqa: E402
 from repro_torch.launch.workloads import dgemm_graph, logreg_newton_loop  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 
 #: published peaks of one H100 SXM (dense, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -50,11 +69,31 @@ GLM_TOL = 1e-6   # absolute: mu, c, w are f32 values in [-1, 1]
 RTOL = 1e-6      # backend parity at f64 (the reference's own)
 DGEMM_RTOL = 1e-4  # f32 summation order over K = 16384
 
+#: flash attention: the reference's kernel-test tolerances, relative to
+#: max|plain|; the selective scan: 1e-4 relative to max (y and the carry)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+SCAN_TOL = 1e-4
+#: serve path, kernel route against plain route on the same weights, relative
+#: to max|logit|.  bf16: the plain route is the reference's model attention,
+#: which rounds scores and probabilities to bf16 where the kernel keeps f32;
+#: that difference alone moves the logits of a 32-layer, d = 256 hymba by
+#: 4-7% of max|logit| (measured on the CPU), so the bound is 0.2, about 3x
+#: that: it catches a wrong mask or a dropped layer, not rounding.
+#: f32: 1e-4, as the CPU tests hold the port to the reference.
+SERVE_TOL = {"bfloat16": 0.2, "float32": 1e-4}
+
 NEWTON = dict(n=1 << 22, d=CONFIG.n_features, q=32, iters=3)
 DGEMM = dict(dim=16384, g=4)
 CONTRACT_N = 1 << 16
+#: the serve path: hymba-1.5b at its published width and depth
+SERVE = dict(arch="hymba-1.5b", batch=8, prompt_len=2048, gen=32)
+#: the f32 check: full width, 8 layers (layer 7 is the first global one)
+SERVE_F32_LAYERS = 8
 MATMUL_SRC = ("src/repro_torch/csrc/matmul.cu", "src/repro/kernels/matmul.py:35")
 GLM_SRC = ("src/repro_torch/csrc/glm_fused.cu", "src/repro/kernels/glm_fused.py:26")
+FLASH_SRC = ("src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:92")
+SCAN_SRC = ("src/repro_torch/csrc/mamba_scan.cu", "src/repro/kernels/mamba_scan.py:43")
 
 
 def emit(phase: str, **fields) -> None:
@@ -166,6 +205,109 @@ def kernel_phase(dev):
         y = (torch.rand(n, 1, device=dev, generator=g) > 0.5).double()
         glm_cases.append(glm_case(f"({n}, 1) f64", z, y))
     return matmul_cases, glm_cases
+
+
+def serve_shapes():
+    """The serve path's attention and scan shapes: hymba-1.5b's heads, state
+    and window, at SERVE's batch and prompt, over a cache of max_len."""
+    cfg = get_config(SERVE["arch"])
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    max_len = S + SERVE["gen"] + 1
+    return dict(B=B, S=S, max_len=max_len, H=cfg.n_heads, KV=cfg.n_kv_heads,
+                hd=cfg.resolved_head_dim, window=cfg.window,
+                DI=cfg.ssm.d_inner(cfg.d_model), N=cfg.ssm.d_state)
+
+
+def flash_case(name, q, k, v, window, q_offset):
+    dtype = q.dtype
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    got = ops.flash_attention(q, k, v, **kw)
+    again = ops.flash_attention(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, True, window, q_offset)
+    sync()
+    check(torch.equal(got, again), f"flash_attention {name}: two launches differ")
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    mask = visible(Sq, Skv, True, window, q_offset, q.device)
+    pairs = int(mask.sum().item())            # (query, key) pairs this run needs
+    keys = int(mask.any(dim=0).sum().item())  # keys any query sees
+    # QK^T and PV: 2 flops each per (pair, head, dim)
+    bound_ms, bound_by = bound(4.0 * B * H * pairs * hd,
+                               (2 * B * H * Sq * hd + 2 * B * KV * keys * hd)
+                               * q.element_size(), dtype)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, enable_gqa=True)
+    case = dict(case=name, dtype=str(dtype).replace("torch.", ""),
+                q=list(q.shape), kv=list(k.shape), window=window, q_offset=q_offset,
+                max_abs_err=err, rel_err=rel, tol=FLASH_TOL[dtype],
+                ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
+                plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, True, window,
+                                                             q_offset)),
+                library_ms=time_ms(library), library="scaled_dot_product_attention",
+                bound_ms=bound_ms, bound_by=bound_by, peak=PEAK_NAME[dtype])
+    emit("kernel_case", kernel="flash_attention", **case)
+    check(rel <= FLASH_TOL[dtype], f"flash_attention {name}: rel err {rel}")
+    return case
+
+
+def scan_case(name, dA, dBx, C):
+    y, h = ops.mamba_scan(dA, dBx, C)
+    y2, h2 = ops.mamba_scan(dA, dBx, C)
+    y_ref, h_ref = mamba_scan_ref(dA, dBx, C)
+    sync()
+    check(torch.equal(y, y2) and torch.equal(h, h2), f"mamba_scan {name}: two launches differ")
+    err = max((y - y_ref).abs().max().item(), (h - h_ref).abs().max().item())
+    rel = max((y - y_ref).abs().max().item() / y_ref.abs().max().item(),
+              (h - h_ref).abs().max().item() / h_ref.abs().max().item())
+    B, S, DI, N = dA.shape
+    # per element and step: one FMA for h, one multiply-add toward y
+    bound_ms, bound_by = bound(4.0 * B * S * DI * N,
+                               4 * (2 * B * S * DI * N + B * S * N + B * S * DI + B * DI * N),
+                               torch.float32)
+    case = dict(case=name, dtype="float32", shape=[B, S, DI, N], max_abs_err=err,
+                rel_err=rel, tol=SCAN_TOL, ms=time_ms(lambda: ops.mamba_scan(dA, dBx, C)),
+                plain_ms=time_ms(lambda: mamba_scan_ref(dA, dBx, C), max_reps=5),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                peak=PEAK_NAME[torch.float32])
+    emit("kernel_case", kernel="mamba_scan", **case)
+    check(rel <= SCAN_TOL, f"mamba_scan {name}: rel err {rel}")
+    return case
+
+
+def serve_kernel_phase(dev):
+    """Both new kernels at the serve path's shapes: prefill of the global and
+    the local layers, a decode step at the last prompt position, and the
+    prefill scan."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    sh = serve_shapes()
+    B, S, H, KV, hd = sh["B"], sh["S"], sh["H"], sh["KV"], sh["hd"]
+
+    def u(*shape, dtype):
+        return (torch.rand(shape, device=dev, generator=g) * 2 - 1).to(dtype)
+
+    flash = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        q = u(B, H, S, hd, dtype=dtype)
+        k, v = u(B, KV, sh["max_len"], hd, dtype=dtype), u(B, KV, sh["max_len"], hd, dtype=dtype)
+        flash.append(flash_case(f"prefill-global {tag}", q, k, v, None, 0))
+        if dtype == torch.bfloat16:
+            flash.append(flash_case("prefill-local bf16", q, k, v, sh["window"], 0))
+            flash.append(flash_case("decode bf16", q[:, :, :1].contiguous(), k, v, None, S))
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    N, DI = sh["N"], sh["DI"]
+    dA = torch.rand(B, S, DI, N, device=dev, generator=g) * 0.49 + 0.5
+    dBx = torch.rand(B, S, DI, N, device=dev, generator=g) * 2 - 1
+    C = torch.rand(B, S, N, device=dev, generator=g) * 2 - 1
+    scan = [scan_case(f"prefill {list(dA.shape)} f32", dA, dBx, C)]
+    del dA, dBx, C
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash, scan
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +422,82 @@ def contracts(dev):
     check(res["rel_err_vs_numpy"] <= RTOL, f"contracts {res}")
 
 
+def serve_run(dev, params, impl, dtype=None, n_layers=None, forced=None):
+    """One serve_demo run of SERVE on the card with its launches and peak
+    memory; the launch counts are set to 0 just before it."""
+    record = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    tokens = serve_demo(SERVE["arch"], SERVE["batch"], SERVE["prompt_len"], SERVE["gen"],
+                        reduced=False, device=dev, params=params, n_layers=n_layers,
+                        dtype=dtype, impl=impl, forced=forced, record=record,
+                        log_fn=lambda line: print(f"# {line}", file=sys.stderr))
+    record.update(tokens=tokens, launches=dict(launches),
+                  max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    return record
+
+
+def serve_compare(label, kern, plain, tol):
+    """Kernel route against plain route, step by step (step 0 is prefill's
+    last position), relative to max|logit| of the plain route."""
+    lk, lp = kern["logits"], plain["logits"]
+    scale = float(np.abs(lp).max())
+    per_step = (np.abs(lk - lp).max(axis=(1, 2)) / scale).tolist()
+    finite = bool(np.isfinite(lk).all() and np.isfinite(lp).all())
+    res = dict(rel_err_prefill=per_step[0], rel_err_decode_max=max(per_step[1:]),
+               rel_err_per_step=per_step, tol=tol, max_abs_logit=scale, finite=finite,
+               greedy_agree=float((kern["tokens"] == plain["tokens"]).mean()))
+    for name, rec in (("kernel", kern), ("plain", plain)):
+        res[name] = dict(prefill_s=rec["prefill_s"],
+                         decode_s_per_token=rec["decode_s_per_token"],
+                         tokens_per_s=rec["tokens_per_s"],
+                         max_memory_allocated=rec["max_memory_allocated"],
+                         launches=rec["launches"])
+    emit(f"serve_{label}", arch=SERVE["arch"], batch=SERVE["batch"],
+         prompt_len=SERVE["prompt_len"], gen=SERVE["gen"], max_len=kern["max_len"], **res)
+    check(finite and max(per_step) <= tol, f"serve {label}: rel err {per_step} > {tol}")
+
+
+def serve_phase(dev):
+    """hymba-1.5b served through the kernels and through the plain versions
+    on the same weights: bf16 at the published depth, then f32 at 8 layers.
+    Returns the kernel route's launches in the bf16 run (the main path)."""
+    cfg = get_config(SERVE["arch"])
+    L = cfg.n_layers
+    # a 2-layer run at the same shapes first: the timed runs then find the
+    # libraries' kernels for these shapes chosen and the allocator's pool grown
+    serve_run(dev, None, "kernel", n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    kern = serve_run(dev, params, "kernel")
+    plain = serve_run(dev, params, "plain", forced=kern["tokens"])
+    serve_compare("bf16", kern, plain, SERVE_TOL["bfloat16"])
+    want = {"flash_attention": L * SERVE["gen"], "mamba_scan": L}
+    got = {k: kern["launches"][k] for k in want}
+    check(got == want, f"serve bf16 kernel launches {got} != {want}")
+    check(plain["launches"]["flash_attention"] == plain["launches"]["mamba_scan"] == 0,
+          f"serve bf16 plain route launched kernels: {plain['launches']}")
+    main_launches = kern["launches"]
+    del params, kern, plain
+
+    L32 = SERVE_F32_LAYERS
+    params = init_params(dataclasses.replace(cfg, n_layers=L32, dtype="float32"),
+                         torch.Generator(device=dev).manual_seed(0))
+    kern = serve_run(dev, params, "kernel", "float32", L32)
+    plain = serve_run(dev, params, "plain", "float32", L32, forced=kern["tokens"])
+    serve_compare("f32", kern, plain, SERVE_TOL["float32"])
+    check(np.array_equal(kern["tokens"], plain["tokens"]),
+          "serve f32: greedy tokens differ between the routes")
+    want = {"flash_attention": L32 * SERVE["gen"], "mamba_scan": L32}
+    check({k: kern["launches"][k] for k in want} == want,
+          f"serve f32 kernel launches {kern['launches']} != {want}")
+    del params, kern, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return main_launches
+
+
 def kernel_entry(name, source, cases, headline, main_launches):
     head = next(c for c in cases if c["case"] == headline)
     return dict(name=name, route="cuda", source=source[0], replaces=source[1],
@@ -300,7 +518,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    reports = build.build(["matmul", "glm_fused"])
+    reports = build.build(["matmul", "glm_fused", "flash_attention", "mamba_scan"])
     build_s = time.perf_counter() - t0
     for name, report in reports.items():
         for line in report.splitlines():
@@ -314,6 +532,7 @@ def main() -> int:
     matmul_cases, glm_cases = kernel_phase(dev)
     gc.collect()
     torch.cuda.empty_cache()
+    flash_cases, scan_cases = serve_kernel_phase(dev)
 
     # the runtime's bitwise contracts at n = 2**16 first: they also warm the
     # libraries (cuBLAS, cuSOLVER) and the callable cache both backends share
@@ -347,17 +566,26 @@ def main() -> int:
     check(dg_cuda["launches"]["matmul"] == dg_cuda["matmul_dispatches"] > 0,
           f"DGEMM launches {dg_cuda['launches']} vs {dg_cuda['matmul_dispatches']}")
 
-    # launches of the main path's own runs on backend cuda; like the
-    # reference's backend, it never routes to glm_fused (held against its
-    # plain version above, at the main path's shapes)
+    # main path 2: LM serving, through the attention and scan kernels
+    serve_launches = serve_phase(dev)
+
+    # launches of the main paths' own runs: the block runtime on backend
+    # cuda (like the reference's backend, it never routes to glm_fused, held
+    # against its plain version above at the main path's shapes) and the
+    # bf16 serve run through the kernels
     main_launches = {k: cuda["launches"][k] + dg_cuda["launches"][k]
-                     for k in cuda["launches"]}
+                     for k in ("matmul", "glm_fused")}
+    main_launches.update({k: serve_launches[k] for k in ("flash_attention", "mamba_scan")})
     check(main_launches["matmul"] > 0, f"main-path launches {main_launches}")
     print(json.dumps({"kernels": [
         kernel_entry("matmul", MATMUL_SRC, matmul_cases, "X^T(w*X) f64",
                      main_launches["matmul"]),
         kernel_entry("glm_fused", GLM_SRC, glm_cases, f"({1 << 22}, 1) f64",
                      main_launches["glm_fused"]),
+        kernel_entry("flash_attention", FLASH_SRC, flash_cases, "prefill-global bf16",
+                     main_launches["flash_attention"]),
+        kernel_entry("mamba_scan", SCAN_SRC, scan_cases, scan_cases[0]["case"],
+                     main_launches["mamba_scan"]),
     ]}, default=float), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -298,3 +298,9 @@ def resolve_devices(devices: Optional[list]) -> list:
     if not out:
         raise ValueError("empty device list")
     return out
+
+
+def resolve_device(device=None) -> torch.device:
+    """One device: ``None`` means the first CUDA device and raises where
+    there is none."""
+    return resolve_devices(None if device is None else [device])[0]

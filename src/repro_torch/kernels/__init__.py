@@ -6,6 +6,7 @@ code and, beside it, the kernel's plain PyTorch version (the port of
 with ``nvcc`` on first use.
 """
 from . import ops
-from .ops import glm_fused, launches, matmul, reset_launches
+from .ops import flash_attention, glm_fused, launches, mamba_scan, matmul, reset_launches
 
-__all__ = ["glm_fused", "launches", "matmul", "ops", "reset_launches"]
+__all__ = ["flash_attention", "glm_fused", "launches", "mamba_scan", "matmul", "ops",
+           "reset_launches"]

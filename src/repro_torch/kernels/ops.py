@@ -8,17 +8,21 @@ wrapper, so a run can show that its main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from .flash_attention import DTYPE_CODES as _FLASH_DTYPES
+from .flash_attention import HEAD_DIMS, THREADS, flash_attention_cuda, flash_attention_ref
 from .glm_fused import DTYPE_CODES as _GLM_DTYPES
 from .glm_fused import glm_fused_cuda, glm_fused_ref
 from .matmul import DTYPE_CODES as _MATMUL_DTYPES
+from .mamba_scan import STATE_DIMS, mamba_scan_cuda, mamba_scan_ref
 from .matmul import _CONFIGS, matmul_cuda, matmul_ref, split_plan
 
 #: kernel launches per wrapper since the last ``reset_launches``
-launches: Dict[str, int] = {"matmul": 0, "glm_fused": 0}
+launches: Dict[str, int] = {"matmul": 0, "glm_fused": 0, "flash_attention": 0,
+                            "mamba_scan": 0}
 
 _GRID_LIMIT = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
@@ -88,3 +92,75 @@ def glm_fused(z: torch.Tensor, y: torch.Tensor
         raise ValueError("glm_fused: empty input")
     launches["glm_fused"] += 1
     return glm_fused_cuda(z, y)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Grouped-query attention of q (B, H, Sq, hd) over k, v (B, KV, Skv, hd)
+    with a 1/sqrt(hd) scale: causal from absolute query position
+    ``q_offset``, and with a sliding ``window`` (key j visible to query
+    position p iff j > p - window) when one is given.  f32 or bf16; the
+    output has q's dtype.  Operands may be strided views whose head dim is
+    contiguous."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: need q (B, H, Sq, hd) and k, v "
+                         f"(B, KV, Skv, hd), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or KV == 0 or H % KV:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
+                         "disagree (batch, head dim, or H not a multiple of KV)")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in {HEAD_DIMS}")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}; need "
+                        f"one of {sorted(map(str, _FLASH_DTYPES))} on all three")
+    if window is not None and (not isinstance(window, int) or window < 1):
+        raise ValueError(f"flash_attention: window must be None or an int >= 1, "
+                         f"got {window!r}")
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be an int >= 0, got {q_offset!r}")
+    if _device_kind("flash_attention", q, k, v) == "cpu":
+        return flash_attention_ref(q, k, v, causal, window, q_offset)
+    if 0 in (B, Sq, Skv):
+        raise ValueError("flash_attention: empty input")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: the kernel needs a contiguous head dim")
+    if H // KV > THREADS or Sq + q_offset >= 2**31 or Skv >= 2**31:
+        raise ValueError(f"flash_attention: {H // KV} query heads per kv head or "
+                         "positions beyond the kernel's range")
+    if KV > _GRID_LIMIT or B > _GRID_LIMIT:
+        raise ValueError(f"flash_attention: B={B}, KV={KV} exceed the launch grid")
+    launches["flash_attention"] += 1
+    return flash_attention_cuda(q, k, v, causal, window, q_offset)
+
+
+def mamba_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(y, h_S) of the recurrence h_t = dA_t * h_{t-1} + dBx_t from h_0 = 0,
+    y_t = sum_n h_t[:, n] * C_t[n], for f32 dA, dBx (B, S, DI, N) and C
+    (B, S, N): y is (B, S, DI) and the final carry h_S is (B, DI, N)."""
+    if dA.ndim != 4 or dBx.shape != dA.shape:
+        raise ValueError(f"mamba_scan: dA and dBx must be (B, S, DI, N) of one shape, "
+                         f"got {tuple(dA.shape)} and {tuple(dBx.shape)}")
+    B, S, DI, N = dA.shape
+    if tuple(C.shape) != (B, S, N):
+        raise ValueError(f"mamba_scan: C must be (B, S, N) = {(B, S, N)}, "
+                         f"got {tuple(C.shape)}")
+    if N not in STATE_DIMS:
+        raise ValueError(f"mamba_scan: state width {N} not in {STATE_DIMS}")
+    if any(t.dtype != torch.float32 for t in (dA, dBx, C)):
+        raise TypeError(f"mamba_scan: need f32 inputs, got {dA.dtype}/{dBx.dtype}/"
+                        f"{C.dtype}")
+    if _device_kind("mamba_scan", dA, dBx, C) == "cpu":
+        return mamba_scan_ref(dA, dBx, C)
+    if 0 in (B, S, DI):
+        raise ValueError("mamba_scan: empty input")
+    if not all(t.is_contiguous() for t in (dA, dBx, C)):
+        raise ValueError("mamba_scan: the kernel needs contiguous inputs")
+    if B > _GRID_LIMIT or S >= 2**31 or DI * N >= 2**31:
+        raise ValueError(f"mamba_scan: {(B, S, DI, N)} exceeds the kernel's range")
+    launches["mamba_scan"] += 1
+    return mamba_scan_cuda(dA, dBx, C)

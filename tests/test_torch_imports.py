@@ -5,11 +5,13 @@ and its entry points run on the card unless the caller asks for the CPU."""
 from __future__ import annotations
 
 import ast
+import dataclasses
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,11 +41,15 @@ def test_no_jax_or_reference_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
-def test_import_loads_neither_jax_nor_reference():
-    code = ("import sys, repro_torch, repro_torch.core, repro_torch.backend, "
-            "repro_torch.backend.cuda_backend, repro_torch.kernels, "
-            "repro_torch.glm, repro_torch.launch.blocks, repro_torch.interop, "
-            "repro_torch.obs, repro_torch.configs.glm_logreg; "
+@pytest.mark.parametrize("modules", [
+    "repro_torch, repro_torch.core, repro_torch.backend, repro_torch.backend.cuda_backend, "
+    "repro_torch.kernels, repro_torch.glm, repro_torch.launch.blocks, repro_torch.interop, "
+    "repro_torch.obs, repro_torch.configs.glm_logreg",
+    "repro_torch.models, repro_torch.kernels.flash_attention, repro_torch.kernels.mamba_scan, "
+    "repro_torch.train, repro_torch.launch.serve, repro_torch.configs.hymba_1p5b",
+], ids=["block runtime", "LM serving"])
+def test_import_loads_neither_jax_nor_reference(modules):
+    code = (f"import sys, {modules}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -58,31 +64,116 @@ def test_reads_no_reference_environment_defaults():
         assert "REPRO_BACKEND" not in text and "REPRO_DTYPE" not in text, path
 
 
-def test_default_context_is_on_the_card():
+def _context(**kw):
     from repro_torch.core import ArrayContext
 
-    if torch.cuda.is_available():
-        ctx = ArrayContext()
+    ctx = ArrayContext(**kw)
+    if kw.get("device") is None:
         assert ctx.backend == "cuda"
-        assert ctx.executor.backend.devices[0].type == "cuda"
+        assert ArrayContext(backend="torch", device="cuda").backend == "torch"
+    return ctx.executor.backend.devices[0]
+
+
+def _serve(**kw):
+    from repro_torch.launch.serve import serve_demo
+
+    record = {}
+    serve_demo(batch=1, prompt_len=4, gen=2, log_fn=lambda *a: None, record=record, **kw)
+    return record["device"]
+
+
+def _carry(**kw):
+    from repro_torch.interop import params_from_jax
+
+    return params_from_jax({"w": np.zeros((2, 3), np.float32)}, **kw)["w"].device
+
+
+@pytest.mark.parametrize("entry", [_context, _serve, _carry],
+                         ids=["ArrayContext", "serve_demo", "params_from_jax"])
+def test_default_context_is_on_the_card(entry):
+    """Without ``device`` an entry point runs on the card, and raises where
+    there is none; ``device="cpu"`` runs on the CPU."""
+    if torch.cuda.is_available():
+        assert entry().type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
-            ArrayContext()
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            ArrayContext(backend="torch", device="cuda")
-    assert ArrayContext(device="cpu").executor.backend.devices == [torch.device("cpu")]
+            entry()
+    assert entry(device="cpu") == torch.device("cpu")
 
 
-def test_features_of_later_slices_raise():
+def _block_runtime_feature(name):
     from repro_torch.core import ArrayContext
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ArrayContext(device="cpu", trace=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ArrayContext(device="cpu", calibration={})
+    if name == "trace":
+        return ArrayContext(device="cpu", trace=True)
+    if name == "calibration":
+        return ArrayContext(device="cpu", calibration={})
+    if name == "restore":
+        return ArrayContext.restore("d")
     ctx = ArrayContext(device="cpu")
     X = ctx.random((8, 4), grid=(2, 1))
-    for call in (lambda: ctx.enable_chaos(None), lambda: ctx.checkpoint([X], "d"),
-                 lambda: ArrayContext.restore("d"), lambda: X.reshard(grid=(1, 1))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    if name == "chaos":
+        return ctx.enable_chaos(None)
+    if name == "checkpoint":
+        return ctx.checkpoint([X], "d")
+    return X.reshard(grid=(1, 1))
+
+
+def _hymba(**changes):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), n_layers=1, **changes)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def _lm_feature(name):
+    from repro_torch.models import MoEConfig, decode_step, forward, prefill
+    from repro_torch.models import layers, partitioning
+
+    tokens = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
+    if name == "moe":
+        cfg, params = _hymba(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
+        return forward(params, tokens, cfg)
+    if name == "mrope":
+        cfg, params = _hymba(rope="mrope", mrope_sections=(2, 3, 3))
+        return forward(params, tokens, cfg)
+    if name == "encdec":
+        cfg, params = _hymba()
+        return forward(params, tokens, dataclasses.replace(cfg, encdec=True))
+    if name == "softcap":
+        cfg, params = _hymba(logit_softcap=30.0)
+        return forward(params, tokens, cfg)
+    if name == "per-row pos":
+        cfg, params = _hymba()
+        _, cache = prefill(params, tokens, cfg, 8)
+        cache["pos"] = torch.tensor([4, 3])
+        return decode_step(params, torch.zeros(2, 1, dtype=torch.long), cache, cfg)
+    if name == "non-causal mask":
+        q = torch.zeros(1, 4, 4, 16)
+        return layers.attention_scores(q, q, q, torch.ones(4, 4, dtype=torch.bool))
+    if name == "Rules":
+        return partitioning.Rules(None)
+    if name == "sharded steps":
+        from repro_torch.train import make_prefill
+
+        cfg, params = _hymba()
+        return make_prefill(cfg, max_len=8, rules=object())(params, tokens)
+    from repro_torch.configs import get_config
+
+    return get_config(name)
+
+
+@pytest.mark.parametrize("feature", [
+    ("block", "trace"), ("block", "calibration"), ("block", "chaos"),
+    ("block", "checkpoint"), ("block", "restore"), ("block", "reshard"),
+    ("lm", "moe"), ("lm", "mrope"), ("lm", "encdec"), ("lm", "softcap"),
+    ("lm", "per-row pos"), ("lm", "non-causal mask"), ("lm", "Rules"),
+    ("lm", "sharded steps"), ("lm", "gemma3-4b"), ("lm", "whisper-small"),
+    ("lm", "falcon-mamba-7b"), ("lm", "qwen3-moe-235b-a22b"),
+], ids=lambda f: f[1])
+def test_features_of_later_slices_raise(feature):
+    kind, name = feature
+    call = _block_runtime_feature if kind == "block" else _lm_feature
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        call(name)

@@ -93,7 +93,8 @@ class TestMatmul:
         reset_launches()
         a, b = torch.ones(8, 4), torch.ones(4, 2)
         assert torch.equal(ops.matmul(a, b), matmul_ref(a, b))
-        assert launches == {"matmul": 0, "glm_fused": 0}
+        assert launches == {"matmul": 0, "glm_fused": 0, "flash_attention": 0,
+                            "mamba_scan": 0}
 
     @pytest.mark.parametrize("M,N,K", [
         (131072, 1, 256),      # X @ beta
