@@ -20,8 +20,9 @@ main paths at full width:
   ``serve_demo``, with every layer's attention on the flash-attention
   kernel and every layer's prefill scan on the selective-scan kernel; the
   same weights served through the plain versions (teacher-forced with the
-  kernel run's tokens) give the same logits to a bf16 tolerance, and an f32
-  run at full width and 8 layers agrees to 1e-4 with the same tokens.
+  kernel run's tokens) give the same logits to a bf16 tolerance, which a
+  planted fault (the local layers' window removed) is shown to exceed; an
+  f32 run at full width and 8 layers agrees to 1e-4 with the same tokens.
 
 Each phase prints one JSON line; the kernel line, the card's name and power
 limit, and a final ``{"ok": true, ...}`` line close the output.  Any
@@ -76,11 +77,12 @@ SCAN_TOL = 1e-4
 #: serve path, kernel route against plain route on the same weights, relative
 #: to max|logit|.  bf16: the plain route is the reference's model attention,
 #: which rounds scores and probabilities to bf16 where the kernel keeps f32;
-#: that difference alone moves the logits of a 32-layer, d = 256 hymba by
-#: 4-7% of max|logit| (measured on the CPU), so the bound is 0.2, about 3x
-#: that: it catches a wrong mask or a dropped layer, not rounding.
-#: f32: 1e-4, as the CPU tests hold the port to the reference.
-SERVE_TOL = {"bfloat16": 0.2, "float32": 1e-4}
+#: at SERVE that difference alone moved the logits by 4.7-4.9% at prefill
+#: and 5.3-5.5% at worst over decode (this script on an NVIDIA H100 80GB
+#: HBM3 at 700 W), so the bound is 0.1, about 2x that.  serve_phase shows a planted fault (the local
+#: layers' window removed) exceeding it.  f32: 1e-4, as the CPU tests hold
+#: the port to the reference.
+SERVE_TOL = {"bfloat16": 0.1, "float32": 1e-4}
 
 NEWTON = dict(n=1 << 22, d=CONFIG.n_features, q=32, iters=3)
 DGEMM = dict(dim=16384, g=4)
@@ -89,6 +91,8 @@ CONTRACT_N = 1 << 16
 SERVE = dict(arch="hymba-1.5b", batch=8, prompt_len=2048, gen=32)
 #: the f32 check: full width, 8 layers (layer 7 is the first global one)
 SERVE_F32_LAYERS = 8
+#: depth of the warm-up runs before each timed pair of serve runs
+SERVE_WARM_LAYERS = 2
 MATMUL_SRC = ("src/repro_torch/csrc/matmul.cu", "src/repro/kernels/matmul.py:35")
 GLM_SRC = ("src/repro_torch/csrc/glm_fused.cu", "src/repro/kernels/glm_fused.py:26")
 FLASH_SRC = ("src/repro_torch/csrc/flash_attention.cu",
@@ -422,17 +426,18 @@ def contracts(dev):
     check(res["rel_err_vs_numpy"] <= RTOL, f"contracts {res}")
 
 
-def serve_run(dev, params, impl, dtype=None, n_layers=None, forced=None):
-    """One serve_demo run of SERVE on the card with its launches and peak
-    memory; the launch counts are set to 0 just before it."""
+def serve_run(dev, cfg, params, impl, forced=None, gen=None):
+    """One serve_demo run of model ``cfg`` at SERVE's batch and prompt on the
+    card, with its launches and peak memory; the launch counts are set to 0
+    just before it."""
     record = {}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    tokens = serve_demo(SERVE["arch"], SERVE["batch"], SERVE["prompt_len"], SERVE["gen"],
-                        reduced=False, device=dev, params=params, n_layers=n_layers,
-                        dtype=dtype, impl=impl, forced=forced, record=record,
+    tokens = serve_demo(cfg, SERVE["batch"], SERVE["prompt_len"], gen or SERVE["gen"],
+                        device=dev,
+                        params=params, impl=impl, forced=forced, record=record,
                         log_fn=lambda line: print(f"# {line}", file=sys.stderr))
     record.update(tokens=tokens, launches=dict(launches),
                   max_memory_allocated=torch.cuda.max_memory_allocated(dev))
@@ -460,18 +465,46 @@ def serve_compare(label, kern, plain, tol):
     check(finite and max(per_step) <= tol, f"serve {label}: rel err {per_step} > {tol}")
 
 
+def serve_warm_up(dev, cfg):
+    """Both routes at SERVE_WARM_LAYERS layers and the same shapes, so that
+    the timed runs after it find the libraries' kernels for these shapes
+    chosen and the allocator's pool grown, whichever route runs first."""
+    cfg = dataclasses.replace(cfg, n_layers=SERVE_WARM_LAYERS)
+    for impl in ("kernel", "plain"):
+        serve_run(dev, cfg, None, impl)
+
+
+def planted_faults(dev, cfg, params, plain):
+    """Prefill's last-position logits of the kernel route with a fault
+    planted, against the plain route's correct ones (``plain``), relative
+    to max|logit| as in serve_compare: the local layers' window removed
+    (every layer global), and the last layer dropped.  The bf16 limit must
+    catch the first; the second is read only."""
+    scale = float(np.abs(plain["logits"]).max())
+    layers = {name: {k: v[:-1] for k, v in group.items()}
+              for name, group in params["layers"].items()}
+    faults = {"no_window": (dataclasses.replace(cfg, window=None), params),
+              "last_layer_dropped": (dataclasses.replace(cfg, n_layers=cfg.n_layers - 1),
+                                     dict(params, layers=layers))}
+    res = {}
+    for name, (fcfg, fparams) in faults.items():
+        rec = serve_run(dev, fcfg, fparams, "kernel", gen=1)
+        res[name] = float(np.abs(rec["logits"][0] - plain["logits"][0]).max() / scale)
+    emit("serve_bf16_planted_faults", rel_err_prefill=res, tol=SERVE_TOL["bfloat16"])
+    check(res["no_window"] > SERVE_TOL["bfloat16"],
+          f"the bf16 limit misses a planted fault: {res}")
+
+
 def serve_phase(dev):
     """hymba-1.5b served through the kernels and through the plain versions
     on the same weights: bf16 at the published depth, then f32 at 8 layers.
     Returns the kernel route's launches in the bf16 run (the main path)."""
     cfg = get_config(SERVE["arch"])
     L = cfg.n_layers
-    # a 2-layer run at the same shapes first: the timed runs then find the
-    # libraries' kernels for these shapes chosen and the allocator's pool grown
-    serve_run(dev, None, "kernel", n_layers=2)
+    serve_warm_up(dev, cfg)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    kern = serve_run(dev, params, "kernel")
-    plain = serve_run(dev, params, "plain", forced=kern["tokens"])
+    kern = serve_run(dev, cfg, params, "kernel")
+    plain = serve_run(dev, cfg, params, "plain", forced=kern["tokens"])
     serve_compare("bf16", kern, plain, SERVE_TOL["bfloat16"])
     want = {"flash_attention": L * SERVE["gen"], "mamba_scan": L}
     got = {k: kern["launches"][k] for k in want}
@@ -479,17 +512,18 @@ def serve_phase(dev):
     check(plain["launches"]["flash_attention"] == plain["launches"]["mamba_scan"] == 0,
           f"serve bf16 plain route launched kernels: {plain['launches']}")
     main_launches = kern["launches"]
+    planted_faults(dev, cfg, params, plain)
     del params, kern, plain
 
-    L32 = SERVE_F32_LAYERS
-    params = init_params(dataclasses.replace(cfg, n_layers=L32, dtype="float32"),
-                         torch.Generator(device=dev).manual_seed(0))
-    kern = serve_run(dev, params, "kernel", "float32", L32)
-    plain = serve_run(dev, params, "plain", "float32", L32, forced=kern["tokens"])
+    cfg32 = dataclasses.replace(cfg, n_layers=SERVE_F32_LAYERS, dtype="float32")
+    serve_warm_up(dev, cfg32)
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
+    kern = serve_run(dev, cfg32, params, "kernel")
+    plain = serve_run(dev, cfg32, params, "plain", forced=kern["tokens"])
     serve_compare("f32", kern, plain, SERVE_TOL["float32"])
     check(np.array_equal(kern["tokens"], plain["tokens"]),
           "serve f32: greedy tokens differ between the routes")
-    want = {"flash_attention": L32 * SERVE["gen"], "mamba_scan": L32}
+    want = {"flash_attention": cfg32.n_layers * SERVE["gen"], "mamba_scan": cfg32.n_layers}
     check({k: kern["launches"][k] for k in want} == want,
           f"serve f32 kernel launches {kern['launches']} != {want}")
     del params, kern, plain

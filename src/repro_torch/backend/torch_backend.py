@@ -301,6 +301,8 @@ def resolve_devices(devices: Optional[list]) -> list:
 
 
 def resolve_device(device=None) -> torch.device:
-    """One device: ``None`` means the first CUDA device and raises where
-    there is none."""
+    """One device: ``None`` or ``"cuda"`` means the first CUDA device and
+    raises where there is none."""
+    if device is not None and str(device) == "cuda":
+        device = None
     return resolve_devices(None if device is None else [device])[0]

@@ -14,7 +14,6 @@ seed, as in the reference driver.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 from typing import Any, Dict, Optional
 
@@ -23,7 +22,7 @@ import torch
 
 from repro_torch.backend.torch_backend import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.models import decode_step, init_params, param_shapes
+from repro_torch.models import ModelConfig, decode_step, init_params, param_shapes
 from repro_torch.models.transformer import _leaves
 from repro_torch.train import make_prefill
 
@@ -39,29 +38,22 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve_demo(arch: str = "hymba-1.5b", batch: int = 4, prompt_len: int = 16,
-               gen: int = 16, reduced: bool = True, seed: int = 0, log_fn=print, *,
-               device=None, params: Optional[Dict[str, Any]] = None,
-               n_layers: Optional[int] = None, dtype: Optional[str] = None,
-               impl: str = "kernel", forced: Optional[np.ndarray] = None,
+def serve_demo(cfg: ModelConfig, batch: int = 4, prompt_len: int = 16, gen: int = 16,
+               seed: int = 0, log_fn=print, *, device=None,
+               params: Optional[Dict[str, Any]] = None, impl: str = "kernel",
+               forced: Optional[np.ndarray] = None,
                record: Optional[Dict[str, Any]] = None) -> np.ndarray:
-    """Serve one batch: prefill ``prompt_len`` tokens, then ``gen - 1``
-    greedy decode steps; returns the (batch, gen) generated tokens.
+    """Serve one batch of model ``cfg``: prefill ``prompt_len`` tokens, then
+    ``gen - 1`` greedy decode steps; returns the (batch, gen) generated
+    tokens.
 
     ``device`` None means the card.  ``params`` are carried-in weights (e.g.
-    ``interop.params_from_jax``) in place of random ones; ``n_layers`` cuts
-    the depth and ``dtype`` overrides the configuration's.  ``impl`` is the
+    ``interop.params_from_jax``) in place of random ones.  ``impl`` is the
     route of attention and the scan (``"kernel"`` or ``"plain"``).
     ``forced`` (batch, gen) tokens are fed back in place of the greedy ones
     (teacher forcing: the returned tokens are still the greedy picks).
     ``record``, when given, receives the timings and every step's logits."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
-    if n_layers is not None or dtype is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
-                                  dtype=dtype or cfg.dtype)
     if params is None:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
     want = dict(_leaves(param_shapes(cfg)))
@@ -115,8 +107,9 @@ def main() -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
     args = ap.parse_args()
-    serve_demo(args.arch, args.batch, args.prompt_len, args.gen,
-               reduced=not args.full, seed=args.seed, device=args.device)
+    cfg = get_config(args.arch)
+    serve_demo(cfg if args.full else cfg.reduced(), args.batch, args.prompt_len, args.gen,
+               seed=args.seed, device=args.device)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,10 @@ prompt.  On the kernel route (``impl="kernel"``, the default) that is
 ``kernels.ops.mamba_scan`` — the hand-written scan on a CUDA tensor, its
 plain version on a CPU tensor — which also returns the final carry h_S, the
 SSM state decoding continues from.  The plain route (``impl="plain"``) is
-:func:`ssm_scan` over every step, as the reference's associative scan.
-Decode (S == 1) carries (conv_state, ssm_state) and does one torch step.
+that kernel's plain version, ``kernels.mamba_scan.mamba_scan_ref``, called
+directly: the reference's ``ssm_scan`` followed by the C contraction, without
+keeping every h_t.  Decode (S == 1) carries (conv_state, ssm_state) and does
+one torch step.
 """
 from __future__ import annotations
 
@@ -17,19 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels.mamba_scan import mamba_scan_ref
 from .layers import IMPLS
 from .partitioning import constrain
-
-
-def ssm_scan(dA: torch.Tensor, dBx: torch.Tensor) -> torch.Tensor:
-    """h_t = dA_t * h_{t-1} + dBx_t along axis 1 (seq), from h_0 = 0; every
-    h_t is returned.  Shapes (B, S, DI, N)."""
-    h = torch.empty_like(dBx)
-    state = torch.zeros_like(dBx[:, 0])
-    for t in range(dA.shape[1]):
-        state = dA[:, t] * state + dBx[:, t]
-        h[:, t] = state
-    return h
 
 
 def _ssm_core(params, xz, cfg, conv_state=None, ssm_state=None, impl: str = "kernel"):
@@ -69,12 +61,8 @@ def _ssm_core(params, xz, cfg, conv_state=None, ssm_state=None, impl: str = "ker
     else:
         if ssm_state is not None:  # continue a scan from carried state
             dBx[:, 0] += dA[:, 0] * ssm_state
-        if impl == "kernel":
-            y, new_ssm = ops.mamba_scan(dA, dBx, C32.contiguous())
-        else:
-            h = ssm_scan(dA, dBx)                         # (B, S, DI, N)
-            new_ssm = h[:, -1]
-            y = torch.einsum("bsdn,bsn->bsd", h, C32)
+        scan = ops.mamba_scan if impl == "kernel" else mamba_scan_ref
+        y, new_ssm = scan(dA, dBx, C32.contiguous())
     y = y.to(x.dtype)
     y = y + params["D"][None, None, :] * x
     y = y * F.silu(z)

@@ -14,6 +14,8 @@ Tolerances, relative to the largest plain value: matmul 1e-4 at f32 and
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -238,14 +240,16 @@ def test_hymba_serve_on_card_kernel_route_matches_plain(cuda_device):
     layer's attention and prefill scan launched its kernel."""
     from repro_torch.launch.serve import serve_demo
 
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), n_layers=8)
     rec_k, rec_p = {}, {}
     reset_launches()
-    toks = serve_demo("hymba-1.5b", 2, 40, 6, device="cuda", n_layers=8,
-                      record=rec_k, log_fn=lambda *a: None)
+    toks = serve_demo(cfg, 2, 40, 6, device="cuda", record=rec_k, log_fn=lambda *a: None)
     assert launches["flash_attention"] == 8 * 6 and launches["mamba_scan"] == 8
     reset_launches()
-    plain = serve_demo("hymba-1.5b", 2, 40, 6, device="cuda", n_layers=8, impl="plain",
-                       forced=toks, record=rec_p, log_fn=lambda *a: None)
+    plain = serve_demo(cfg, 2, 40, 6, device="cuda", impl="plain", forced=toks,
+                       record=rec_p, log_fn=lambda *a: None)
     assert launches["flash_attention"] == launches["mamba_scan"] == 0
     lk, lp = rec_k["logits"], rec_p["logits"]
     assert np.abs(lk - lp).max() <= 1e-4 * np.abs(lp).max()

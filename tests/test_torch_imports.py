@@ -68,17 +68,23 @@ def _context(**kw):
     from repro_torch.core import ArrayContext
 
     ctx = ArrayContext(**kw)
-    if kw.get("device") is None:
-        assert ctx.backend == "cuda"
-        assert ArrayContext(backend="torch", device="cuda").backend == "torch"
+    if kw.get("device") != "cpu":
+        assert ctx.backend == kw.get("backend", "cuda")
     return ctx.executor.backend.devices[0]
 
 
+def _context_torch(**kw):
+    return _context(backend="torch", **kw)
+
+
 def _serve(**kw):
+    from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve_demo
 
     record = {}
-    serve_demo(batch=1, prompt_len=4, gen=2, log_fn=lambda *a: None, record=record, **kw)
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), n_layers=1)
+    serve_demo(cfg, batch=1, prompt_len=4, gen=2, log_fn=lambda *a: None, record=record,
+               **kw)
     return record["device"]
 
 
@@ -88,16 +94,19 @@ def _carry(**kw):
     return params_from_jax({"w": np.zeros((2, 3), np.float32)}, **kw)["w"].device
 
 
-@pytest.mark.parametrize("entry", [_context, _serve, _carry],
-                         ids=["ArrayContext", "serve_demo", "params_from_jax"])
+@pytest.mark.parametrize("entry", [_context, _context_torch, _serve, _carry],
+                         ids=["ArrayContext", "ArrayContext torch", "serve_demo",
+                              "params_from_jax"])
 def test_default_context_is_on_the_card(entry):
-    """Without ``device`` an entry point runs on the card, and raises where
-    there is none; ``device="cpu"`` runs on the CPU."""
-    if torch.cuda.is_available():
-        assert entry().type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            entry()
+    """Without ``device``, and with ``device="cuda"``, an entry point runs on
+    the card, and raises where there is none; ``device="cpu"`` runs on the
+    CPU."""
+    for kw in ({}, {"device": "cuda"}):
+        if torch.cuda.is_available():
+            assert entry(**kw).type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                entry(**kw)
     assert entry(device="cpu") == torch.device("cpu")
 
 

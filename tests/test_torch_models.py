@@ -120,8 +120,9 @@ def test_serve_demo_generates_the_reference_sequences():
     params = params_from_jax(
         jax.tree.map(np.asarray, ref_init_params(rcfg, jax.random.PRNGKey(0))), device="cpu")
     record = {}
-    seqs = serve_demo("hymba-1.5b", batch=2, prompt_len=8, gen=6, seed=0, device="cpu",
-                      params=params, record=record, log_fn=lambda *a: None)
+    seqs = serve_demo(get_config("hymba-1.5b").reduced(), batch=2, prompt_len=8, gen=6,
+                      seed=0, device="cpu", params=params, record=record,
+                      log_fn=lambda *a: None)
     np.testing.assert_array_equal(seqs, seqs_ref)
     assert record["logits"].shape == (6, 2, rcfg.vocab)
     assert record["prefill_s"] > 0 and record["decode_s"] > 0
@@ -131,16 +132,17 @@ def test_serve_demo_teacher_forcing_feeds_the_given_tokens():
     """With ``forced`` tokens the decode inputs are those tokens; the plain
     route, forced with the kernel route's picks, gives the same logits."""
     rec_k, rec_p = {}, {}
-    seqs = serve_demo(batch=2, prompt_len=20, gen=5, device="cpu", n_layers=3,
-                      record=rec_k, log_fn=lambda *a: None)
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), n_layers=3)
+    seqs = serve_demo(cfg, batch=2, prompt_len=20, gen=5, device="cpu", record=rec_k,
+                      log_fn=lambda *a: None)
     forced = np.zeros_like(seqs)
     rec_f = {}
-    serve_demo(batch=2, prompt_len=20, gen=5, device="cpu", n_layers=3, forced=forced,
+    serve_demo(cfg, batch=2, prompt_len=20, gen=5, device="cpu", forced=forced,
                record=rec_f, log_fn=lambda *a: None)
     np.testing.assert_array_equal(rec_f["logits"][0], rec_k["logits"][0])
     assert not np.array_equal(rec_f["logits"][1:], rec_k["logits"][1:])
-    plain = serve_demo(batch=2, prompt_len=20, gen=5, device="cpu", n_layers=3,
-                       impl="plain", forced=seqs, record=rec_p, log_fn=lambda *a: None)
+    plain = serve_demo(cfg, batch=2, prompt_len=20, gen=5, device="cpu", impl="plain",
+                       forced=seqs, record=rec_p, log_fn=lambda *a: None)
     np.testing.assert_array_equal(plain, seqs)
     assert np.abs(rec_p["logits"] - rec_k["logits"]).max() <= TOL * np.abs(
         rec_k["logits"]).max()
@@ -158,7 +160,8 @@ def test_cache_overflow_raises():
 def test_serve_demo_rejects_params_of_another_model():
     params = init_params(get_config("hymba-1.5b").reduced(), torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="params do not fit"):
-        serve_demo(batch=1, prompt_len=4, gen=2, device="cpu", n_layers=3, params=params)
+        serve_demo(dataclasses.replace(get_config("hymba-1.5b").reduced(), n_layers=3),
+                   batch=1, prompt_len=4, gen=2, device="cpu", params=params)
 
 
 def test_init_params_follows_the_reference_scheme():

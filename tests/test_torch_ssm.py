@@ -5,7 +5,8 @@ tensor; it is held against ``repro.kernels.ref.mamba_scan_ref`` on the cases
 of ``tests/test_kernels.py`` (the ragged S = 100 included) and against the
 Pallas kernel in interpret mode.  Its final carry, which the Pallas kernel
 never writes, is held against the last step of the reference model's
-``ssm_scan``.  The port's ``ssm_block`` (both routes), with and without a
+``ssm_scan``; the plain version, which the model's plain route calls, is held
+against that ``ssm_scan`` and its C contraction.  The port's ``ssm_block`` (both routes), with and without a
 carried state, is held against the reference's.  Tolerance 1e-4, the
 reference's own.
 """
@@ -25,6 +26,7 @@ from repro.models import ssm as ref_ssm
 from repro.models.transformer import _ssm_shapes
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
+from repro_torch.kernels.mamba_scan import mamba_scan_ref
 from repro_torch.models import ssm
 
 RNG = np.random.default_rng(7)
@@ -65,10 +67,12 @@ def test_final_carry_is_the_last_state_of_ssm_scan(s):
     assert_close(h, ref_ssm.ssm_scan(jnp.asarray(dA), jnp.asarray(dBx))[:, -1])
 
 
-def test_port_ssm_scan_matches_the_reference():
-    dA, dBx, _ = scan_inputs(1, 32, 16, 8)
-    assert_close(ssm.ssm_scan(torch.from_numpy(dA), torch.from_numpy(dBx)),
-                 ref_ssm.ssm_scan(jnp.asarray(dA), jnp.asarray(dBx)))
+def test_plain_scan_matches_the_reference_ssm_scan():
+    dA, dBx, C = scan_inputs(1, 32, 16, 8)
+    h = ref_ssm.ssm_scan(jnp.asarray(dA), jnp.asarray(dBx))
+    y, h_last = mamba_scan_ref(*map(torch.from_numpy, (dA, dBx, C)))
+    assert_close(y, jnp.einsum("bsdn,bsn->bsd", h, jnp.asarray(C)))
+    assert_close(h_last, h[:, -1])
 
 
 @pytest.mark.parametrize("bad,match", [
