@@ -2,11 +2,11 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the four hand-written Hopper kernels from ``src/repro_torch/csrc``
-(``matmul``, ``glm_fused``, ``flash_attention``, ``mamba_scan``; one
-``nvcc`` each, all at once), holds each against its plain PyTorch version at
-its main path's shapes and times both (CUDA events), then drives the two
-main paths at full width:
+Builds the six hand-written Hopper kernels from ``src/repro_torch/csrc``
+(``matmul``, ``glm_fused``, ``flash_attention``, ``flash_attention_bwd``,
+``mamba_scan``, ``mamba_scan_bwd``; one ``nvcc`` each, all at once), holds
+each against its plain PyTorch version at its main path's shapes and times
+both (CUDA events), then drives the three main paths at full width:
 
 - the block runtime: the paper's logistic-regression Newton loop (n = 2**22
   rows x 256 features, float64, 32 row blocks on a 4-node x 8-worker
@@ -22,7 +22,16 @@ main paths at full width:
   same weights served through the plain versions (teacher-forced with the
   kernel run's tokens) give the same logits to a bf16 tolerance, which a
   planted fault (the local layers' window removed) is shown to exceed; an
-  f32 run at full width and 8 layers agrees to 1e-4 with the same tokens.
+  f32 run at full width and 8 layers agrees to 1e-4 with the same tokens;
+- LM training: hymba-1.5b at its published configuration (1.66 B
+  parameters, f32 master weights and AdamW state, bf16 compute, full remat)
+  trains on batches of 4 x 2048 tokens through ``train_loop`` (1 warm-up
+  step, 3 timed), with every layer's attention and scan on their kernels
+  forward (twice: forward and recompute) and backward, launches counted per
+  step; one step's loss and every gradient leaf agree with the plain route
+  on the same weights and batch to a bf16 tolerance that a planted fault
+  (the window dropped in the backward kernel only) exceeds, and in f32 at
+  8 layers to 1e-4; two backward runs give the same bits.
 
 Each phase prints one JSON line; the kernel line, the card's name and power
 limit, and a final ``{"ok": true, ...}`` line close the output.  Any
@@ -51,12 +60,17 @@ from repro_torch.core import ArrayContext, ClusterSpec  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, launches, ops, reset_launches  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention_ref, visible  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.glm_fused import glm_fused_ref  # noqa: E402
-from repro_torch.kernels.mamba_scan import mamba_scan_ref  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.matmul import matmul_ref  # noqa: E402
 from repro_torch.launch.serve import serve_demo  # noqa: E402
+from repro_torch.launch.train import batch_to, train_loop  # noqa: E402
 from repro_torch.launch.workloads import dgemm_graph, logreg_newton_loop  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
+from repro_torch.sharding.plans import SINGLE_CARD  # noqa: E402
+from repro_torch.train import DataConfig, TokenPipeline, make_grad_fn  # noqa: E402
+from repro_torch.models.transformer import _leaves  # noqa: E402
 
 #: published peaks of one H100 SXM (dense, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -93,11 +107,46 @@ SERVE = dict(arch="hymba-1.5b", batch=8, prompt_len=2048, gen=32)
 SERVE_F32_LAYERS = 8
 #: depth of the warm-up runs before each timed pair of serve runs
 SERVE_WARM_LAYERS = 2
+#: the train path: hymba-1.5b at its published width and depth, f32 master
+#: weights and AdamW state, bf16 compute, full remat; 1 warm-up step, then
+#: TRAIN["steps"] timed ones, then one step under torch.profiler
+TRAIN = dict(arch="hymba-1.5b", batch=4, seq=2048, warm=1, steps=3, lr=1e-2)
+#: device kernels of a train step by what they do, matched on their names
+KERNEL_GROUPS = (
+    ("attention forward", ("flash_fwd_kernel",)),
+    ("attention backward", ("dkv_kernel", "dq_kernel", "delta_kernel")),
+    ("scan forward", ("mamba_scan_kernel",)),
+    ("scan backward", ("scan_bwd_kernel", "dc_sum_kernel")),
+    ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
+)
+#: depth of the plain route's gradient step held against the kernel route
+TRAIN_PLAIN_LAYERS = 32
+#: the f32 gradient check: full width, 8 layers (layer 7 global), batch 1
+TRAIN_F32 = dict(layers=8, batch=1)
+#: train path, kernel route against plain route on the same weights and
+#: batch: loss and every gradient leaf, relative to the leaf's max|g|.  bf16:
+#: the plain route is the reference's model attention, which rounds scores
+#: and probabilities to bf16 where the kernels keep f32; at TRAIN that moved
+#: the embedding's gradient by 8.0% of its max and every other leaf by at
+#: most 0.85% (this script on an NVIDIA H100 80GB HBM3 at 700 W), so the
+#: bound is 0.16, about 2x the worst.  train_phase shows a planted fault
+#: (the window dropped in the backward kernel only) exceeding it.  f32:
+#: 1e-4, as the CPU tests hold the port to the reference.
+TRAIN_TOL = {"bfloat16": 0.16, "float32": 1e-4}
 MATMUL_SRC = ("src/repro_torch/csrc/matmul.cu", "src/repro/kernels/matmul.py:35")
 GLM_SRC = ("src/repro_torch/csrc/glm_fused.cu", "src/repro/kernels/glm_fused.py:26")
 FLASH_SRC = ("src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:92")
 SCAN_SRC = ("src/repro_torch/csrc/mamba_scan.cu", "src/repro/kernels/mamba_scan.py:43")
+FLASH_BWD_SRC = ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "src/repro/kernels/flash_attention_bwd.py:52")
+#: no Pallas counterpart: the gradient of row 5, which the reference takes
+#: by jax autodiff of its associative scan
+SCAN_BWD_SRC = ("src/repro_torch/csrc/mamba_scan_bwd.cu",
+                "src/repro/kernels/mamba_scan.py:43 (its gradient; no Pallas kernel)")
+#: every kernel library, built at once
+KERNELS = ["matmul", "glm_fused", "flash_attention", "flash_attention_bwd", "mamba_scan",
+           "mamba_scan_bwd"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -309,6 +358,125 @@ def serve_kernel_phase(dev):
     C = torch.rand(B, S, N, device=dev, generator=g) * 2 - 1
     scan = [scan_case(f"prefill {list(dA.shape)} f32", dA, dBx, C)]
     del dA, dBx, C
+    gc.collect()
+    torch.cuda.empty_cache()
+    return flash, scan
+
+
+def train_shapes():
+    """The train path's attention and scan shapes: hymba-1.5b's heads, state
+    and window at TRAIN's batch and sequence."""
+    cfg = get_config(TRAIN["arch"])
+    return dict(B=TRAIN["batch"], S=TRAIN["seq"], H=cfg.n_heads, KV=cfg.n_kv_heads,
+                hd=cfg.resolved_head_dim, window=cfg.window,
+                DI=cfg.ssm.d_inner(cfg.d_model), N=cfg.ssm.d_state)
+
+
+def flash_bwd_case(name, q, k, v, window):
+    """The backward kernels (dK/dV and dQ) on the forward kernel's own output
+    and lse, against the plain backward on the same inputs."""
+    dtype = q.dtype
+    kw = dict(causal=True, window=window, q_offset=0)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    do = (torch.rand(out.shape, device=q.device, generator=torch.Generator(
+        device=q.device).manual_seed(7)) * 2 - 1).to(dtype)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, do, True, window, 0)
+    sync()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd {name}: two launches differ")
+    errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
+    rels = [e / r.float().abs().max().item() for e, r in zip(errs, ref)]
+    del got, again, ref
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    mask = visible(Sq, Skv, True, window, 0, q.device)
+    pairs = int(mask.sum().item())
+    # the five products S, dP, dV, dK, dQ: 2 flops each per (pair, head, dim);
+    # q, o, do, dq and k, v, dk, dv once each, lse in f32
+    bound_ms, bound_by = bound(10.0 * B * H * pairs * hd,
+                               (4 * B * H * Sq * hd + 4 * B * KV * Skv * hd)
+                               * q.element_size() + 4 * B * H * Sq, dtype)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+    o_lib = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
+                                                             enable_gqa=True)
+    library = lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do,  # noqa: E731
+                                          retain_graph=True)
+    case = dict(case=name, dtype=str(dtype).replace("torch.", ""), q=list(q.shape),
+                kv=list(k.shape), window=window, max_abs_err=max(errs),
+                rel_err={"dq": rels[0], "dk": rels[1], "dv": rels[2]},
+                tol=FLASH_TOL[dtype],
+                ms=time_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)),
+                plain_ms=time_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                                                 True, window, 0),
+                                 max_reps=10),
+                library_ms=time_ms(library),
+                library="scaled_dot_product_attention backward",
+                bound_ms=bound_ms, bound_by=bound_by, peak=PEAK_NAME[dtype])
+    del o_lib, qr, kr, vr
+    emit("kernel_case", kernel="flash_attention_bwd", **case)
+    check(max(rels) <= FLASH_TOL[dtype], f"flash_attention_bwd {name}: rel err {rels}")
+    return case
+
+
+def scan_bwd_case(name, dA, dBx, C, dy):
+    got = ops.mamba_scan_bwd(dA, dBx, C, dy)
+    again = ops.mamba_scan_bwd(dA, dBx, C, dy)
+    ref = mamba_scan_bwd_ref(dA, dBx, C, dy)
+    sync()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"mamba_scan_bwd {name}: two launches differ")
+    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+    rels = [e / r.abs().max().item() for e, r in zip(errs, ref)]
+    del got, again, ref
+    B, S, DI, N = dA.shape
+    # per element and step: h (1 FMA), g (1 FMA + 1 product), d(dA) (1
+    # product), dC's term (1 FMA); dA, dBx, d(dA), d(dBx) once each, and the
+    # (B, S, DI) dy and the (B, S, N) C and dC
+    bound_ms, bound_by = bound(8.0 * B * S * DI * N,
+                               4 * (4 * B * S * DI * N + B * S * DI + 2 * B * S * N),
+                               torch.float32)
+    case = dict(case=name, dtype="float32", shape=[B, S, DI, N], max_abs_err=max(errs),
+                rel_err={"d_dA": rels[0], "d_dBx": rels[1], "dC": rels[2]}, tol=SCAN_TOL,
+                ms=time_ms(lambda: ops.mamba_scan_bwd(dA, dBx, C, dy)),
+                plain_ms=time_ms(lambda: mamba_scan_bwd_ref(dA, dBx, C, dy), max_reps=3),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                peak=PEAK_NAME[torch.float32])
+    emit("kernel_case", kernel="mamba_scan_bwd", **case)
+    check(max(rels) <= SCAN_TOL, f"mamba_scan_bwd {name}: rel err {rels}")
+    return case
+
+
+def train_kernel_phase(dev):
+    """Both backward kernels at the train path's shapes: attention of the
+    global and the local layers (bf16) and of a global layer in f32, and
+    the scan's backward."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    sh = train_shapes()
+    B, S, H, KV, hd = sh["B"], sh["S"], sh["H"], sh["KV"], sh["hd"]
+
+    def u(*shape, dtype):
+        return (torch.rand(shape, device=dev, generator=g) * 2 - 1).to(dtype)
+
+    flash = []
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        q, k, v = u(B, H, S, hd, dtype=dtype), u(B, KV, S, hd, dtype=dtype), u(
+            B, KV, S, hd, dtype=dtype)
+        flash.append(flash_bwd_case(f"train-global {tag}", q, k, v, None))
+        if dtype == torch.bfloat16:
+            flash.append(flash_bwd_case("train-local bf16", q, k, v, sh["window"]))
+        del q, k, v
+        gc.collect()
+        torch.cuda.empty_cache()
+    N, DI = sh["N"], sh["DI"]
+    dA = torch.rand(B, S, DI, N, device=dev, generator=g) * 0.49 + 0.5
+    dBx = torch.rand(B, S, DI, N, device=dev, generator=g) * 2 - 1
+    C = torch.rand(B, S, N, device=dev, generator=g) * 2 - 1
+    dy = torch.rand(B, S, DI, device=dev, generator=g) * 2 - 1
+    scan = [scan_bwd_case(f"train {list(dA.shape)} f32", dA, dBx, C, dy)]
+    del dA, dBx, C, dy
     gc.collect()
     torch.cuda.empty_cache()
     return flash, scan
@@ -532,6 +700,203 @@ def serve_phase(dev):
     return main_launches
 
 
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd")
+
+
+def train_run(dev):
+    """hymba-1.5b trained through ``train_loop`` on the kernel route: one
+    warm-up step, TRAIN["steps"] timed ones, then one under torch.profiler.
+    The launch counts are set to 0 just before the run and read (and set to
+    0 again) after every step.  Returns the launches of the whole run."""
+    cfg = get_config(TRAIN["arch"])
+    L = cfg.n_layers
+    steps = []
+
+    def on_step(step, metrics):
+        steps.append(dict(metrics, step=step, launches={k: launches[k] for k in TRAIN_KERNELS},
+                          max_memory_allocated=torch.cuda.max_memory_allocated(dev)))
+        reset_launches()
+
+    profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+    last_timed = TRAIN["warm"] + TRAIN["steps"] - 1
+
+    def on_step_profiled(step, metrics):
+        on_step(step, metrics)
+        if step == last_timed:
+            profiler.start()  # the next step runs under the profiler
+        elif step == last_timed + 1:
+            profiler.stop()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    state, history = train_loop(TRAIN["arch"], steps=last_timed + 2,
+                                batch=TRAIN["batch"], seq=TRAIN["seq"], reduced=False,
+                                lr=TRAIN["lr"], log_every=1, device=dev,
+                                on_step=on_step_profiled,
+                                log_fn=lambda line: print(f"# {line}", file=sys.stderr))
+    n_params = sum(t.numel() for _, t in _leaves(state["params"]))
+    n_leaves = len(list(_leaves(state["params"])))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = steps[TRAIN["warm"]:last_timed + 1]
+    s_per_step = sum(st["s"] for st in timed) / len(timed)
+    profile = train_profile(profiler, steps[-1]["s"])
+    want = {"flash_attention": 2 * L, "flash_attention_bwd": L, "mamba_scan": 2 * L,
+            "mamba_scan_bwd": L}
+    emit("train_kernel", arch=TRAIN["arch"], n_layers=L, d_model=cfg.d_model,
+         params=n_params, leaves=n_leaves, batch=TRAIN["batch"], seq=TRAIN["seq"],
+         dtype=cfg.dtype, master="float32", remat=SINGLE_CARD.remat,
+         s_per_step=s_per_step, tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / s_per_step,
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         steps=[{k: st[k] for k in ("step", "s", "loss", "grad_norm", "lr", "launches",
+                                    "max_memory_allocated")} for st in steps],
+         launches_per_step_expected=want)
+    emit("train_profile", **profile)
+    check(all(np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"]) for st in steps),
+          f"train: non-finite loss or grad norm {history}")
+    check(n_leaves == 21, f"train: {n_leaves} parameter leaves, not 21")
+    for st in steps:
+        check(st["launches"] == want, f"train step {st['step']} launches "
+                                      f"{st['launches']} != {want}")
+    return {k: sum(st["launches"][k] for st in steps) for k in TRAIN_KERNELS}
+
+
+def train_profile(profiler, step_s):
+    """Device time of the profiled train step by kernel group (the traced
+    device kernels' time), the top kernels, and the device's idle share of
+    the step's wall time (which the profiler's own cost lengthens)."""
+    per_kernel = {}  # device kernels only: operator rows would count them twice
+    for ev in profiler.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            key = ev.key[:120]
+            per_kernel[key] = per_kernel.get(key, 0.0) + ev.self_device_time_total / 1e3  # ms
+    busy_ms = sum(per_kernel.values())
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other (elementwise, reductions, copies, optimizer)"] = 0.0
+    for key, ms in per_kernel.items():
+        name = next((g for g, pats in KERNEL_GROUPS if any(p in key for p in pats)),
+                    "other (elementwise, reductions, copies, optimizer)")
+        groups[name] += ms
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
+    check(busy_ms > 0, "train profile: no device time traced")
+    return dict(step_s=step_s, device_busy_ms=busy_ms,
+                device_idle_share=max(0.0, 1.0 - busy_ms / 1e3 / step_s),
+                groups_ms=groups, top_kernels_ms=dict(top))
+
+
+def _grads(cfg, params, batch, impl, compute_dtype):
+    """(loss, [(path, grad)]) of one gradient step of ``cfg`` (full remat),
+    and the seconds it took."""
+    sync()
+    t0 = time.perf_counter()
+    loss, _aux, grads = make_grad_fn(cfg, SINGLE_CARD, compute_dtype=compute_dtype,
+                                     impl=impl)(params, batch)
+    sync()
+    return loss, list(_leaves(grads)), time.perf_counter() - t0
+
+
+def _cut(params, layers):
+    return dict(params, layers={g: {k: v[:layers] for k, v in leaves.items()}
+                                for g, leaves in params["layers"].items()})
+
+
+def _leaf_errs(got, want):
+    """max|got - want| / max|want| per gradient leaf, keyed by path."""
+    return {"/".join(path): ((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp_min(1e-30)).item()
+            for (path, a), (_, b) in zip(got, want)}
+
+
+def train_compare(label, kern, plain, tol):
+    """Loss and every gradient leaf of the kernel route against the plain
+    route, each relative to the plain leaf's max|g|."""
+    (lk, gk, sk), (lp, gp, sp) = kern, plain
+    per_leaf = _leaf_errs(gk, gp)
+    loss_rel = abs(lk.item() - lp.item()) / abs(lp.item())
+    finite = all(torch.isfinite(a).all().item() for _, a in gk)
+    worst = max(per_leaf, key=per_leaf.get)
+    emit(f"train_{label}", loss_kernel=lk.item(), loss_plain=lp.item(), loss_rel_err=loss_rel,
+         grad_rel_err=per_leaf, worst_leaf=worst, worst_rel_err=per_leaf[worst], tol=tol,
+         kernel_s=sk, plain_s=sp, finite=finite)
+    check(finite and loss_rel <= tol and per_leaf[worst] <= tol,
+          f"train {label}: loss {loss_rel}, worst leaf {worst} {per_leaf[worst]} > {tol}")
+    return per_leaf
+
+
+def train_phase(dev):
+    """Training hymba-1.5b through the kernels (``train_run``), then the
+    gradients of one step on the same weights and first batch: two kernel
+    runs bitwise equal, the kernel route against the plain route (bf16, at
+    TRAIN_PLAIN_LAYERS), a planted fault caught, and f32 at 8 layers.
+    Returns the launches of the train run (the main path's)."""
+    main_launches = train_run(dev)
+    cfg = get_config(TRAIN["arch"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype="float32")
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
+                                    global_batch=TRAIN["batch"]))
+    batch = batch_to(next(pipe), dev)  # train_loop's first batch, on its weights
+
+    # determinism: the same backward twice at the published depth
+    first = _grads(cfg, params, batch, "kernel", "bfloat16")
+    second = _grads(cfg, params, batch, "kernel", "bfloat16")
+    same = (torch.equal(first[0], second[0])
+            and all(torch.equal(a, b) for (_, a), (_, b) in zip(first[1], second[1])))
+    emit("train_determinism", n_layers=cfg.n_layers, bitwise_equal=same,
+         kernel_s=[first[2], second[2]])
+    check(same, "train: two backward runs on the card differ")
+    del second
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_PLAIN_LAYERS)
+    cparams = _cut(params, TRAIN_PLAIN_LAYERS)
+    kern = first if TRAIN_PLAIN_LAYERS == cfg.n_layers else _grads(cut, cparams, batch,
+                                                                   "kernel", "bfloat16")
+    del first
+    reset_launches()
+    plain = _grads(cut, cparams, batch, "plain", "bfloat16")
+    check(all(launches[k] == 0 for k in TRAIN_KERNELS),
+          f"train plain route launched kernels: {dict(launches)}")
+    train_compare("bf16", kern, plain, TRAIN_TOL["bfloat16"])
+    del kern
+
+    # planted fault: the local layers' window dropped in the backward kernel only
+    real_bwd = ops.flash_attention_bwd
+    ops.flash_attention_bwd = lambda *a, **kw: real_bwd(*a, **dict(kw, window=None))
+    try:
+        fault = _grads(cut, cparams, batch, "kernel", "bfloat16")
+    finally:
+        ops.flash_attention_bwd = real_bwd
+    per_leaf = _leaf_errs(fault[1], plain[1])
+    worst = max(per_leaf, key=per_leaf.get)
+    emit("train_bf16_planted_fault", fault="window dropped in the backward kernel",
+         worst_leaf=worst, worst_rel_err=per_leaf[worst], tol=TRAIN_TOL["bfloat16"])
+    check(per_leaf[worst] > TRAIN_TOL["bfloat16"],
+          f"the bf16 train limit misses a planted fault: {worst} {per_leaf[worst]}")
+    del fault, plain, cparams, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # f32: full width, 8 layers, batch 1
+    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_F32["layers"], dtype="float32")
+    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
+    batch = {k: v[:TRAIN_F32["batch"]] for k, v in batch.items()}
+    reset_launches()
+    kern = _grads(cfg32, params, batch, "kernel", "float32")
+    want = {"flash_attention": 2 * cfg32.n_layers, "flash_attention_bwd": cfg32.n_layers,
+            "mamba_scan": 2 * cfg32.n_layers, "mamba_scan_bwd": cfg32.n_layers}
+    got = {k: launches[k] for k in TRAIN_KERNELS}
+    check(got == want, f"train f32 kernel launches {got} != {want}")
+    plain = _grads(cfg32, params, batch, "plain", "float32")
+    train_compare("f32", kern, plain, TRAIN_TOL["float32"])
+    del kern, plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return main_launches
+
+
 def kernel_entry(name, source, cases, headline, main_launches):
     head = next(c for c in cases if c["case"] == headline)
     return dict(name=name, route="cuda", source=source[0], replaces=source[1],
@@ -552,7 +917,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    reports = build.build(["matmul", "glm_fused", "flash_attention", "mamba_scan"])
+    reports = build.build(KERNELS)
     build_s = time.perf_counter() - t0
     for name, report in reports.items():
         for line in report.splitlines():
@@ -567,6 +932,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     flash_cases, scan_cases = serve_kernel_phase(dev)
+    flash_bwd_cases, scan_bwd_cases = train_kernel_phase(dev)
 
     # the runtime's bitwise contracts at n = 2**16 first: they also warm the
     # libraries (cuBLAS, cuSOLVER) and the callable cache both backends share
@@ -602,14 +968,20 @@ def main() -> int:
 
     # main path 2: LM serving, through the attention and scan kernels
     serve_launches = serve_phase(dev)
+    # main path 3: LM training, through the attention and scan kernels and
+    # their backward kernels
+    train_launches = train_phase(dev)
 
     # launches of the main paths' own runs: the block runtime on backend
     # cuda (like the reference's backend, it never routes to glm_fused, held
-    # against its plain version above at the main path's shapes) and the
-    # bf16 serve run through the kernels
+    # against its plain version above at the main path's shapes), the bf16
+    # serve run through the kernels, and the train run
     main_launches = {k: cuda["launches"][k] + dg_cuda["launches"][k]
                      for k in ("matmul", "glm_fused")}
-    main_launches.update({k: serve_launches[k] for k in ("flash_attention", "mamba_scan")})
+    main_launches.update({k: serve_launches[k] + train_launches[k]
+                          for k in ("flash_attention", "mamba_scan")})
+    main_launches.update({k: train_launches[k]
+                          for k in ("flash_attention_bwd", "mamba_scan_bwd")})
     check(main_launches["matmul"] > 0, f"main-path launches {main_launches}")
     print(json.dumps({"kernels": [
         kernel_entry("matmul", MATMUL_SRC, matmul_cases, "X^T(w*X) f64",
@@ -620,6 +992,10 @@ def main() -> int:
                      main_launches["flash_attention"]),
         kernel_entry("mamba_scan", SCAN_SRC, scan_cases, scan_cases[0]["case"],
                      main_launches["mamba_scan"]),
+        kernel_entry("flash_attention_bwd", FLASH_BWD_SRC, flash_bwd_cases,
+                     "train-global bf16", main_launches["flash_attention_bwd"]),
+        kernel_entry("mamba_scan_bwd", SCAN_BWD_SRC, scan_bwd_cases,
+                     scan_bwd_cases[0]["case"], main_launches["mamba_scan_bwd"]),
     ]}, default=float), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

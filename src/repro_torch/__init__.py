@@ -6,6 +6,7 @@ this package imports neither.  Its blocks are torch tensors on the card
 (or on the CPU when asked), and every TPU kernel on its path is a
 hand-written Hopper kernel under ``csrc/``.
 
-Subpackages: core, backend, kernels, glm, configs, launch, obs.
+Subpackages: core, backend, kernels, glm, models, train, checkpoint,
+sharding, configs, launch, obs.
 """
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 """Workload configurations: the paper's own GLM workload (``glm_logreg``)
-and the LM zoo's architectures that the port serves so far (``hymba-1.5b``).
+and the LM zoo's architectures that the port serves and trains so far
+(``hymba-1.5b``).
 
 Each module exports ``CONFIG`` (exact published sizes).  ``get_config(id)``
 and ``list_archs()`` are the programmatic API, as in ``repro.configs``; an

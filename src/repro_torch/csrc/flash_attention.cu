@@ -1,7 +1,10 @@
 // Flash attention forward for Hopper (sm_90a): grouped-query attention with
 // a 1/sqrt(hd) scale, an online softmax over key tiles, causal masking with a
 // query offset, an optional sliding window, and tiles that are wholly masked
-// skipped.  f32 or bf16 in and out, f32 inside.
+// skipped.  f32 or bf16 in and out, f32 inside.  When given an lse buffer it
+// also writes each row's log-sum-exp of scaled scores, lse = m + log(l), as
+// (B, H, Sq) f32 (-inf for a row that sees no key): the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from it.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (body _flash_kernel).
@@ -47,6 +50,7 @@ struct FlashArgs {
   const void* k;
   const void* v;
   void* o;
+  float* lse;   // (B, H, Sq) contiguous, or null: not written
   int64_t q_sb, q_sh, q_ss;  // element strides: batch, head, position
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
@@ -190,11 +194,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
   }
 
   T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh + static_cast<int64_t>(qpos) * a.o_ss;
+  float* lp = a.lse == nullptr ? nullptr
+                               : a.lse + (static_cast<int64_t>(b) * a.KV * a.rep + h) * a.Sq + qpos;
   if (G == 1) {
     if (row_ok) {
       const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // a row that sees no key gives 0
 #pragma unroll
       for (int d = 0; d < HD; ++d) store_to(op + d, acc[d] * inv);
+      if (lp != nullptr) *lp = l > 0.0f ? m + logf(l) : -INFINITY;
     }
     return;
   }
@@ -218,6 +225,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
     if (mg != -INFINITY) L += pl[gg * a.rows + r] * expf(mg - M);
   }
   const float inv = L > 0.0f ? 1.0f / L : 0.0f;
+  if (lp != nullptr && g == 0) *lp = L > 0.0f ? M + logf(L) : -INFINITY;
   for (int d = g; d < HD; d += G) {  // this thread writes every G-th dim of its row
     float o = 0.0f;
     for (int gg = 0; gg < G; ++gg) {
@@ -256,14 +264,14 @@ int launch_hd(int hd, const FlashArgs& a, int B, cudaStream_t s) {
 }  // namespace
 
 extern "C" int repro_flash_attention(
-    int dtype, int hd, const void* q, const void* k, const void* v, void* o,
+    int dtype, int hd, const void* q, const void* k, const void* v, void* o, float* lse,
     int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
     int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
     int B, int KV, int Sq, int Skv, int rep, int rows, int causal, int window,
     int q_offset, float scale, void* stream) {
   if (rows < 1 || rows > NT || (rows & (rows - 1)) != 0 || rows < rep)
     return static_cast<int>(cudaErrorInvalidValue);
-  FlashArgs a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+  FlashArgs a{q, k, v, o, lse, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
               o_sb, o_sh, o_ss, Sq, Skv, KV, rep, rows, rows / rep, causal, window,
               q_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

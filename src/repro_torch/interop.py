@@ -43,12 +43,14 @@ def carry_arrays(ctx: ArrayContext,
 
 def params_from_jax(tree: Mapping[str, Any], device=None,
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-    """The reference's model parameters (``repro.models.init_params``), handed
-    over as a nested dict of numpy arrays, as the port's parameters: the same
-    keys and layouts (``x @ W`` with W (D, H*hd), stacked (L, ...) layer
-    leaves, embed (V, D)), each leaf a plain copy on ``device`` (None: the
-    card).  bfloat16 arrays (numpy's ``ml_dtypes`` type) are carried bit for
-    bit; ``dtype`` casts every leaf."""
+    """The reference's model parameters (``repro.models.init_params``), or a
+    whole train state (``{"params", "opt": {"m", "v", "step"}}``), handed
+    over as a nested dict of numpy arrays, as the port's: the same keys and
+    layouts (``x @ W`` with W (D, H*hd), stacked (L, ...) layer leaves, embed
+    (V, D)), each leaf a plain copy on ``device`` (None: the card).  bfloat16
+    arrays (numpy's ``ml_dtypes`` type) are carried bit for bit; ``dtype``
+    casts every floating-point leaf (an integer step counter keeps its
+    type)."""
     dev = resolve_device(device)
 
     def carry(x):
@@ -59,6 +61,7 @@ def params_from_jax(tree: Mapping[str, Any], device=None,
             t = torch.from_numpy(np.array(arr).view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(np.array(arr))
-        return t.to(device=dev, dtype=dtype or t.dtype)
+        cast = dtype if dtype is not None and t.is_floating_point() else t.dtype
+        return t.to(device=dev, dtype=cast)
 
     return carry(tree)

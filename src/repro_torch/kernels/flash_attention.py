@@ -7,7 +7,10 @@ q (B, H, Sq, hd), k/v (B, KV, Skv, hd); query head h reads kv head
 h // (H / KV).  Key j is visible to query i iff j < Skv and, when causal,
 j <= i + q_offset and, with a window, j > i + q_offset - window.  A query
 that sees no key gets 0 (the Pallas kernel's safe denominator).  The
-softmax runs in f32; the output has q's dtype.
+softmax runs in f32; the output has q's dtype.  Asked for it, both versions
+also return each row's log-sum-exp of scaled scores, lse (B, H, Sq) f32
+(-inf for a row that sees no key), which the backward
+(``flash_attention_bwd``) recomputes the probabilities from.
 """
 from __future__ import annotations
 
@@ -44,8 +47,9 @@ def visible(q_len: int, kv_len: int, causal: bool, window: Optional[int],
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
-                        q_offset: int = 0) -> torch.Tensor:
-    """Plain version: the same online-softmax arithmetic in one pass, in f32."""
+                        q_offset: int = 0, return_lse: bool = False):
+    """Plain version: the same online-softmax arithmetic in one pass, in f32.
+    Returns the output, or (output, lse) with ``return_lse``."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     rep = H // KV
@@ -59,7 +63,11 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     denom = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkrqs,bksd->bkrqd", p, v.float())
     out = out / torch.where(denom == 0.0, 1.0, denom)
-    return out.reshape(B, H, Sq, hd).to(q.dtype)
+    out = out.reshape(B, H, Sq, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(denom > 0.0, m + torch.log(denom), -math.inf)
+    return out, lse.reshape(B, H, Sq)
 
 
 def block_rows(rep: int, Sq: int) -> Tuple[int, int]:
@@ -74,7 +82,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention").repro_flash_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
                        + [ctypes.c_int64] * 12 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
@@ -86,22 +94,26 @@ def _strides(t: torch.Tensor):
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool, window: Optional[int],
-                         q_offset: int) -> torch.Tensor:
+                         causal: bool, window: Optional[int], q_offset: int,
+                         return_lse: bool = False):
     """Launch the kernel on CUDA tensors the wrapper (``ops.flash_attention``)
     has checked.  The output is a (B, H, Sq, hd) view of a buffer laid out
-    (B, Sq, H, hd), the layout the model consumes next."""
+    (B, Sq, H, hd), the layout the model consumes next; with ``return_lse``
+    the kernel also writes lse and (output, lse) is returned."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     rep = H // KV
     rows, _ = block_rows(rep, Sq)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse
+           else None)
     with torch.cuda.device(q.device):
         err = _kernel()(
             DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+            out.data_ptr(), None if lse is None else lse.data_ptr(),
+            *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             B, KV, Sq, Skv, rep, rows, int(causal), window or 0, q_offset,
             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    return out
+    return (out, lse) if return_lse else out

@@ -1,11 +1,12 @@
 """Mamba-1 selective state-space block (counterpart of ``repro.models.ssm``;
 hymba's SSM branch).
 
-Prefill runs the recurrence h_t = dA_t * h_{t-1} + dBx_t over the whole
-prompt.  On the kernel route (``impl="kernel"``, the default) that is
-``kernels.ops.mamba_scan`` — the hand-written scan on a CUDA tensor, its
-plain version on a CPU tensor — which also returns the final carry h_S, the
-SSM state decoding continues from.  The plain route (``impl="plain"``) is
+Prefill and training run the recurrence h_t = dA_t * h_{t-1} + dBx_t over
+the whole sequence.  On the kernel route (``impl="kernel"``, the default)
+that is ``kernels.ops.mamba_scan`` — the hand-written scan on a CUDA tensor,
+its plain version on a CPU tensor, and under autograd the same with its
+backward kernel — which also returns the final carry h_S, the SSM state
+decoding continues from.  The plain route (``impl="plain"``) is
 that kernel's plain version, ``kernels.mamba_scan.mamba_scan_ref``, called
 directly: the reference's ``ssm_scan`` followed by the C contraction, without
 keeping every h_t.  Decode (S == 1) carries (conv_state, ssm_state) and does

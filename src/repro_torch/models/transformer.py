@@ -1,5 +1,5 @@
-"""The LM of the zoo, inference side (counterpart of
-``repro.models.transformer``): decoder-only dense and hybrid stacks.
+"""The LM of the zoo (counterpart of ``repro.models.transformer``):
+decoder-only dense and hybrid stacks, for training and serving.
 
 Parameters are a nested dict of tensors in the reference's layout: layer
 leaves are stacked with a leading L dimension, and the stack is a Python
@@ -7,24 +7,29 @@ loop over layers (the reference's ``lax.scan``), so each layer's attention
 gets its own window: ``cfg.window`` on local layers, none on global ones.
 
 Three entry points share all code paths:
-    forward(params, batch, cfg)              -> logits, aux  [inference]
+    forward(params, batch, cfg, remat)       -> logits, aux  [training]
     prefill(params, batch, cfg, max_len)     -> logits, cache
     decode_step(params, tokens, cache, cfg)  -> logits, cache
 Each runs where its parameters lie (``init_params`` puts them on the
 device of the generator it is given).  ``impl`` picks the route of
-attention and of the prefill scan (see ``layers.py``); ``"kernel"`` is the
-default.  Decoding updates the cache tensors in place and returns the cache
-with its position advanced; the position is a host int that the whole batch
-shares.  MoE, encoder-decoder and training wait for later slices and raise
-``NotImplementedError`` naming their ROADMAP items.
+attention and of the scan (see ``layers.py``); ``"kernel"`` is the default,
+and autograd runs through its kernels' backward kernels.  ``forward`` is
+differentiable, with the reference's remat policies per layer; ``prefill``
+and ``decode_step`` run without autograd.  Decoding updates the cache
+tensors in place and returns the cache with its position advanced; the
+position is a host int that the whole batch shares.  MoE and
+encoder-decoder wait for later slices and raise ``NotImplementedError``
+naming their ROADMAP items.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.utils.checkpoint as torch_checkpoint
 
 from .config import ModelConfig
 from .layers import CausalMask, apply_norm, attention_block, mlp_block, softcap_logits
@@ -34,6 +39,7 @@ from .ssm import ssm_block
 _MOE = "MoE layers are not ported yet: ROADMAP Queue 1 item 6 (the MoE configs)"
 _ENCDEC = ("encoder-decoder models are not ported yet: ROADMAP Queue 1 item 6 "
            "(whisper-small)")
+REMATS = ("none", "dots", "full")
 
 # ---------------------------------------------------------------------------
 # Parameter shapes / init
@@ -240,16 +246,51 @@ def decoder_layer(cfg, lp, x, positions, mask, cache, cache_pos, impl="kernel"):
 # ---------------------------------------------------------------------------
 
 
+def _dots_saveable():
+    """The reference's ``dots_with_no_batch_dims_saveable`` policy as torch's
+    selective checkpoint: the outputs of plain matrix products (``x @ W``,
+    aten.mm/addmm) are saved, everything else is recomputed."""
+    policy_enum = torch_checkpoint.CheckpointPolicy
+    saved = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+    def policy(ctx, op, *args, **kwargs):
+        return policy_enum.MUST_SAVE if op in saved else policy_enum.PREFER_RECOMPUTE
+
+    return functools.partial(torch_checkpoint.create_selective_checkpoint_contexts, policy)
+
+
 def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
-                  cache_pos, impl="kernel"):
+                  cache_pos, impl="kernel", remat: str = "none"):
     """Apply every layer in turn.  ``mask`` is the global layers' mask; a
     local layer takes it with ``cfg.window``.  Each layer's new cache state
-    is written into the stacked ``caches`` in place."""
+    is written into the stacked ``caches`` in place.  ``remat`` ("none",
+    "dots", "full") checkpoints each layer for the backward, as the
+    reference's ``jax.checkpoint`` of its scan body does; it needs
+    ``caches`` None.
+
+    The stacked (L, ...) leaves are split once with ``unbind``: indexing
+    ``t[i]`` per layer would make every layer's backward allocate a zero
+    tensor the size of the whole stacked leaf."""
+    if remat not in REMATS:
+        raise ValueError(f"decoder_stack: remat must be one of {REMATS}, got {remat!r}")
+    if remat != "none" and caches is not None:
+        raise ValueError("decoder_stack: remat is for training; the serving caches "
+                         "are written in place")
+    context_fn = _dots_saveable() if remat == "dots" else None
+    per_layer = _tree_map(lambda t: t.unbind(0), layers)
     for i in range(cfg.n_layers):
-        lp = _tree_map(lambda t: t[i], layers)
+        lp = _tree_map(lambda parts: parts[i], per_layer)
         layer_mask = mask
         if mask is not None and cfg.is_local_layer(i):
             layer_mask = dataclasses.replace(mask, window=cfg.window)
+        if remat != "none":
+            def run(x_in, lp_in, layer_mask=layer_mask):
+                return decoder_layer(cfg, lp_in, x_in, positions, layer_mask, None, None,
+                                     impl)[0]
+
+            kw = {} if context_fn is None else {"context_fn": context_fn}
+            x = torch_checkpoint.checkpoint(run, x, lp, use_reentrant=False, **kw)
+            continue
         cache_l = None if caches is None else {k: t[i] for k, t in caches.items()}
         x, new_cache = decoder_layer(cfg, lp, x, positions, layer_mask, cache_l,
                                      cache_pos, impl)
@@ -308,9 +349,10 @@ def _positions(B, S, offset, device):
     return torch.arange(offset, offset + S, device=device).expand(B, S)
 
 
-@torch.no_grad()
-def forward(params, batch, cfg: ModelConfig, impl: str = "kernel"):
-    """Full-sequence logits (+ the MoE aux loss, 0 here); inference only."""
+def forward(params, batch, cfg: ModelConfig, remat: str = "none", impl: str = "kernel"):
+    """Training forward: full-sequence logits (+ the MoE aux loss, 0 here).
+    Differentiable; ``remat`` checkpoints each layer (see
+    ``decoder_stack``)."""
     if cfg.encdec:
         raise NotImplementedError(_ENCDEC)
     x = _embed_inputs(cfg, params, batch)
@@ -319,7 +361,7 @@ def forward(params, batch, cfg: ModelConfig, impl: str = "kernel"):
     if positions is None and cfg.rope != "none":
         positions = _positions(B, S, 0, x.device)
     x, _ = decoder_stack(cfg, params["layers"], x, positions, CausalMask(S, S), None,
-                         None, impl)
+                         None, impl, remat)
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return _lm_logits(cfg, params, x), torch.zeros((), device=x.device)
 

@@ -10,7 +10,7 @@ Tolerances, relative to the largest plain value: matmul 1e-4 at f32 and
 2e-2 at bf16 (the reference's own kernel-test tolerances), 1e-10 at f64
 (another summation order); GLM quantities 1e-6 absolute (f32 values in
 [-1, 1]); flash attention 2e-5 at f32 and 3e-2 at bf16, the selective scan
-1e-4 (the reference's tolerances for those kernels).
+1e-4 (the reference's tolerances for those kernels), forward and backward.
 """
 from __future__ import annotations
 
@@ -23,8 +23,9 @@ import torch
 from repro_torch.core import ArrayContext, ClusterSpec
 from repro_torch.kernels import launches, ops, reset_launches
 from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref
 from repro_torch.kernels.glm_fused import glm_fused_ref
-from repro_torch.kernels.mamba_scan import mamba_scan_ref
+from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref
 from repro_torch.kernels.matmul import matmul_ref
 from repro_torch.launch.workloads import logreg_newton_loop
 
@@ -133,7 +134,8 @@ def test_newton_step_with_kernels_on_card(cuda_device):
         scale = scale + X.abs().mT @ (mu64 - y).abs()
         hess64 = hess64 + X.mT @ ((mu64 * (1 - mu64)) * X)
     assert dict(launches) == {"matmul": 3 * len(Xs), "glm_fused": len(Xs),
-                              "flash_attention": 0, "mamba_scan": 0}
+                              "flash_attention": 0, "flash_attention_bwd": 0,
+                              "mamba_scan": 0, "mamba_scan_bwd": 0}
     assert ((grad - grad64).abs().max() / scale.max()).item() < 1e-5
     assert ((hess - hess64).abs().max() / hess64.abs().max()).item() < 1e-5
 
@@ -254,3 +256,111 @@ def test_hymba_serve_on_card_kernel_route_matches_plain(cuda_device):
     lk, lp = rec_k["logits"], rec_p["logits"]
     assert np.abs(lk - lp).max() <= 1e-4 * np.abs(lp).max()
     assert np.array_equal(toks, plain)
+
+
+def _rel_err(got, ref) -> float:
+    ref = ref.float()
+    return (got.float() - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_lse_and_backward_kernels_vs_plain(cuda_device, case, dtype):
+    """The forward's lse and the backward kernels against their plain
+    versions on the same inputs (the kernel's own O and lse), and two
+    backward launches give the same bits."""
+    B, H, KV, Sq, Skv, hd, causal, window, q_offset = case
+    q = _uniform(1, (B, H, Sq, hd), cuda_device, dtype)
+    k = _uniform(2, (B, KV, Skv, hd), cuda_device, dtype)
+    v = _uniform(3, (B, KV, Skv, hd), cuda_device, dtype)
+    do = _uniform(4, (B, H, Sq, hd), cuda_device, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    reset_launches()
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    _, lse_ref = flash_attention_ref(q, k, v, causal, window, q_offset, return_lse=True)
+    seen = torch.isfinite(lse_ref)
+    assert torch.equal(seen, torch.isfinite(lse))
+    assert (lse - lse_ref)[seen].abs().max().item() <= 1e-5 * lse_ref[seen].abs().max()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == 1 and launches["flash_attention_bwd"] == 2
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, q_offset)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a) and g.dtype == dtype and g.shape == r.shape
+        assert _rel_err(g, r) <= FLASH_TOL[dtype], _rel_err(g, r)
+
+
+def test_flash_attention_autograd_on_card_matches_autograd_of_plain(cuda_device):
+    """Through the model's layout (transposed views of (B, S, H, hd)), with
+    a ragged length and a window: the Function's gradients against torch
+    autograd of the plain forward."""
+    qm = _uniform(5, (2, 300, 25, 64), cuda_device, torch.float32).requires_grad_()
+    km = _uniform(6, (2, 300, 5, 64), cuda_device, torch.float32).requires_grad_()
+    vm = _uniform(7, (2, 300, 5, 64), cuda_device, torch.float32).requires_grad_()
+    w = _uniform(8, (2, 25, 300, 64), cuda_device, torch.float32)
+    grads = []
+    for fn in (ops.flash_attention, None):
+        q, k, v = qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2)
+        out = (fn(q, k, v, window=100) if fn is not None
+               else flash_attention_ref(q, k, v, True, 100, 0))
+        grads.append(torch.autograd.grad((out * w).sum(), (qm, km, vm)))
+    for g, r in zip(*grads):
+        assert _rel_err(g, r) <= 2e-5
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["dy", "dy+dh"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=str)
+def test_mamba_scan_backward_kernel_vs_plain(cuda_device, shape, seeded):
+    B, S, DI, N = shape
+    dA = _uniform(6, shape, cuda_device, torch.float32) * 0.245 + 0.745
+    dBx = _uniform(7, shape, cuda_device, torch.float32)
+    C = _uniform(8, (B, S, N), cuda_device, torch.float32)
+    dy = _uniform(9, (B, S, DI), cuda_device, torch.float32)
+    dh = _uniform(10, (B, DI, N), cuda_device, torch.float32) if seeded else None
+    reset_launches()
+    got = ops.mamba_scan_bwd(dA, dBx, C, dy, dh)
+    again = ops.mamba_scan_bwd(dA, dBx, C, dy, dh)
+    torch.cuda.synchronize()
+    assert launches["mamba_scan_bwd"] == 2
+    for g, a, r in zip(got, again, mamba_scan_bwd_ref(dA, dBx, C, dy, dh)):
+        assert torch.equal(g, a)
+        assert _rel_err(g, r) <= 1e-4
+
+
+def test_hymba_train_step_on_card_launches_every_kernel(cuda_device):
+    """One reduced train step on the card with full remat: per layer the
+    attention and scan forwards launch twice (forward and recompute), their
+    backwards once; the gradients match the plain route's to 1e-4 and two
+    backward passes give the same bits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import init_params
+    from repro_torch.sharding.plans import SINGLE_CARD
+    from repro_torch.train import DataConfig, TokenPipeline, make_grad_fn
+    from repro_torch.models.transformer import _leaves
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), n_layers=8)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    batch = batch_to(next(TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=40,
+                                                   global_batch=2))), cuda_device)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        reset_launches()
+        runs[impl] = make_grad_fn(cfg, SINGLE_CARD, compute_dtype="float32",
+                                  impl=impl)(params, batch)
+        torch.cuda.synchronize()
+        if impl == "kernel":
+            assert {k: launches[k] for k in ("flash_attention", "flash_attention_bwd",
+                                             "mamba_scan", "mamba_scan_bwd")} == {
+                "flash_attention": 16, "flash_attention_bwd": 8, "mamba_scan": 16,
+                "mamba_scan_bwd": 8}
+        else:
+            assert sum(launches.values()) == 0
+    again = make_grad_fn(cfg, SINGLE_CARD, compute_dtype="float32")(params, batch)
+    assert abs(runs["kernel"][0].item() - runs["plain"][0].item()) <= 1e-4
+    for (path, g), (_, r), (_, a) in zip(_leaves(runs["kernel"][2]),
+                                         _leaves(runs["plain"][2]),
+                                         _leaves(again[2])):
+        assert torch.equal(g, a), path
+        assert _rel_err(g, r) <= 1e-4, path

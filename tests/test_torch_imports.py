@@ -47,7 +47,10 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.obs, repro_torch.configs.glm_logreg",
     "repro_torch.models, repro_torch.kernels.flash_attention, repro_torch.kernels.mamba_scan, "
     "repro_torch.train, repro_torch.launch.serve, repro_torch.configs.hymba_1p5b",
-], ids=["block runtime", "LM serving"])
+    "repro_torch.kernels.flash_attention_bwd, repro_torch.train.optim, "
+    "repro_torch.train.data, repro_torch.train.steps, repro_torch.launch.train, "
+    "repro_torch.checkpoint, repro_torch.sharding.plans",
+], ids=["block runtime", "LM serving", "LM training"])
 def test_import_loads_neither_jax_nor_reference(modules):
     code = (f"import sys, {modules}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -88,15 +91,23 @@ def _serve(**kw):
     return record["device"]
 
 
+def _train(**kw):
+    from repro_torch.launch.train import train_loop
+
+    state, _ = train_loop("hymba-1.5b", steps=1, batch=1, seq=8, log_fn=lambda *a: None,
+                          **kw)
+    return state["params"]["embed"].device
+
+
 def _carry(**kw):
     from repro_torch.interop import params_from_jax
 
     return params_from_jax({"w": np.zeros((2, 3), np.float32)}, **kw)["w"].device
 
 
-@pytest.mark.parametrize("entry", [_context, _context_torch, _serve, _carry],
+@pytest.mark.parametrize("entry", [_context, _context_torch, _serve, _train, _carry],
                          ids=["ArrayContext", "ArrayContext torch", "serve_demo",
-                              "params_from_jax"])
+                              "train_loop", "params_from_jax"])
 def test_default_context_is_on_the_card(entry):
     """Without ``device``, and with ``device="cuda"``, an entry point runs on
     the card, and raises where there is none; ``device="cpu"`` runs on the
@@ -168,6 +179,18 @@ def _lm_feature(name):
 
         cfg, params = _hymba()
         return make_prefill(cfg, max_len=8, rules=object())(params, tokens)
+    if name == "sharded train step":
+        from repro_torch.sharding.plans import SINGLE_CARD
+        from repro_torch.train import AdamConfig, init_opt_state, make_train_step
+
+        cfg, params = _hymba()
+        step = make_train_step(cfg, SINGLE_CARD, AdamConfig(), rules=object())
+        return step({"params": params, "opt": init_opt_state(params)},
+                    dict(tokens, labels=tokens["tokens"]))
+    if name == "activation_rules":
+        from repro_torch.sharding.plans import SINGLE_CARD, activation_rules
+
+        return activation_rules(SINGLE_CARD, None)
     from repro_torch.configs import get_config
 
     return get_config(name)
@@ -178,7 +201,8 @@ def _lm_feature(name):
     ("block", "checkpoint"), ("block", "restore"), ("block", "reshard"),
     ("lm", "moe"), ("lm", "mrope"), ("lm", "encdec"), ("lm", "softcap"),
     ("lm", "per-row pos"), ("lm", "non-causal mask"), ("lm", "Rules"),
-    ("lm", "sharded steps"), ("lm", "gemma3-4b"), ("lm", "whisper-small"),
+    ("lm", "sharded steps"), ("lm", "sharded train step"), ("lm", "activation_rules"),
+    ("lm", "gemma3-4b"), ("lm", "whisper-small"),
     ("lm", "falcon-mamba-7b"), ("lm", "qwen3-moe-235b-a22b"),
 ], ids=lambda f: f[1])
 def test_features_of_later_slices_raise(feature):

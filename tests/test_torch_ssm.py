@@ -7,13 +7,17 @@ Pallas kernel in interpret mode.  Its final carry, which the Pallas kernel
 never writes, is held against the last step of the reference model's
 ``ssm_scan``; the plain version, which the model's plain route calls, is held
 against that ``ssm_scan`` and its C contraction.  The port's ``ssm_block`` (both routes), with and without a
-carried state, is held against the reference's.  Tolerance 1e-4, the
-reference's own.
+carried state, is held against the reference's.  The scan's backward
+(``ops.mamba_scan_bwd``, and ``MambaScan`` under autograd), seeded or not
+by a final-carry gradient, is held against ``jax.grad`` of the reference's
+``ssm_scan`` followed by the C contraction, and against torch autograd of
+the plain scan.  Tolerance 1e-4, the reference's own.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +30,7 @@ from repro.models import ssm as ref_ssm
 from repro.models.transformer import _ssm_shapes
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
-from repro_torch.kernels.mamba_scan import mamba_scan_ref
+from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref
 from repro_torch.models import ssm
 
 RNG = np.random.default_rng(7)
@@ -129,3 +133,73 @@ def test_ssm_block_rejects_unknown_impl():
     _, pt = _block_params(ref_get_config("hymba-1.5b").reduced())
     with pytest.raises(ValueError, match="impl"):
         ssm.ssm_block(pt, torch.zeros(1, 3, cfg.d_model), cfg, impl="fast")
+
+
+def _ref_scan_grads(dA, dBx, C, dy, dh):
+    """jax.grad of sum(y * dy) + sum(h_S * dh) through the reference model's
+    scan: h = ssm_scan(dA, dBx), y = einsum(h, C) (models/ssm.py)."""
+    def loss(dA, dBx, C):
+        h = ref_ssm.ssm_scan(dA, dBx)
+        y = jnp.einsum("bsdn,bsn->bsd", h, C)
+        out = jnp.sum(y * dy)
+        return out if dh is None else out + jnp.sum(h[:, -1] * dh)
+
+    return jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(*map(jnp.asarray, (dA, dBx, C)))
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["dy", "dy+dh"])
+@pytest.mark.parametrize("s,di,n", [(1, 16, 8), (32, 64, 16), (100, 64, 8), (16, 32, 4)])
+def test_scan_backward_matches_jax_grad_of_the_reference_scan(s, di, n, seeded):
+    dA, dBx, C = scan_inputs(2, s, di, n)
+    dy = arr((2, s, di))
+    dh = arr((2, di, n)) if seeded else None
+    want = _ref_scan_grads(dA, dBx, C, jnp.asarray(dy), None if dh is None else
+                           jnp.asarray(dh))
+    got = ops.mamba_scan_bwd(*map(torch.from_numpy, (dA, dBx, C, dy)),
+                             None if dh is None else torch.from_numpy(dh))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert_close(g, w)
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["dy", "dy+dh"])
+def test_scan_autograd_matches_autograd_of_the_plain_scan(seeded):
+    """Through ``MambaScan`` (what ops.mamba_scan returns through when an
+    input requires grad) and through torch autograd of ``mamba_scan_ref``:
+    the same three gradients, S = 100 ragged against any chunking."""
+    dA, dBx, C = scan_inputs(2, 100, 24, 8)
+    wy, wh = torch.from_numpy(arr((2, 100, 24))), torch.from_numpy(arr((2, 24, 8)))
+    grads = []
+    for fn in (ops.mamba_scan, mamba_scan_ref):
+        ts = [torch.from_numpy(x).requires_grad_() for x in (dA, dBx, C)]
+        y, h = fn(*ts)
+        loss = (y * wy).sum() + ((h * wh).sum() if seeded else 0.0)
+        grads.append(torch.autograd.grad(loss, ts))
+    for g, r in zip(*grads):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-4, rtol=1e-4)
+
+
+def test_scan_backward_plain_version_uses_no_division_by_dA():
+    """dA that underflows to 0 (exp(dt * A) at a large step) cuts the
+    recurrence: the gradients stay finite and the states before the cut get
+    no gradient through it."""
+    dA, dBx, C = scan_inputs(1, 12, 8, 4)
+    dA[:, 6] = 0.0
+    dy = arr((1, 12, 8))
+    d_dA, d_dBx, dC = mamba_scan_bwd_ref(*map(torch.from_numpy, (dA, dBx, C, dy)))
+    assert all(torch.isfinite(t).all() for t in (d_dA, d_dBx, dC))
+    want = _ref_scan_grads(dA, dBx, C, jnp.asarray(dy), None)
+    for g, w in zip((d_dA, d_dBx, dC), want):
+        assert_close(g, w)
+
+
+@pytest.mark.parametrize("bad,match", [("dy", "dy must be"), ("dh", "dh must be")])
+def test_scan_backward_wrapper_rejects_bad_gradients(bad, match):
+    dA = torch.zeros(2, 3, 4, 8)
+    dy, dh = torch.zeros(2, 3, 4), None
+    if bad == "dy":
+        dy = torch.zeros(2, 3, 5)
+    else:
+        dh = torch.zeros(2, 4, 4)
+    with pytest.raises(ValueError, match=match):
+        ops.mamba_scan_bwd(dA, dA, torch.zeros(2, 3, 8), dy, dh)
