@@ -33,9 +33,13 @@ both (CUDA events), then drives the three main paths at full width:
   (the window dropped in the backward kernel only) exceeds, and in f32 at
   8 layers to 1e-4; two backward runs give the same bits.
 
-Each phase prints one JSON line; the kernel line, the card's name and power
-limit, and a final ``{"ok": true, ...}`` line close the output.  Any
-failure raises and exits non-zero.
+Each phase prints one JSON line (a matmul case also names the loader it
+took, vector or scalar; an attention-backward case the device time of each
+of its kernels); the kernel line, the card's name and power limit, and a
+final ``{"ok": true, ...}`` line close the output.  The compiler's register
+report of every kernel goes to standard error; a register spill in the two
+libraries redesigned for the tensor cores fails the run, as does a Newton or
+DGEMM product on the scalar loader.  Any failure raises and exits non-zero.
 
 Needs one CUDA device; exits non-zero without printing a result where there
 is none, or where ``src/repro_torch`` is not beside this script.
@@ -45,6 +49,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -63,7 +68,7 @@ from repro_torch.kernels.flash_attention import flash_attention_ref, visible  # 
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.glm_fused import glm_fused_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref  # noqa: E402
-from repro_torch.kernels.matmul import matmul_ref  # noqa: E402
+from repro_torch.kernels.matmul import loaders, matmul_ref  # noqa: E402
 from repro_torch.launch.serve import serve_demo  # noqa: E402
 from repro_torch.launch.train import batch_to, train_loop  # noqa: E402
 from repro_torch.launch.workloads import dgemm_graph, logreg_newton_loop  # noqa: E402
@@ -114,7 +119,8 @@ TRAIN = dict(arch="hymba-1.5b", batch=4, seq=2048, warm=1, steps=3, lr=1e-2)
 #: device kernels of a train step by what they do, matched on their names
 KERNEL_GROUPS = (
     ("attention forward", ("flash_fwd_kernel",)),
-    ("attention backward", ("dkv_kernel", "dq_kernel", "delta_kernel")),
+    ("attention backward", ("dkv_kernel", "dq_kernel", "dkv_mma_kernel", "dq_mma_kernel",
+                            "delta_kernel")),
     ("scan forward", ("mamba_scan_kernel",)),
     ("scan backward", ("scan_bwd_kernel", "dc_sum_kernel")),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
@@ -144,6 +150,9 @@ FLASH_BWD_SRC = ("src/repro_torch/csrc/flash_attention_bwd.cu",
 #: by jax autodiff of its associative scan
 SCAN_BWD_SRC = ("src/repro_torch/csrc/mamba_scan_bwd.cu",
                 "src/repro/kernels/mamba_scan.py:43 (its gradient; no Pallas kernel)")
+#: the libraries whose kernels were redesigned for Hopper's tensor cores and
+#: asynchronous copies; their ptxas report must show no register spills
+REDESIGNED = ("matmul", "flash_attention_bwd")
 #: every kernel library, built at once
 KERNELS = ["matmul", "glm_fused", "flash_attention", "flash_attention_bwd", "mamba_scan",
            "mamba_scan_bwd"]
@@ -182,6 +191,26 @@ def time_ms(fn, target_ms: float = 200.0, max_reps: int = 200) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms_by_kernel(fn, parts: dict, reps: int = 5) -> dict:
+    """Device time per call of ``fn`` (torch.profiler, ``reps`` calls after a
+    warm-up) of the kernels whose names contain each value of ``parts``,
+    keyed as ``parts`` is."""
+    fn()
+    sync()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    out = {label: 0.0 for label in parts}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and ev.self_device_time_total > 0:
+            for label, part in parts.items():
+                if part in ev.key:
+                    out[label] += ev.self_device_time_total / 1e3 / reps
+    return out
+
+
 def bound(ops_count: float, bytes_count: float, dtype) -> tuple:
     t_ops = ops_count / PEAK_OPS_PER_S[dtype] * 1e3
     t_bytes = bytes_count / HBM_BYTES_PER_S * 1e3
@@ -194,7 +223,9 @@ def bound(ops_count: float, bytes_count: float, dtype) -> tuple:
 
 def matmul_case(name, a, b):
     dtype = a.dtype
+    reset_launches()
     got = ops.matmul(a, b)
+    loader = next((k for k, n in loaders.items() if n), "none")  # the launch's loader
     again = ops.matmul(a, b)
     ref = matmul_ref(a, b)
     sync()
@@ -206,7 +237,7 @@ def matmul_case(name, a, b):
     bound_ms, bound_by = bound(2.0 * M * N * K,
                                (M * K + K * N + M * N) * a.element_size(), dtype)
     case = dict(case=name, dtype=str(dtype).replace("torch.", ""), shape=[M, K, N],
-                max_abs_err=err, rel_err=rel, tol=MATMUL_TOL[dtype],
+                loader=loader, max_abs_err=err, rel_err=rel, tol=MATMUL_TOL[dtype],
                 ms=time_ms(lambda: ops.matmul(a, b)),
                 plain_ms=time_ms(lambda: matmul_ref(a, b)),
                 library_ms=time_ms(lambda: torch.matmul(a, b)),
@@ -252,6 +283,9 @@ def kernel_phase(dev):
     matmul_cases.append(matmul_case("square bf16", sq[0].bfloat16(), sq[1].bfloat16()))
     matmul_cases.append(matmul_case("DGEMM tile f32", sq[0], sq[1]))
     del sq
+    scalar = [c["case"] for c in matmul_cases if c["dtype"] != "bfloat16"
+              and c["loader"] != "vector"]
+    check(not scalar, f"matmul cases on the scalar loader: {scalar}")
     glm_cases = []
     for n in (1 << 22, n_blk):
         z = torch.randn(n, 1, device=dev, dtype=torch.float64, generator=g) * 4
@@ -413,7 +447,10 @@ def flash_bwd_case(name, q, k, v, window):
                                  max_reps=10),
                 library_ms=time_ms(library),
                 library="scaled_dot_product_attention backward",
-                bound_ms=bound_ms, bound_by=bound_by, peak=PEAK_NAME[dtype])
+                bound_ms=bound_ms, bound_by=bound_by, peak=PEAK_NAME[dtype],
+                kernel_ms=device_ms_by_kernel(
+                    lambda: ops.flash_attention_bwd(q, k, v, out, lse, do, **kw),
+                    {"delta": "delta_kernel", "dkv": "dkv_", "dq": "dq_"}))
     del o_lib, qr, kr, vr
     emit("kernel_case", kernel="flash_attention_bwd", **case)
     check(max(rels) <= FLASH_TOL[dtype], f"flash_attention_bwd {name}: rel err {rels}")
@@ -536,6 +573,7 @@ def newton_run(backend, dev):
         ctx, lambda c: logreg_newton_loop(c, NEWTON["n"], NEWTON["d"], NEWTON["q"],
                                           iters=NEWTON["iters"]))
     counts = dict(launches)
+    by_loader = dict(loaders)
     ex, q = ctx.executor, NEWTON["q"]
     # after three iterations the gradient has cancelled to rounding level, so
     # its error is taken against the magnitude of its summed terms,
@@ -546,12 +584,13 @@ def newton_run(backend, dev):
     result = dict(beta=beta.to_numpy(), g=g.to_numpy(), H=H.to_numpy(),
                   g_scale=g_scale.max().item(), schedule=_schedule(ctx, H),
                   launches=counts, matmul_launches=counts["matmul"],
-                  matmul_dispatches=_matmul_dispatches(ctx))
+                  matmul_loaders=by_loader, matmul_dispatches=_matmul_dispatches(ctx))
     emit(f"newton_{backend}", n=NEWTON["n"], d=NEWTON["d"], q=NEWTON["q"],
          iters=NEWTON["iters"], dtype=ctx.dtype, s_per_iter=loop_s / NEWTON["iters"],
          loop_s=loop_s, max_memory_allocated=torch.cuda.max_memory_allocated(dev),
-         launches=counts, matmul_dispatches=result["matmul_dispatches"],
-         plan_hits=ctx.sched_stats.plan_hits, finite=bool(np.isfinite(result["H"]).all()))
+         launches=counts, matmul_loaders=by_loader,
+         matmul_dispatches=result["matmul_dispatches"], plan_hits=ctx.sched_stats.plan_hits,
+         finite=bool(np.isfinite(result["H"]).all()))
     del ctx, ex, g, H, beta
     gc.collect()
     torch.cuda.empty_cache()
@@ -564,10 +603,12 @@ def dgemm_run(backend, dev):
     reset_launches()
     C, wall_s = _timed_workload(ctx, lambda c: dgemm_graph(c, DGEMM["dim"], DGEMM["g"]))
     counts = dict(launches)
+    by_loader = dict(loaders)
     out = dict(C=C.to_numpy(), schedule=_schedule(ctx, C), launches=counts,
-               matmul_dispatches=_matmul_dispatches(ctx))
+               matmul_loaders=by_loader, matmul_dispatches=_matmul_dispatches(ctx))
     emit(f"dgemm_{backend}", dim=DGEMM["dim"], g=DGEMM["g"], dtype="float32",
-         compute_s=wall_s, launches=counts, matmul_dispatches=out["matmul_dispatches"])
+         compute_s=wall_s, launches=counts, matmul_loaders=by_loader,
+         matmul_dispatches=out["matmul_dispatches"])
     del ctx, C
     gc.collect()
     torch.cuda.empty_cache()
@@ -919,10 +960,19 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build(KERNELS)
     build_s = time.perf_counter() - t0
+    spills = []
     for name, report in reports.items():
+        kernel = ""
         for line in report.splitlines():
+            entry = re.search(r"entry function '_Z\w*?_cu_[0-9a-f]{8}(\d+)(\w+)'", line)
+            if entry:  # the mangled name's identifier, then its template arguments
+                n = int(entry.group(1))
+                kernel = entry.group(2)[:n] + entry.group(2)[n:].split("EEv")[0][:32]
             if "registers" in line or "spill" in line:
-                print(f"# ptxas {name}: {line.strip()}", file=sys.stderr)
+                print(f"# ptxas {name} {kernel}: {line.strip()}", file=sys.stderr)
+            if re.search(r"[1-9]\d* bytes spill", line) and name in REDESIGNED:
+                spills.append(f"{name} {kernel}: {line.strip()}")
+    check(not spills, f"register spills in the redesigned kernels: {spills}")
     emit("device", nvidia_smi=smi, name=torch.cuda.get_device_name(0),
          torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
          built=sorted(reports), allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
@@ -946,6 +996,8 @@ def main() -> int:
           f"matmul launches {cuda['matmul_launches']} vs 2-D matmul dispatches "
           f"{cuda['matmul_dispatches']}")
     check(plain["matmul_launches"] == 0, "backend torch launched the matmul kernel")
+    check(cuda["matmul_loaders"]["scalar"] == 0,
+          f"Newton products on the scalar loader: {cuda['matmul_loaders']}")
     newton_err = {k: _rel(cuda[k], plain[k]) for k in ("beta", "H")}
     newton_err["g"] = float(np.abs(cuda["g"] - plain["g"]).max() / plain["g_scale"])
     emit("newton_parity", rel_err=newton_err, rtol=RTOL,
@@ -965,6 +1017,8 @@ def main() -> int:
     check(dg_cuda["schedule"] == dg_plain["schedule"], "DGEMM schedules differ")
     check(dg_cuda["launches"]["matmul"] == dg_cuda["matmul_dispatches"] > 0,
           f"DGEMM launches {dg_cuda['launches']} vs {dg_cuda['matmul_dispatches']}")
+    check(dg_cuda["matmul_loaders"]["scalar"] == 0,
+          f"DGEMM products on the scalar loader: {dg_cuda['matmul_loaders']}")
 
     # main path 2: LM serving, through the attention and scan kernels
     serve_launches = serve_phase(dev)

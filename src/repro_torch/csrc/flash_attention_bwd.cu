@@ -13,40 +13,59 @@
 // Three kernels, all deterministic (no atomics: two backward runs give the
 // same bits), as the TPU kernel's two-kernel split is:
 // - delta_kernel: delta per query row, one warp per row (a small pre-pass).
-// - dkv_kernel: one block per (batch, kv head, tile of BK keys).  A thread
-//   owns a slice of W head dims of one key: its slice of k and v and of the
-//   dK and dV accumulators live in registers (SPLIT = HD / W threads share a
-//   key and add their partial dot products with warp shuffles).  The block
+// - a dK/dV kernel: one block per (batch, kv head, tile of keys).  The block
 //   walks the query rows that can see any of its keys -- every position of
-//   the range at all rep heads of its kv head -- staged through shared
-//   memory 32-64 rows at a time (q pre-scaled, dO, lse, delta), so every
-//   staged row is read by all threads at once (a broadcast).
-// - dq_kernel: one block per (batch, kv head, tile of query positions); its
-//   rows are the rep heads at each position, as in the forward.  A thread
-//   owns a slice of one row's q, dO and dQ accumulator in registers and walks
-//   the key tiles, staged through shared memory.
+//   the range at all rep heads of its kv head, position-major, head-minor --
+//   and sums over them.
+// - a dQ kernel: one block per (batch, kv head, tile of query positions);
+//   its rows are the rep heads at each position, as in the forward.  It
+//   walks the key tiles its rows can see.
 // Both skip the tiles a causal mask or a window hides wholly, and mask
 // queries >= Sq and keys >= Skv explicitly, so no length needs padding (the
 // TPU wrapper requires Sq % bq == 0 and Skv % bk == 0).  A row that sees no
 // key (lse = -inf) is never visible, so its gradients are exactly 0.
 //
 // What bounds it on this card: operations.  Per visible (query, key) pair
-// and head the two kernels do 7 * hd FMAs (S and dP in both kernels, and the
-// dV, dK and dQ updates) against q, k, v, O, dO read once or a few times
-// per tile.  The arithmetic is scalar IEEE f32 FMA: right and simple first;
-// the tensor cores (mma.sync / wgmma on bf16) are later work, PERF.md has the
-// gap to scaled_dot_product_attention's backward.
+// and head the five products S = QK^T, dP = dO V^T, dV += P^T dO,
+// dK += dS^T Q and dQ += dS K do 10 * hd flops (S and dP are computed in
+// both kernels, 14 * hd in all), against q, k, v, O, dO read once or a few
+// times per tile.
+//
+// What the design does about it, by dtype:
+// - bf16 (dkv_mma_kernel, dq_mma_kernel): the products run on the tensor
+//   cores, mma.sync m16n8k16 bf16 x bf16 -> f32, four warps of 16 keys
+//   (dK/dV) or 16 query rows (dQ) each.  Operand fragments come from
+//   shared memory by ldmatrix (.trans where the product contracts over
+//   the tile's rows).  The softmax arithmetic stays in f32 registers:
+//   P = exp2(S * scale * log2 e - lse * log2 e) and dS = P * (dP - delta)
+//   are rounded to bf16 only as the A operand of the next product (taken
+//   straight from the accumulator fragments, as FlashAttention-2 does).
+//   Tiles stay bf16 in shared memory (rows padded by 16 bytes, so the
+//   eight rows of an ldmatrix fall in distinct banks), filled by 16-byte
+//   cp.async copies, double-buffered: the next query tile (dK/dV) or key
+//   tile (dQ) is on its way while one is computed (deeper rings measured no
+//   faster on the H100: the kernels are not waiting on these copies).  A
+//   warp skips a tile that none of its 16 keys or rows can see, and drops
+//   the mask on a tile that all of them see whole.
+// - f32 (dkv_kernel, dq_kernel): scalar IEEE f32 FMA (the tensor cores
+//   would take f32 only through TF32, which the port never uses).  A
+//   thread owns a 32-wide slice of the head dim of one key (dK/dV) or row
+//   (dQ) in registers; the other operand is staged as f32 tiles in shared
+//   memory and read by all threads at once.
 //
 // Operands are read through strides (batch, head, position; the head
 // dimension is contiguous), so the model's (B, S, H, hd) activations are
 // read and the gradients written in place, without transposing copies.
+// The bf16 kernels copy rows 16 bytes at a time, so they need every
+// operand's base and strides 16-byte aligned: the wrapper copies a view
+// that is not into a new tensor first.
 #include <math.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 128;  // threads per block
+constexpr int NT = 128;  // threads per block (four warps)
 
 struct BwdArgs {
   const void* q;
@@ -336,33 +355,487 @@ __global__ void __launch_bounds__(NT) dq_kernel(const BwdArgs a) {
   for (int w = 0; w < W; ++w) store_to(dqp + w, dq[w] * a.scale);
 }
 
-template <typename T, int HD>
-int launch_grads(const BwdArgs& a, cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// tile sizes of the bf16 kernels at head dim HD
+template <int HD>
+struct Tiles {
+  static constexpr int BKV = 64;                  // keys per dK/dV block: 4 warps x 16
+  static constexpr int BQ = HD <= 64 ? 64 : 32;   // query rows per dK/dV step
+  static constexpr int ROWS = 64;                 // rows per dQ block: 4 warps x 16
+  static constexpr int BKQ = HD <= 64 ? 64 : 32;  // keys per dQ step
+  static constexpr int LDS = HD + 8;              // shared row, in bf16: 16 bytes of padding
+  static constexpr int CH = HD / 8;               // 16-byte chunks per row
+  static constexpr int STAGES = 2;                // query (dK/dV) or key (dQ) tiles in flight
+  static constexpr int DKV_SMEM = 2 * BKV * LDS * 2 + STAGES * (2 * BQ * LDS * 2 + BQ * 12);
+  static constexpr int DQ_SMEM = 2 * ROWS * LDS * 2 + STAGES * 2 * BKQ * LDS * 2;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronously, or a zero where !ok
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The A operand (16 x 16) of the next product from the accumulators of
+// n-tiles 2j and 2j + 1 (16 x 8 each) of the last one.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
+                                         const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// S += A (16 rows of As) B^T (NT * 8 rows of Bs), over the head dim: A and
+// B both row-major [row][HD] in shared memory
+template <int HD, int NT8>
+__device__ __forceinline__ void qk_product(float (&s)[NT8][4], const bf16* As, const bf16* Bs,
+                                           int lane) {
+  constexpr int LDS = Tiles<HD>::LDS;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, As + (lane & 15) * LDS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n2 = 0; n2 < NT8 / 2; ++n2) {
+      uint32_t b[4];
+      ldsm_x4(b, Bs + (n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk * 16 +
+                     ((lane >> 3) & 1) * 8);
+      mma(s[2 * n2], a, b[0], b[1]);
+      mma(s[2 * n2 + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x HD) += P (16 x 16 * KT, in accumulator fragments) Bs (rows of
+// the contraction, [row][HD] in shared memory)
+template <int HD, int KT16>
+__device__ __forceinline__ void pv_product(float (&acc)[HD / 8][4], const float (&p)[2 * KT16][4],
+                                           const bf16* Bs, int lane) {
+  constexpr int LDS = Tiles<HD>::LDS;
+#pragma unroll
+  for (int kq = 0; kq < KT16; ++kq) {
+    uint32_t a[4];
+    acc_to_a(a, p[2 * kq], p[2 * kq + 1]);
+#pragma unroll
+    for (int d2 = 0; d2 < HD / 16; ++d2) {
+      uint32_t b[4];
+      ldsm_x4_t(b, Bs + (kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + d2 * 16 +
+                       (lane >> 4) * 8);
+      mma(acc[2 * d2], a, b[0], b[1]);
+      mma(acc[2 * d2 + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// one row of HD bf16 into shared memory, or zeros where !ok
+template <int HD>
+__device__ __forceinline__ void copy_row_chunk(bf16* dst, const bf16* src, int c, bool ok) {
+  cp_async16(dst + c * 8, ok ? src + c * 8 : src, ok ? 16 : 0);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
+  using TL = Tiles<HD>;
+  constexpr int BKV = TL::BKV, BQ = TL::BQ, LDS = TL::LDS, CH = TL::CH, ST = TL::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + BKV * LDS;
+  bf16* Qs = Vs + BKV * LDS;       // ST stages x BQ rows
+  bf16* dOs = Qs + ST * BQ * LDS;  // ST stages x BQ rows
+  float* lse_s = reinterpret_cast<float*>(dOs + ST * BQ * LDS);  // ST x BQ
+  float* dl_s = lse_s + ST * BQ;                                 // ST x BQ
+  int* qabs_s = reinterpret_cast<int*>(dl_s + ST * BQ);          // ST x BQ; -1: no row
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int k0 = blockIdx.x * BKV;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb;
+  const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_sb;
+
+  for (int idx = tid; idx < BKV * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH, kj = k0 + r;
+    const bool ok = kj < a.Skv;
+    const int64_t off = static_cast<int64_t>(ok ? kj : 0);
+    copy_row_chunk<HD>(Ks + r * LDS, kb + off * a.k_ss, c, ok);
+    copy_row_chunk<HD>(Vs + r * LDS, vb + off * a.v_ss, c, ok);
+  }
+
+  // query positions that may see any key of this block: [i_lo, i_hi); rows
+  // f = i * rep + head (position-major), fewer than 2^31 (the launch checks)
+  const int k_last = min(k0 + BKV, a.Skv) - 1;
+  const int i_lo = a.causal ? min(a.Sq, max(0, k0 - a.q_offset)) : 0;
+  const int i_hi = a.window > 0
+      ? static_cast<int>(max(static_cast<int64_t>(i_lo),
+                             min(static_cast<int64_t>(a.Sq),
+                                 static_cast<int64_t>(k_last) + a.window - a.q_offset)))
+      : a.Sq;
+  const int f_begin = i_lo * a.rep, f_end = max(i_hi, i_lo) * a.rep;
+  const int n_tiles = (f_end - f_begin + BQ - 1) / BQ;
+
+  // rows t * BQ ... of the range into stage `stage`: q, dO, lse, delta by
+  // cp.async (zeros past the range), and each row's absolute position
+  auto load_rows = [&](int t, int stage) {
+    const int f0 = f_begin + t * BQ;
+    for (int idx = tid; idx < BQ * CH; idx += NT) {
+      const int r = idx / CH, c = idx % CH, f = f0 + r;
+      const bool ok = f < f_end;
+      const int i = ok ? f / a.rep : 0;
+      const int h = kvh * a.rep + (ok ? f - i * a.rep : 0);
+      const int64_t qi = i;
+      copy_row_chunk<HD>(Qs + (stage * BQ + r) * LDS, qb + h * a.q_sh + qi * a.q_ss, c, ok);
+      copy_row_chunk<HD>(dOs + (stage * BQ + r) * LDS, dob + h * a.do_sh + qi * a.do_ss, c, ok);
+    }
+    for (int r = tid; r < BQ; r += NT) {
+      const int f = f0 + r;
+      const bool ok = f < f_end;
+      const int i = ok ? f / a.rep : 0;
+      const int h = kvh * a.rep + (ok ? f - i * a.rep : 0);
+      const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Sq + i;
+      cp_async4(lse_s + stage * BQ + r, a.lse + row, ok);
+      cp_async4(dl_s + stage * BQ + r, a.delta + row, ok);
+      qabs_s[stage * BQ + r] = ok ? i + a.q_offset : -1;
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) {  // K, V and the first ST - 1 query tiles
+    if (t < n_tiles) load_rows(t, t);
+    cp_async_commit();
+  }
+
+  const int g = lane / 4, tq = lane % 4;
+  const int key_lo = k0 + warp * 16;               // this warp's 16 keys
+  const int key_hi = min(key_lo + 15, a.Skv - 1);
+  const float scale_log2 = a.scale * LOG2E;
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t + ST - 1 < n_tiles) load_rows(t + ST - 1, (t + ST - 1) % ST);  // t - 1's stage
+    cp_async_commit();
+    const int stage = t % ST;
+
+    // positions of this tile's first and last rows: skip the tile if none
+    // of this warp's keys is visible to any of them
+    const int f0 = f_begin + t * BQ;
+    const int p_first = f0 / a.rep + a.q_offset;
+    const int p_last = (min(f0 + BQ, f_end) - 1) / a.rep + a.q_offset;
+    const bool any = key_lo < a.Skv && (!a.causal || key_lo <= p_last) &&
+                     (a.window <= 0 || key_hi > p_first - a.window);
+    if (any) {
+      const bf16* Qt = Qs + stage * BQ * LDS;
+      const bf16* dOt = dOs + stage * BQ * LDS;
+      float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+      // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns query rows
+      qk_product<HD, BQ / 8>(s, Ks + warp * 16 * LDS, Qt, lane);
+      qk_product<HD, BQ / 8>(dp, Vs + warp * 16 * LDS, dOt, lane);
+      // a tile every key of this warp sees whole needs no mask
+      const bool full = key_lo + 15 < a.Skv && f0 + BQ <= f_end &&
+                        (!a.causal || key_lo + 15 <= p_first) &&
+                        (a.window <= 0 || key_lo > p_last - a.window);
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const int r = stage * BQ + n * 8 + 2 * tq;  // this thread's rows r, r + 1
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + r);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl_s + r);
+        const int2 q2 = *reinterpret_cast<const int2*>(qabs_s + r);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = key_lo + g + (e >= 2 ? 8 : 0);
+          const int qa = e & 1 ? q2.y : q2.x;
+          const float p = full || (qa >= 0 && visible(a, qa, kj))
+                              ? exp2f(fmaf(s[n][e], scale_log2, -(e & 1 ? l2.y : l2.x) * LOG2E))
+                              : 0.0f;
+          s[n][e] = p;
+          dp[n][e] = p * (dp[n][e] - (e & 1 ? d2.y : d2.x));  // dS / scale
+        }
+      }
+      pv_product<HD, BQ / 16>(dv, s, dOt, lane);   // dV += P^T dO
+      pv_product<HD, BQ / 16>(dk, dp, Qt, lane);   // dK += dS^T Q
+    }
+  }
+
+  bf16* dkp = static_cast<bf16*>(a.dk) + b * a.dk_sb + kvh * a.dk_sh;
+  bf16* dvp = static_cast<bf16*>(a.dv) + b * a.dv_sb + kvh * a.dv_sh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int kj = key_lo + g + half * 8;
+    if (kj >= a.Skv) continue;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      const int d = n * 8 + 2 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(dkp + static_cast<int64_t>(kj) * a.dk_ss + d) =
+          __floats2bfloat162_rn(dk[n][2 * half] * a.scale, dk[n][2 * half + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + static_cast<int64_t>(kj) * a.dv_ss + d) =
+          __floats2bfloat162_rn(dv[n][2 * half], dv[n][2 * half + 1]);
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT) dq_mma_kernel(const BwdArgs a) {
+  using TL = Tiles<HD>;
+  constexpr int ROWS = TL::ROWS, BKQ = TL::BKQ, LDS = TL::LDS, CH = TL::CH, ST = TL::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + ROWS * LDS;
+  bf16* Ks = dOs + ROWS * LDS;     // ST stages x BKQ keys
+  bf16* Vs = Ks + ST * BKQ * LDS;  // ST stages x BKQ keys
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int q0 = blockIdx.x * a.bq;
+  const int used = a.bq * a.rep;  // rows of this block that hold a (position, head)
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb;
+  const bf16* dob = static_cast<const bf16*>(a.dout) + b * a.do_sb;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  for (int idx = tid; idx < ROWS * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH;
+    const int i = q0 + r / a.rep;
+    const bool ok = r < used && i < a.Sq;
+    const int h = kvh * a.rep + r % a.rep;
+    const int64_t off = ok ? static_cast<int64_t>(i) : 0;
+    copy_row_chunk<HD>(Qs + r * LDS, qb + h * a.q_sh + off * a.q_ss, c, ok);
+    copy_row_chunk<HD>(dOs + r * LDS, dob + h * a.do_sh + off * a.do_ss, c, ok);
+  }
+
+  // keys any row of this block may see: [k_begin, k_end)
+  const int q_last = min(q0 + a.bq, a.Sq) - 1 + a.q_offset;
+  const int k_end = a.causal ? min(a.Skv, q_last + 1) : a.Skv;
+  int k_begin = a.window > 0 ? max(0, q0 + a.q_offset - a.window + 1) : 0;
+  k_begin = (k_begin / BKQ) * BKQ;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BKQ - 1) / BKQ : 0;
+
+  auto load_keys = [&](int t, int stage) {
+    const int kt0 = k_begin + t * BKQ;
+    for (int idx = tid; idx < BKQ * CH; idx += NT) {
+      const int j = idx / CH, c = idx % CH, kj = kt0 + j;
+      const bool ok = kj < a.Skv;
+      const int64_t off = static_cast<int64_t>(ok ? kj : 0);
+      copy_row_chunk<HD>(Ks + (stage * BKQ + j) * LDS, kb + off * a.k_ss, c, ok);
+      copy_row_chunk<HD>(Vs + (stage * BKQ + j) * LDS, vb + off * a.v_ss, c, ok);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) {  // Q, dO and the first ST - 1 key tiles
+    if (t < n_tiles) load_keys(t, t);
+    cp_async_commit();
+  }
+
+  // this thread's two rows (g and g + 8 of its warp's 16)
+  const int g = lane / 4, tq = lane % 4;
+  int qa[2];
+  float lse2[2], dl[2];
+  int h_of[2], i_of[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = warp * 16 + g + half * 8;
+    const int i = q0 + r / a.rep;
+    const int h = kvh * a.rep + r % a.rep;
+    const bool ok = r < used && i < a.Sq;
+    qa[half] = ok ? i + a.q_offset : -1;
+    h_of[half] = h;
+    i_of[half] = i;
+    lse2[half] = 0.0f;
+    dl[half] = 0.0f;
+    if (ok) {
+      const int64_t row = (static_cast<int64_t>(b) * a.H + h) * a.Sq + i;
+      lse2[half] = a.lse[row] * LOG2E;
+      dl[half] = a.delta[row];
+    }
+  }
+  // positions of this warp's first and last rows (none if it has no row)
+  const int rows_ok = static_cast<int>(
+      min(static_cast<int64_t>(used), static_cast<int64_t>(a.Sq - q0) * a.rep));
+  const int r_first = warp * 16;
+  const int r_last = min(r_first + 15, rows_ok - 1);
+  const bool has_rows = r_first <= r_last;
+  const int p_first = q0 + r_first / a.rep + a.q_offset;
+  const int p_last = q0 + r_last / a.rep + a.q_offset;
+
+  const float scale_log2 = a.scale * LOG2E;
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<ST - 2>();
+    __syncthreads();  // tile t has landed; every warp is done with tile t - 1
+    if (t + ST - 1 < n_tiles) load_keys(t + ST - 1, (t + ST - 1) % ST);  // t - 1's stage
+    cp_async_commit();
+    const int stage = t % ST;
+
+    const int kt0 = k_begin + t * BKQ;
+    const int kt_last = min(kt0 + BKQ, a.Skv) - 1;
+    const bool any = has_rows && (!a.causal || kt0 <= p_last) &&
+                     (a.window <= 0 || kt_last > p_first - a.window);
+    if (any) {
+      const bf16* Kt = Ks + stage * BKQ * LDS;
+      const bf16* Vt = Vs + stage * BKQ * LDS;
+      float s[BKQ / 8][4], dp[BKQ / 8][4];
+#pragma unroll
+      for (int n = 0; n < BKQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+      qk_product<HD, BKQ / 8>(s, Qs + warp * 16 * LDS, Kt, lane);    // S = Q K^T
+      qk_product<HD, BKQ / 8>(dp, dOs + warp * 16 * LDS, Vt, lane);  // dP = dO V^T
+      // a tile whose every key this warp's rows see whole needs no mask
+      const bool full = r_first + 15 < rows_ok && kt0 + BKQ <= a.Skv &&
+                        (!a.causal || kt0 + BKQ - 1 <= p_first) &&
+                        (a.window <= 0 || kt0 > p_last - a.window);
+#pragma unroll
+      for (int n = 0; n < BKQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int half = e >> 1;
+          const int kj = kt0 + n * 8 + 2 * tq + (e & 1);
+          s[n][e] = full || (qa[half] >= 0 && visible(a, qa[half], kj))
+                        ? exp2f(fmaf(s[n][e], scale_log2, -lse2[half])) * (dp[n][e] - dl[half])
+                        : 0.0f;  // dS / scale
+        }
+      pv_product<HD, BKQ / 16>(dq, s, Kt, lane);  // dQ += dS K
+    }
+  }
+
+  bf16* dqb = static_cast<bf16*>(a.dq) + b * a.dq_sb;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (qa[half] < 0) continue;
+    bf16* row = dqb + h_of[half] * a.dq_sh + static_cast<int64_t>(i_of[half]) * a.dq_ss;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(row + n * 8 + 2 * tq) =
+          __floats2bfloat162_rn(dq[n][2 * half] * a.scale, dq[n][2 * half + 1] * a.scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int HD>
+int launch_f32(const BwdArgs& a, cudaStream_t stream) {
   constexpr int BK = NT / slice_count(HD);
   const dim3 gkv((a.Skv + BK - 1) / BK, a.KV, a.B);
-  dkv_kernel<T, HD><<<gkv, NT, 0, stream>>>(a);
+  dkv_kernel<float, HD><<<gkv, NT, 0, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 gq((a.Sq + a.bq - 1) / a.bq, a.KV, a.B);
-  dq_kernel<T, HD><<<gq, NT, 0, stream>>>(a);
+  dq_kernel<float, HD><<<gq, NT, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_bf16(const BwdArgs& a, cudaStream_t stream) {
+  using TL = Tiles<HD>;
+  // more than 48 KB of dynamic shared memory must be asked for (per device)
+  cudaError_t e = cudaFuncSetAttribute(dkv_mma_kernel<HD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       TL::DKV_SMEM);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(dq_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             TL::DQ_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 gkv((a.Skv + TL::BKV - 1) / TL::BKV, a.KV, a.B);
+  dkv_mma_kernel<HD><<<gkv, NT, TL::DKV_SMEM, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 gq((a.Sq + a.bq - 1) / a.bq, a.KV, a.B);
+  dq_mma_kernel<HD><<<gq, NT, TL::DQ_SMEM, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_grads(int dtype, const BwdArgs& a, cudaStream_t s) {
+  return dtype == REPRO_BF16 ? launch_bf16<HD>(a, s) : launch_f32<HD>(a, s);
+}
+
 template <typename T>
-int launch_all(int hd, const BwdArgs& a, cudaStream_t s) {
+int launch_delta(int hd, const BwdArgs& a, cudaStream_t s) {
   const int64_t rows = static_cast<int64_t>(a.B) * a.H * a.Sq;
   const int64_t blocks = (rows + NT / 32 - 1) / (NT / 32);
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   delta_kernel<T><<<static_cast<unsigned>(blocks), NT, 0, s>>>(a, hd);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  switch (hd) {
-    case 16: return launch_grads<T, 16>(a, s);
-    case 32: return launch_grads<T, 32>(a, s);
-    case 64: return launch_grads<T, 64>(a, s);
-    case 128: return launch_grads<T, 128>(a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Rows of a dQ block (rep heads x positions): the bf16 kernel's four warps of
+// 16 rows; the f32 kernel's one thread per 32-wide slice of a row.  Keep in
+// step with dq_rows in repro_torch/kernels/flash_attention_bwd.py.
+int dq_block_rows(int dtype, int hd) {
+  return dtype == REPRO_BF16 ? Tiles<64>::ROWS : NT / slice_count(hd);
 }
 
 }  // namespace
@@ -377,17 +850,23 @@ extern "C" int repro_flash_attention_bwd(
     int64_t dv_sh, int64_t dv_ss, int B, int KV, int Sq, int Skv, int rep, int causal,
     int window, int q_offset, float scale, void* stream) {
   if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows = NT / slice_count(hd);  // rows per dq block: rep heads x bq positions
+  if (dtype != REPRO_F32 && dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = dq_block_rows(dtype, hd);
   if (rep < 1 || rep > rows) return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<int64_t>(Sq) * rep >= (int64_t{1} << 31))  // the bf16 dK/dV row index
+    return static_cast<int>(cudaErrorInvalidValue);
   BwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
             q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
             do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, dk_sb, dk_sh, dk_ss,
             dv_sb, dv_sh, dv_ss, B, KV * rep, KV, Sq, Skv, rep, rows / rep, causal,
             window, q_offset, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case REPRO_F32: return launch_all<float>(hd, a, s);
-    case REPRO_BF16: return launch_all<__nv_bfloat16>(hd, a, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  int e = dtype == REPRO_BF16 ? launch_delta<bf16>(hd, a, s) : launch_delta<float>(hd, a, s);
+  if (e != 0) return e;
+  switch (hd) {
+    case 16: return launch_grads<16>(dtype, a, s);
+    case 32: return launch_grads<32>(dtype, a, s);
+    case 64: return launch_grads<64>(dtype, a, s);
+    default: return launch_grads<128>(dtype, a, s);
   }
 }

@@ -30,14 +30,41 @@ from .flash_attention import DTYPE_CODES, visible
 
 #: threads per block; keep in step with csrc/flash_attention_bwd.cu
 THREADS = 128
+#: rows of a bf16 dQ block: four warps of 16 (tensor-core tiles)
+BF16_ROWS = 64
 
 _fn = None
 
 
-def dq_rows(hd: int) -> int:
-    """Rows of a dq block (rep query heads x positions): one thread per
-    32-wide slice of the head dim, THREADS threads."""
+def dq_rows(hd: int, dtype: torch.dtype = torch.float32) -> int:
+    """Rows of a dQ block (rep query heads x positions), so the most query
+    heads a kv head may have: bf16, four warps of 16 rows; f32, one thread
+    per 32-wide slice of the head dim, THREADS threads."""
+    if dtype == torch.bfloat16:
+        return BF16_ROWS
     return THREADS // max(1, hd // 32)
+
+
+def check_launch(q: torch.Tensor, k: torch.Tensor) -> None:
+    """Raise where the kernels cannot take q (B, H, Sq, hd) over k (B, KV,
+    Skv, hd): more query heads per kv head than a dQ block has rows, or a
+    kv head's Sq x rep query rows past the int32 range."""
+    rep, hd = q.shape[1] // k.shape[1], q.shape[3]
+    rows = dq_rows(hd, q.dtype)
+    if rep > rows:
+        raise ValueError(f"flash_attention_bwd: {rep} query heads per kv head; the "
+                         f"{str(q.dtype).replace('torch.', '')} kernel takes at most "
+                         f"{rows} at head dim {hd}")
+    if q.shape[2] * rep >= 2**31:
+        raise ValueError(f"flash_attention_bwd: {q.shape[2]} positions x {rep} heads "
+                         "exceed the kernel's 2^31 query rows per kv head")
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels can copy t's (B, X, S, hd) rows 16 bytes at
+    a time: a 16-byte aligned base and batch, head and position strides of
+    whole 16 bytes (the head dim is contiguous)."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -97,9 +124,14 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool, window: Optional
                              q_offset: int):
     """Launch the kernels on CUDA tensors the wrapper
     (``ops.flash_attention_bwd``) has checked; allocates dq, dk, dv and the
-    (B, H, Sq) f32 delta scratch."""
+    (B, H, Sq) f32 delta scratch.  The bf16 kernels copy rows 16 bytes at a
+    time, so a bf16 operand whose rows are not 16-byte aligned is first
+    copied into a new contiguous tensor."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:  # a view at an odd offset: copy it aligned
+        q, k, v, do = (t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                       for t in (q, k, v, do))
     dq, dk, dv = _like_model(q), _like_model(k), _like_model(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):

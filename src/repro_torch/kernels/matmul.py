@@ -1,35 +1,70 @@
-"""Block matrix product: the Hopper kernel (``csrc/matmul.cu``) and its plain
-PyTorch version.
+"""Block matrix product: the Hopper kernels (``csrc/matmul.cu``) and their
+plain PyTorch version.
 
 Counterpart of ``repro.kernels.matmul.matmul_pallas`` (the kernel) and
-``repro.kernels.ref.matmul_ref`` (the oracle).  The kernel is split-K: the
+``repro.kernels.ref.matmul_ref`` (the oracle).  The kernels are split-K: the
 contraction is cut into slices so that output tiles x slices fill the card,
 each slice writes a partial tile to a workspace allocated here, and a second
 pass sums the slices in a fixed order — no float atomics, so results are
 bitwise reproducible.  Operands are passed by strides: a transposed view
-(``X.T``) is read in place.
+(``X.mT``) is read in place.  By dtype and output width: f64 with N > 8 on
+the FP64 tensor cores, f32 with N > 8 on register-blocked IEEE FMA, f64 and
+f32 with N <= 8 on a kernel that streams A; bf16 on the first tile kernel.
+Where an operand's rows are not 16-byte aligned the same kernels copy
+element by element (``vector_loads`` decides; ``loaders`` counts).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
 from . import build
 
-#: tile shapes (BM, BN, BK) per config; keep in step with csrc/matmul.cu
-_CONFIGS = {
-    0: (64, 64, 16),    # wide outputs
-    1: (128, 8, 32),    # outputs of at most 8 columns (matrix-vector)
-}
-#: split-K aims for this many thread blocks: two per SM of an H100's 132.
-#: A constant (not the queried SM count) keeps the summation order, and so
-#: the result bits, the same on every card.
+#: block tiles (BM, BN, BK) by (config, dtype); config 0 is N > 8, 1 is
+#: N <= 8.  Keep in step with csrc/matmul.cu.  For N <= 8 in f64 and f32, BM
+#: is 32 rows where A's unit stride is along k (eight warps of four rows)
+#: and 32 x (16 bytes / element) where it is along m (a warp's 16-byte reads).
+_WIDE = {torch.float64: (128, 64, 16), torch.float32: (128, 128, 16),
+         torch.bfloat16: (64, 64, 16)}
+_SKINNY_BF16 = (128, 8, 32)
+#: split-K aims for at most this many thread blocks: two per SM of an H100's
+#: 132, so that the split grid runs in one wave.  A constant (not the
+#: queried SM count) keeps the summation order, and so the result bits, the
+#: same on every card.
 TARGET_BLOCKS = 264
 #: dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+#: launches by the loader they took since the last ``reset_loaders``
+loaders: Dict[str, int] = {"vector": 0, "scalar": 0}
+
+
+class Plan(NamedTuple):
+    config: int   # 0: N > 8, 1: N <= 8
+    bm: int
+    bn: int
+    bk: int
+    k_chunk: int  # K per split, a multiple of bk
+    splits: int
+
+
+def tile(dtype: torch.dtype, N: int, kfast: bool) -> Tuple[int, int, int, int]:
+    """(config, BM, BN, BK) of the kernel that takes an (M, K) @ (K, N)
+    product of ``dtype`` whose A has its unit stride along k (``kfast``) or
+    along m."""
+    if N > 8:
+        return (0, *_WIDE[dtype])
+    if dtype == torch.bfloat16:
+        return (1, *_SKINNY_BF16)
+    return (1, 32 if kfast else 32 * (16 // dtype.itemsize), 8, 32)
+
+
+def reset_loaders() -> None:
+    for name in loaders:
+        loaders[name] = 0
+
 
 _fn = None
 
@@ -45,15 +80,37 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(acc) @ b.to(acc)).to(a.dtype)
 
 
-def split_plan(M: int, N: int, K: int) -> Tuple[int, int, int]:
-    """(config, k_chunk, splits) for an (M, K) @ (K, N) product."""
-    config = 1 if N <= 8 else 0
-    bm, bn, bk = _CONFIGS[config]
+def split_plan(M: int, N: int, K: int, dtype: torch.dtype = torch.float64,
+               kfast: bool = True) -> Plan:
+    """The tile and the split of K for an (M, K) @ (K, N) product."""
+    config, bm, bn, bk = tile(dtype, N, kfast)
     tiles = math.ceil(M / bm) * math.ceil(N / bn)
     k_steps = math.ceil(K / bk)
-    splits = min(max(1, math.ceil(TARGET_BLOCKS / tiles)), k_steps)
+    splits = min(max(1, TARGET_BLOCKS // tiles), k_steps)  # one wave: no straggling block
     k_chunk = math.ceil(k_steps / splits) * bk
-    return config, k_chunk, math.ceil(K / k_chunk)
+    return Plan(config, bm, bn, bk, k_chunk, math.ceil(K / k_chunk))
+
+
+def a_kfast(a: torch.Tensor) -> bool:
+    """Whether the kernel reads A (M, K) along k (its unit stride is k's)."""
+    return a.stride(1) == 1
+
+
+def vector_loads(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether the f32/f64 kernels may copy 16 bytes at a time: each operand
+    they stage (A, and B for N > 8) has a unit stride along the axis they
+    read fastest, a 16-byte aligned base and a leading stride of whole 16
+    bytes.  bf16 (element by element) never does."""
+    if a.dtype == torch.bfloat16:
+        return False
+
+    def aligned(t, fast):
+        other = 1 - fast
+        return (t.stride(fast) == 1 and t.data_ptr() % 16 == 0
+                and (t.shape[other] == 1 or t.stride(other) % (16 // t.element_size()) == 0))
+
+    return aligned(a, 1 if a_kfast(a) else 0) and (
+        b.shape[1] <= 8 or aligned(b, 1 if b.stride(1) == 1 else 0))
 
 
 def _kernel():
@@ -61,7 +118,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("matmul").repro_matmul
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
                        + [ctypes.c_int64] * 8 + [ctypes.c_int, ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -72,16 +129,18 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     checked; allocates the output and the split-K workspace."""
     M, K = a.shape
     N = b.shape[1]
-    config, k_chunk, splits = split_plan(M, N, K)
+    plan = split_plan(M, N, K, a.dtype, a_kfast(a))
+    vec = vector_loads(a, b)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
-    part = (torch.empty((splits, M, N), dtype=acc_dtype(a.dtype), device=a.device)
-            if splits > 1 else None)
+    part = (torch.empty((plan.splits, M, N), dtype=acc_dtype(a.dtype), device=a.device)
+            if plan.splits > 1 else None)
     with torch.cuda.device(a.device):
         err = _kernel()(
-            DTYPE_CODES[a.dtype], config, a.data_ptr(), b.data_ptr(),
+            DTYPE_CODES[a.dtype], plan.config, int(vec), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), part.data_ptr() if part is not None else None,
             M, N, K, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
-            k_chunk, splits, torch.cuda.current_stream(a.device).cuda_stream)
+            plan.k_chunk, plan.splits, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
+    loaders["vector" if vec else "scalar"] += 1
     return out

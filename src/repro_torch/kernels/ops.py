@@ -21,14 +21,15 @@ import torch
 
 from .flash_attention import DTYPE_CODES as _FLASH_DTYPES
 from .flash_attention import HEAD_DIMS, THREADS, flash_attention_cuda, flash_attention_ref
-from .flash_attention_bwd import (FlashAttention, dq_rows, flash_attention_bwd_cuda,
-                                  flash_attention_bwd_ref)
+from .flash_attention_bwd import FlashAttention
+from .flash_attention_bwd import check_launch as check_bwd_launch
+from .flash_attention_bwd import flash_attention_bwd_cuda, flash_attention_bwd_ref
 from .glm_fused import DTYPE_CODES as _GLM_DTYPES
 from .glm_fused import glm_fused_cuda, glm_fused_ref
 from .matmul import DTYPE_CODES as _MATMUL_DTYPES
 from .mamba_scan import (STATE_DIMS, MambaScan, mamba_scan_bwd_cuda, mamba_scan_bwd_ref,
                          mamba_scan_cuda, mamba_scan_ref)
-from .matmul import _CONFIGS, matmul_cuda, matmul_ref, split_plan
+from .matmul import a_kfast, matmul_cuda, matmul_ref, reset_loaders, split_plan
 
 #: kernel launches per wrapper since the last ``reset_launches``
 launches: Dict[str, int] = {"matmul": 0, "glm_fused": 0, "flash_attention": 0,
@@ -39,8 +40,10 @@ _GRID_LIMIT = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
 
 def reset_launches() -> None:
+    """Set every launch count to 0, and matmul's counts by loader."""
     for name in launches:
         launches[name] = 0
+    reset_loaders()
 
 
 def _wants_grad(*tensors: torch.Tensor) -> bool:
@@ -81,8 +84,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if 1 not in t.stride() and 1 not in t.shape:
             raise ValueError(f"matmul: operand {name} has strides {t.stride()}; "
                              "the kernel needs a unit stride on one axis")
-    config, _, splits = split_plan(M, N, K)
-    if -(-N // _CONFIGS[config][1]) > _GRID_LIMIT or splits > _GRID_LIMIT:
+    plan = split_plan(M, N, K, a.dtype, a_kfast(a))
+    if -(-N // plan.bn) > _GRID_LIMIT or plan.splits > _GRID_LIMIT:
         raise ValueError(f"matmul: ({M}, {K}) @ ({K}, {N}) exceeds the "
                          "kernel's launch grid")
     launches["matmul"] += 1
@@ -193,11 +196,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if _device_kind("flash_attention_bwd", q, k, v, o, lse, do) == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window, q_offset)
     _check_attention_launch("flash_attention_bwd", q, k, v, o, do)
-    rep, hd = q.shape[1] // k.shape[1], q.shape[3]
-    if rep > dq_rows(hd) or q.shape[2] + q_offset >= 2**31:
-        raise ValueError(f"flash_attention_bwd: {rep} query heads per kv head (at most "
-                         f"{dq_rows(hd)} at head dim {hd}) or positions beyond the "
-                         "kernel's range")
+    check_bwd_launch(q, k)
+    if q.shape[2] + q_offset >= 2**31:
+        raise ValueError("flash_attention_bwd: positions beyond the kernel's range")
     if not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: the kernel needs a contiguous lse")
     launches["flash_attention_bwd"] += 1

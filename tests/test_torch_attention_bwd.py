@@ -22,7 +22,8 @@ import torch
 from repro.kernels.flash_attention_bwd import _fwd_with_lse, flash_attention_vjp
 from repro_torch.kernels import launches, ops, reset_launches
 from repro_torch.kernels.flash_attention import flash_attention_ref
-from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref
+from repro_torch.kernels.flash_attention_bwd import (check_launch, dq_rows,
+                                                     flash_attention_bwd_ref, rows_aligned)
 
 RNG = np.random.default_rng(11)
 TOL = 2e-5
@@ -150,3 +151,46 @@ def test_backward_wrapper_rejects_what_it_does_not_take(bad, match):
         window = 0
     with pytest.raises(ValueError, match=match):
         ops.flash_attention_bwd(q, k, k, o, lse, q, window=window)
+
+
+@pytest.mark.parametrize("dtype,hd,rep,ok", [
+    (torch.bfloat16, 64, 5, True),      # hymba
+    (torch.bfloat16, 64, 64, True),     # a dQ block's 64 rows: one position
+    (torch.bfloat16, 64, 65, False),
+    (torch.bfloat16, 128, 64, True),
+    (torch.bfloat16, 16, 65, False),
+    (torch.float32, 64, 64, True),      # 128 threads, 2 per row
+    (torch.float32, 64, 65, False),
+    (torch.float32, 128, 33, False),
+    (torch.float32, 16, 128, True),
+], ids=str)
+def test_backward_kernel_limits_raise_with_their_message(dtype, hd, rep, ok):
+    """The launch check behind ``ops.flash_attention_bwd`` on a CUDA tensor:
+    rep query heads per kv head up to a dQ block's rows (bf16: 64 at every
+    head dim; f32: 128 threads over hd / 32 slices a row)."""
+    q = torch.zeros(1, rep, 4, hd, dtype=dtype)
+    k = torch.zeros(1, 1, 4, hd, dtype=dtype)
+    assert dq_rows(hd, dtype) == (64 if dtype == torch.bfloat16 else 128 // max(1, hd // 32))
+    if ok:
+        check_launch(q, k)
+    else:
+        with pytest.raises(ValueError, match=f"at most {dq_rows(hd, dtype)} at head dim {hd}"):
+            check_launch(q, k)
+
+
+def test_bf16_rows_alignment_is_read_from_base_and_strides():
+    n = 2 * 50 * 10 * 64
+    assert rows_aligned(torch.zeros(2, 50, 10, 64, dtype=torch.bfloat16).transpose(1, 2))
+    buf = torch.zeros(n + 8, dtype=torch.bfloat16)
+    assert buf.data_ptr() % 16 == 0
+    assert rows_aligned(buf[8:].view(2, 50, 10, 64).transpose(1, 2))
+    assert not rows_aligned(buf[1:n + 1].view(2, 50, 10, 64).transpose(1, 2))
+    assert not rows_aligned(torch.zeros(2, 10, 50, 68, dtype=torch.bfloat16)[..., :64])
+
+
+def test_backward_kernel_limit_on_query_rows_per_kv_head():
+    """A kv head's rows (positions x rep heads) are indexed in int32."""
+    k = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16)
+    check_launch(torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(1, 64, 2**25 - 1, 64), k)
+    with pytest.raises(ValueError, match="2\\^31 query rows"):
+        check_launch(torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(1, 64, 2**25, 64), k)

@@ -26,7 +26,7 @@ from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref
 from repro_torch.kernels.glm_fused import glm_fused_ref
 from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref
-from repro_torch.kernels.matmul import matmul_ref
+from repro_torch.kernels.matmul import loaders, matmul_ref
 from repro_torch.launch.workloads import logreg_newton_loop
 
 pytestmark = pytest.mark.gpu
@@ -364,3 +364,123 @@ def test_hymba_train_step_on_card_launches_every_kernel(cuda_device):
                                          _leaves(again[2])):
         assert torch.equal(g, a), path
         assert _rel_err(g, r) <= 1e-4, path
+
+
+# ---------------------------------------------------------------------------
+# the redesigned kernels: matmul on the FP64 tensor cores and the streaming
+# skinny path, and the bf16 attention backward on the tensor cores
+# ---------------------------------------------------------------------------
+
+RAGGED_MM = [(1200, 64, 64), (64, 1200, 64), (1200, 64, 1), (64, 1200, 1), (100, 96, 60),
+             (100, 96, 5), (1200, 64, 12)]
+
+
+def _np_product(a, b):
+    return a.double().cpu().numpy() @ b.double().cpu().numpy()
+
+
+@pytest.mark.parametrize("m,k,n", RAGGED_MM, ids=str)
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False), (False, True), (True, True)],
+                         ids=["nn", "tn", "nt", "tt"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_matmul_kernel_both_orientations_ragged_vs_numpy(cuda_device, m, k, n, ta, tb, dtype):
+    """Either unit-stride axis of either operand (a transposed view read in
+    place), ragged edges, the vector loader; f64 against numpy at 1e-10."""
+    a = _uniform(11, (k, m) if ta else (m, k), cuda_device, dtype)
+    b = _uniform(12, (n, k) if tb else (k, n), cuda_device, dtype)
+    A, B = (a.mT if ta else a), (b.mT if tb else b)
+    reset_launches()
+    got = ops.matmul(A, B)
+    torch.cuda.synchronize()
+    assert launches["matmul"] == 1 and loaders == {"vector": 1, "scalar": 0}
+    want = _np_product(A, B)
+    err = np.abs(got.double().cpu().numpy() - want).max() / max(np.abs(want).max(), 1.0)
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("n", [1, 60], ids=["skinny", "wide"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_matmul_kernel_misaligned_view_takes_the_scalar_loader(cuda_device, n, dtype):
+    """An operand 8 (or 4) bytes past an aligned base: the same kernels copy
+    element by element, and the product is still right."""
+    buf = _uniform(13, (1200 * 96 + 1,), cuda_device, dtype)
+    for A in (buf[1:].view(1200, 96), buf[1:].view(96, 1200).mT):
+        B = _uniform(14, (96, n), cuda_device, dtype)
+        reset_launches()
+        got = ops.matmul(A, B)
+        torch.cuda.synchronize()
+        assert loaders == {"vector": 0, "scalar": 1}
+        want = _np_product(A, B)
+        assert np.abs(got.double().cpu().numpy() - want).max() <= TOL[dtype] * np.abs(want).max()
+
+
+@pytest.mark.parametrize("shape", [(256, 131072, 256), (256, 131072, 1), (131072, 256, 1)],
+                         ids=str)
+def test_matmul_kernel_split_k_is_deterministic_f64(cuda_device, shape):
+    """The Newton products (split-K, a fixed summation order): the same bits
+    on every launch, and numpy's product to 1e-10."""
+    m, k, n = shape
+    x = torch.randn(max(m, k), min(m, k), dtype=torch.float64, device=cuda_device,
+                    generator=torch.Generator(device=cuda_device).manual_seed(3))
+    A = x.mT if m < k else x
+    B = torch.randn(k, n, dtype=torch.float64, device=cuda_device)
+    first = ops.matmul(A, B)
+    assert all(torch.equal(first, ops.matmul(A, B)) for _ in range(3))
+    want = _np_product(A, B)
+    assert np.abs(first.cpu().numpy() - want).max() <= 1e-10 * np.abs(want).max()
+
+
+BWD_BF16_CASES = [  # B, H, KV, Sq, Skv, hd, causal, window, q_offset
+    (2, 5, 5, 77, 77, 64, True, None, 0),       # rep 1, ragged
+    (2, 25, 5, 333, 333, 64, True, None, 0),    # rep 5 (hymba), ragged
+    (2, 25, 5, 300, 300, 64, True, 100, 0),     # ... a local layer
+    (1, 10, 2, 130, 201, 16, True, None, 71),   # q behind the cache, each head dim
+    (1, 10, 2, 130, 201, 32, True, None, 71),
+    (1, 10, 2, 130, 201, 64, True, None, 71),
+    (1, 10, 2, 130, 201, 128, True, None, 71),
+    (1, 10, 2, 50, 177, 32, True, 40, 127),     # window and q_offset
+    (1, 64, 1, 40, 40, 64, True, None, 0),      # rep 64: the bf16 limit
+    (1, 4, 2, 45, 70, 128, False, None, 0),     # non-causal, ragged
+]
+
+
+@pytest.mark.parametrize("case", BWD_BF16_CASES, ids=str)
+def test_flash_attention_bwd_bf16_tensor_core_kernels_vs_plain(cuda_device, case):
+    B, H, KV, Sq, Skv, hd, causal, window, q_offset = case
+    dtype = torch.bfloat16
+    q = _uniform(21, (B, H, Sq, hd), cuda_device, dtype)
+    k = _uniform(22, (B, KV, Skv, hd), cuda_device, dtype)
+    v = _uniform(23, (B, KV, Skv, hd), cuda_device, dtype)
+    do = _uniform(24, (B, H, Sq, hd), cuda_device, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_attention_bwd"] == 2
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, q_offset)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a) and g.dtype == dtype and g.shape == r.shape
+        assert _rel_err(g, r) <= FLASH_TOL[dtype], _rel_err(g, r)
+
+
+def test_flash_attention_bwd_bf16_misaligned_view_and_limits(cuda_device):
+    """A q 2 bytes past an aligned base is copied aligned and still right;
+    65 query heads per kv head are refused with the limit in the message."""
+    dtype = torch.bfloat16
+    buf = _uniform(25, (2 * 10 * 60 * 64 + 1,), cuda_device, dtype)
+    q = buf[1:].view(2, 10, 60, 64)
+    k = _uniform(26, (2, 2, 60, 64), cuda_device, dtype)
+    v = _uniform(27, (2, 2, 60, 64), cuda_device, dtype)
+    do = _uniform(28, (2, 10, 60, 64), cuda_device, dtype)
+    out, lse = ops.flash_attention(q.contiguous(), k, v, return_lse=True)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do)
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, do)
+    for g, r in zip(got, ref):
+        assert _rel_err(g, r) <= FLASH_TOL[dtype]
+    q65 = torch.zeros(1, 65, 8, 64, device=cuda_device, dtype=dtype)
+    kv = torch.zeros(1, 1, 8, 64, device=cuda_device, dtype=dtype)
+    lse65 = torch.zeros(1, 65, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 64 at head dim 64"):
+        ops.flash_attention_bwd(q65, kv, kv, q65, lse65, q65)

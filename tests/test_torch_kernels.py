@@ -22,7 +22,8 @@ import torch
 from repro.kernels import glm_fused as ref_glm_fused
 from repro.kernels import matmul as ref_matmul
 from repro_torch.kernels import build, launches, ops, reset_launches
-from repro_torch.kernels.matmul import _CONFIGS, matmul_ref, split_plan
+from repro_torch.kernels.matmul import (a_kfast, matmul_ref, split_plan, tile,
+                                        vector_loads)
 
 SHAPES = [(128, 128, 128), (256, 128, 384), (384, 256, 128), (100, 96, 60)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -97,22 +98,63 @@ class TestMatmul:
                             "flash_attention_bwd": 0, "mamba_scan": 0,
                             "mamba_scan_bwd": 0}
 
-    @pytest.mark.parametrize("M,N,K", [
-        (131072, 1, 256),      # X @ beta
-        (256, 1, 131072),      # X^T (mu - y)
-        (256, 256, 131072),    # X^T (w * X)
-        (4096, 4096, 4096),    # a DGEMM tile
-        (100, 60, 96), (1, 1, 1), (3, 300, 7),
+    @pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16],
+                             ids=str)
+    @pytest.mark.parametrize("M,N,K,kfast", [
+        (131072, 1, 256, True),      # X @ beta
+        (256, 1, 131072, False),     # X^T (mu - y), A read as the view X.mT
+        (256, 256, 131072, False),   # X^T (w * X)
+        (4096, 4096, 4096, True),    # a DGEMM tile
+        (100, 60, 96, True), (1, 1, 1, True), (3, 300, 7, False),
     ])
-    def test_split_plan_covers_k(self, M, N, K):
-        config, k_chunk, splits = split_plan(M, N, K)
-        bm, bn, bk = _CONFIGS[config]
-        assert config == (1 if N <= 8 else 0)
-        assert k_chunk % bk == 0 and splits >= 1
-        assert (splits - 1) * k_chunk < K <= splits * k_chunk
-        tiles = math.ceil(M / bm) * math.ceil(N / bn)
-        if tiles < 264 and K > bk:
-            assert splits > 1   # few output tiles: the contraction is split
+    def test_split_plan_covers_k(self, M, N, K, kfast, dtype):
+        plan = split_plan(M, N, K, dtype, kfast)
+        assert (plan.config, plan.bm, plan.bn, plan.bk) == tile(dtype, N, kfast)
+        assert plan.config == (1 if N <= 8 else 0)
+        assert plan.k_chunk % plan.bk == 0 and plan.splits >= 1
+        assert (plan.splits - 1) * plan.k_chunk < K <= plan.splits * plan.k_chunk
+        tiles = math.ceil(M / plan.bm) * math.ceil(N / plan.bn)
+        if tiles <= 132 and K > plan.bk:
+            assert plan.splits > 1   # few output tiles: the contraction is split
+        if plan.splits > 1:
+            assert tiles * plan.splits <= 264   # ... into one wave of blocks
+        # slices start on whole 16-byte runs of k, as the vector loader needs
+        assert (plan.k_chunk * torch.empty(0, dtype=dtype).element_size()) % 16 == 0
+
+    @pytest.mark.parametrize("dtype,kfast,bm", [
+        (torch.float64, True, 32), (torch.float64, False, 64),
+        (torch.float32, True, 32), (torch.float32, False, 128),
+        (torch.bfloat16, True, 128), (torch.bfloat16, False, 128),
+    ], ids=str)
+    def test_skinny_tile_follows_the_unit_stride(self, dtype, kfast, bm):
+        """N <= 8: a block holds 8 warps x 4 rows where A is read along k,
+        and a warp's 32 x 16 bytes of m where it is read along m."""
+        assert tile(dtype, 8, kfast) == (1, bm, 8, 32)
+        assert tile(dtype, 9, kfast)[0] == 0
+
+    def test_main_path_operands_take_the_vector_loader(self):
+        X = torch.zeros(4096, 256, dtype=torch.float64)
+        beta = torch.zeros(256, 1, dtype=torch.float64)
+        r = torch.zeros(4096, 1, dtype=torch.float64)
+        assert a_kfast(X) and not a_kfast(X.mT)
+        assert vector_loads(X, beta)              # X @ beta
+        assert vector_loads(X.mT, r)              # X^T (mu - y)
+        assert vector_loads(X.mT, X)              # X^T (w * X)
+        sq = torch.zeros(512, 512)
+        assert vector_loads(sq, sq) and vector_loads(sq.mT, sq.mT)
+
+    def test_misaligned_views_take_the_scalar_loader(self):
+        X = torch.zeros(4096, 257, dtype=torch.float64)
+        assert not vector_loads(X[:, 1:], X[:, :256])     # odd base, odd row stride
+        n = 4096 * 256
+        Y = torch.zeros(n + 2, dtype=torch.float64)
+        assert Y.data_ptr() % 16 == 0
+        Xo = Y[1:n + 1].view(4096, 256)                   # 8 bytes past an aligned base
+        assert not vector_loads(Xo, torch.zeros(256, 16, dtype=torch.float64))
+        assert not vector_loads(Xo.mT, torch.zeros(4096, 1, dtype=torch.float64))
+        assert vector_loads(Y[2:].view(4096, 256), torch.zeros(256, 1, dtype=torch.float64))
+        assert not vector_loads(torch.zeros(8, 8, dtype=torch.bfloat16),
+                                torch.zeros(8, 8, dtype=torch.bfloat16))
 
     def test_library_path_is_keyed_by_sources(self):
         p = build.library_path("matmul")
