@@ -37,9 +37,14 @@ Each phase prints one JSON line (a matmul case also names the loader it
 took, vector or scalar; an attention-backward case the device time of each
 of its kernels); the kernel line, the card's name and power limit, and a
 final ``{"ok": true, ...}`` line close the output.  The compiler's register
-report of every kernel goes to standard error; a register spill in the two
-libraries redesigned for the tensor cores fails the run, as does a Newton or
-DGEMM product on the scalar loader.  Any failure raises and exits non-zero.
+report of every kernel goes to standard error; a register spill in the
+libraries redesigned for Hopper (``REDESIGNED``) fails the run, as does a
+Newton or DGEMM product on the scalar loader.  The attention forward is timed
+at prefill and at decode, where it splits the keys (two device kernels per
+call, whose device times a decode case also reports); the scan forward with
+its checkpoints written, and the scan backward on both its routes (from the
+forward's checkpoints, the one training takes, and without them), which must
+give the same bits.  Any failure raises and exits non-zero.
 
 Needs one CUDA device; exits non-zero without printing a result where there
 is none, or where ``src/repro_torch`` is not beside this script.
@@ -64,7 +69,8 @@ from repro_torch.configs.glm_logreg import CONFIG  # noqa: E402
 from repro_torch.core import ArrayContext, ClusterSpec  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, launches, ops, reset_launches  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention_ref, visible  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention_ref, kv_splits,  # noqa: E402
+                                                 query_tiles, visible)
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.glm_fused import glm_fused_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref  # noqa: E402
@@ -118,7 +124,8 @@ SERVE_WARM_LAYERS = 2
 TRAIN = dict(arch="hymba-1.5b", batch=4, seq=2048, warm=1, steps=3, lr=1e-2)
 #: device kernels of a train step by what they do, matched on their names
 KERNEL_GROUPS = (
-    ("attention forward", ("flash_fwd_kernel",)),
+    ("attention forward", ("flash_fwd_kernel", "flash_fwd_mma_kernel",
+                           "flash_split_combine_kernel")),
     ("attention backward", ("dkv_kernel", "dq_kernel", "dkv_mma_kernel", "dq_mma_kernel",
                             "delta_kernel")),
     ("scan forward", ("mamba_scan_kernel",)),
@@ -150,9 +157,11 @@ FLASH_BWD_SRC = ("src/repro_torch/csrc/flash_attention_bwd.cu",
 #: by jax autodiff of its associative scan
 SCAN_BWD_SRC = ("src/repro_torch/csrc/mamba_scan_bwd.cu",
                 "src/repro/kernels/mamba_scan.py:43 (its gradient; no Pallas kernel)")
-#: the libraries whose kernels were redesigned for Hopper's tensor cores and
-#: asynchronous copies; their ptxas report must show no register spills
-REDESIGNED = ("matmul", "flash_attention_bwd")
+#: the libraries whose kernels were redesigned for Hopper (tensor cores,
+#: asynchronous copies, split-KV, the scan's checkpoints); their ptxas report
+#: must show no register spills
+REDESIGNED = ("matmul", "flash_attention", "flash_attention_bwd", "mamba_scan",
+              "mamba_scan_bwd")
 #: every kernel library, built at once
 KERNELS = ["matmul", "glm_fused", "flash_attention", "flash_attention_bwd", "mamba_scan",
            "mamba_scan_bwd"]
@@ -326,25 +335,34 @@ def flash_case(name, q, k, v, window, q_offset):
                                * q.element_size(), dtype)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=mask, enable_gqa=True)
+    splits = kv_splits(dtype, B, KV, H // KV, Sq, Skv, hd, True, window, q_offset)
     case = dict(case=name, dtype=str(dtype).replace("torch.", ""),
                 q=list(q.shape), kv=list(k.shape), window=window, q_offset=q_offset,
+                splits=splits, blocks=B * KV * query_tiles(dtype, H // KV, Sq) * splits,
                 max_abs_err=err, rel_err=rel, tol=FLASH_TOL[dtype],
                 ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
                 plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, True, window,
                                                              q_offset)),
                 library_ms=time_ms(library), library="scaled_dot_product_attention",
                 bound_ms=bound_ms, bound_by=bound_by, peak=PEAK_NAME[dtype])
+    if splits > 1:  # the call's two device kernels
+        case["kernel_ms"] = device_ms_by_kernel(
+            lambda: ops.flash_attention(q, k, v, **kw),
+            {"partials": "flash_fwd", "combine": "flash_split_combine"})
     emit("kernel_case", kernel="flash_attention", **case)
     check(rel <= FLASH_TOL[dtype], f"flash_attention {name}: rel err {rel}")
     return case
 
 
 def scan_case(name, dA, dBx, C):
-    y, h = ops.mamba_scan(dA, dBx, C)
+    """The forward with its checkpoints written (what training runs) and
+    without (serving): the same y and carry, bitwise."""
+    y, h, _ = ops.mamba_scan(dA, dBx, C, checkpoints=True)
     y2, h2 = ops.mamba_scan(dA, dBx, C)
     y_ref, h_ref = mamba_scan_ref(dA, dBx, C)
     sync()
-    check(torch.equal(y, y2) and torch.equal(h, h2), f"mamba_scan {name}: two launches differ")
+    check(torch.equal(y, y2) and torch.equal(h, h2),
+          f"mamba_scan {name}: two launches (with and without checkpoints) differ")
     err = max((y - y_ref).abs().max().item(), (h - h_ref).abs().max().item())
     rel = max((y - y_ref).abs().max().item() / y_ref.abs().max().item(),
               (h - h_ref).abs().max().item() / h_ref.abs().max().item())
@@ -354,7 +372,9 @@ def scan_case(name, dA, dBx, C):
                                4 * (2 * B * S * DI * N + B * S * N + B * S * DI + B * DI * N),
                                torch.float32)
     case = dict(case=name, dtype="float32", shape=[B, S, DI, N], max_abs_err=err,
-                rel_err=rel, tol=SCAN_TOL, ms=time_ms(lambda: ops.mamba_scan(dA, dBx, C)),
+                rel_err=rel, tol=SCAN_TOL,
+                ms=time_ms(lambda: ops.mamba_scan(dA, dBx, C, checkpoints=True)),
+                ms_without_checkpoints=time_ms(lambda: ops.mamba_scan(dA, dBx, C)),
                 plain_ms=time_ms(lambda: mamba_scan_ref(dA, dBx, C), max_reps=5),
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                 peak=PEAK_NAME[torch.float32])
@@ -383,6 +403,8 @@ def serve_kernel_phase(dev):
         if dtype == torch.bfloat16:
             flash.append(flash_case("prefill-local bf16", q, k, v, sh["window"], 0))
             flash.append(flash_case("decode bf16", q[:, :, :1].contiguous(), k, v, None, S))
+            flash.append(flash_case("decode-local bf16", q[:, :, :1].contiguous(), k, v,
+                                    sh["window"], S))
         del q, k, v
         gc.collect()
         torch.cuda.empty_cache()
@@ -458,12 +480,16 @@ def flash_bwd_case(name, q, k, v, window):
 
 
 def scan_bwd_case(name, dA, dBx, C, dy):
-    got = ops.mamba_scan_bwd(dA, dBx, C, dy)
+    """The backward from the checkpoints of one forward (the route training
+    takes) and without them (it runs the recurrence forward first): the
+    same bits, against the plain backward."""
+    _, _, ckpt = ops.mamba_scan(dA, dBx, C, checkpoints=True)
+    got = ops.mamba_scan_bwd(dA, dBx, C, dy, checkpoints=ckpt)
     again = ops.mamba_scan_bwd(dA, dBx, C, dy)
     ref = mamba_scan_bwd_ref(dA, dBx, C, dy)
     sync()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
-          f"mamba_scan_bwd {name}: two launches differ")
+          f"mamba_scan_bwd {name}: the two routes differ")
     errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
     rels = [e / r.abs().max().item() for e, r in zip(errs, ref)]
     del got, again, ref
@@ -476,7 +502,8 @@ def scan_bwd_case(name, dA, dBx, C, dy):
                                torch.float32)
     case = dict(case=name, dtype="float32", shape=[B, S, DI, N], max_abs_err=max(errs),
                 rel_err={"d_dA": rels[0], "d_dBx": rels[1], "dC": rels[2]}, tol=SCAN_TOL,
-                ms=time_ms(lambda: ops.mamba_scan_bwd(dA, dBx, C, dy)),
+                ms=time_ms(lambda: ops.mamba_scan_bwd(dA, dBx, C, dy, checkpoints=ckpt)),
+                ms_without_checkpoints=time_ms(lambda: ops.mamba_scan_bwd(dA, dBx, C, dy)),
                 plain_ms=time_ms(lambda: mamba_scan_bwd_ref(dA, dBx, C, dy), max_reps=3),
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                 peak=PEAK_NAME[torch.float32])

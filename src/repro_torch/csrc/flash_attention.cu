@@ -14,36 +14,58 @@
 // bytes: the whole key/value cache is read for one query row per head.
 //
 // What the design does about it:
-// - One block takes one (batch, kv head) pair and one tile of query
-//   positions, and its rows are every query head that shares that kv head
-//   at every position of the tile (rows = rep * bq).  Each key/value tile is
-//   read from device memory once for all rep heads, not rep times: the
-//   decode block has 5 live rows for hymba, not 1.
-// - Key/value tiles are staged through shared memory in f32; each thread
-//   keeps its row's query and output accumulator in registers, and its
-//   running max and denominator in two registers (the TPU kernel's
-//   (bq, 128) lane-broadcast scratch is a layout artifact of its vector
-//   unit and has no counterpart here).
-// - A block of 128 threads is rows x groups: with few rows (decode), the
-//   groups split each key tile between them, each keeps its own softmax
-//   state, and the groups are merged through shared memory at the end; with
-//   128 rows (prefill) every thread owns a row and there is no merge.
+// - One block takes one (batch, kv head) pair and a tile of query rows, and
+//   its rows are the query heads that share that kv head at consecutive
+//   positions.  Each key/value tile is read from device memory once for all
+//   rep heads, not rep times.
+// - bf16 (flash_fwd_mma_kernel): FlashAttention-2 on the tensor cores.
+//   Four warps of 16 rows; a block's 64 rows are rows f = position * rep +
+//   head of its kv head (position-major, as in the dK/dV kernel), so every
+//   row of a tile is used whatever rep is.  Q is staged once; key/value
+//   tiles of 64 keys (32 at hd 128) come by 16-byte cp.async into padded
+//   bf16 shared memory, two tiles in flight.  S = Q K^T runs on mma.sync
+//   m16n8k16 bf16 x bf16 -> f32 (Q's fragments held in registers, K's by
+//   ldmatrix); the online softmax runs on the f32 accumulators in
+//   registers, a row's max and sum shared by the four lanes that hold it;
+//   P is rounded to bf16 only as the A operand of O += P V, taken straight
+//   from the accumulators, with V read by ldmatrix.trans.  A warp skips a
+//   tile that none of its 16 rows sees and masks element by element only a
+//   tile that straddles a boundary (mma.cuh holds the building blocks).
+// - f32 (flash_fwd_kernel): scalar IEEE f32 FMA (the tensor cores would
+//   take f32 only through TF32, which the port never uses).  A block of 128
+//   threads is rows x key groups; each thread keeps its row's output
+//   accumulator in registers (and its query there too up to hd 64, in
+//   shared memory above); with few rows the groups split each key tile and
+//   are merged through shared memory at the end.
+// - Decode (split-KV): when the grid, B * KV * query tiles, is too small to
+//   fill the card, the wrapper asks for `splits` > 1.  Each block then
+//   covers one of `splits` contiguous ranges of whole key tiles of its
+//   visible range (causal and window trimming first) and writes its rows'
+//   partial (m, l, unnormalised O) in f32 to a workspace; a second kernel,
+//   flash_split_combine_kernel, merges the partials of each row in split
+//   order (rescale by exp(m_s - max m) and sum, no atomics, so two launches
+//   give the same bits) and writes O and lse.  A split that sees no key of
+//   a row (m = -inf) adds nothing to it.
 // - Key tiles outside [first key any row may see, last key any row may see]
-//   are never loaded (causal and window skipping); keys >= Skv are masked
-//   explicitly, so a ragged cache needs no padding.
-// - Arithmetic is scalar IEEE f32 FMA: right and simple first.  The tensor
-//   cores (mma.sync / wgmma on bf16) are later work; PERF.md has the gap.
+//   are never loaded; keys >= Skv are masked explicitly, so a ragged cache
+//   needs no padding.
 //
 // Operands are read through strides (batch, head, position; the head
 // dimension is contiguous), so the model's (B, S, H, hd) activations and its
 // (B, S_max, KV, hd) cache are read in place, without a transposing copy.
+// The bf16 kernel copies rows 16 bytes at a time, so it needs every
+// operand's base and strides 16-byte aligned: the wrapper copies a view that
+// is not into a new tensor first.
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int NT = 128;  // threads per block
+constexpr int NT = 128;  // threads per block (four warps)
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct FlashArgs {
   const void* q;
@@ -51,100 +73,148 @@ struct FlashArgs {
   const void* v;
   void* o;
   float* lse;   // (B, H, Sq) contiguous, or null: not written
+  float* ws;    // splits > 1: partial O (splits, R, hd), then m and l (splits, R)
   int64_t q_sb, q_sh, q_ss;  // element strides: batch, head, position
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
   int64_t o_sb, o_sh, o_ss;
+  int64_t R;    // rows of the output, B * H * Sq, in lse's order
   int Sq, Skv, KV;
   int rep;      // query heads per kv head
-  int rows;     // rows per block: a power of two <= NT
-  int bq;       // query positions per block: rows / rep
+  int rows;     // f32: rows per block, a power of two <= NT
+  int bq;       // f32: query positions per block, rows / rep
   int causal;   // 0 or 1
   int window;   // 0: no window; else key j is visible iff j > q - window
   int q_offset; // absolute position of query 0
+  int splits;   // key ranges per (query tile, batch, kv head); 1: no split
   float scale;
 };
 
+__device__ __forceinline__ bool visible(const FlashArgs& a, int qabs, int kj) {
+  return kj < a.Skv && (!a.causal || kj <= qabs) && (a.window <= 0 || kj > qabs - a.window);
+}
+
+// This split's key tiles [t_lo, t_hi) of n_tiles: contiguous, as even as
+// whole tiles allow.
+__device__ __forceinline__ void split_tiles(int n_tiles, int split, int splits, int& t_lo,
+                                            int& t_hi) {
+  t_lo = static_cast<int>(static_cast<int64_t>(split) * n_tiles / splits);
+  t_hi = static_cast<int>(static_cast<int64_t>(split + 1) * n_tiles / splits);
+}
+
+// The workspace of a split launch: partial O (splits, R, hd), then m and l
+// (splits, R) each; row = (b * H + h) * Sq + i.
+__device__ __forceinline__ float* ws_acc(const FlashArgs& a, int split, int64_t row, int hd) {
+  return a.ws + (split * a.R + row) * hd;
+}
+__device__ __forceinline__ float* ws_m(const FlashArgs& a, int split, int64_t row, int hd) {
+  return a.ws + a.splits * a.R * hd + split * a.R + row;
+}
+__device__ __forceinline__ float* ws_l(const FlashArgs& a, int split, int64_t row, int hd) {
+  return a.ws + a.splits * a.R * (hd + 1) + split * a.R + row;
+}
+
+// a row's log-sum-exp (natural units) from its max m and sum l
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.0f ? m + logf(l) : -INFINITY;
+}
+
+// ---------------------------------------------------------------------------
+// f32: scalar FMA
+// ---------------------------------------------------------------------------
+
 __host__ __device__ constexpr int key_tile(int hd) { return hd <= 64 ? 64 : 32; }
 __host__ __device__ constexpr int key_chunk(int hd) { return hd <= 64 ? 16 : 8; }
+// above hd 64 a thread's query and accumulator would not both fit its
+// registers: the query rows live in shared memory
+__host__ __device__ constexpr bool q_in_smem(int hd) { return hd > 64; }
 
 template <int HD>
 constexpr size_t smem_floats() {
-  // max(two key/value tiles, the per-thread softmax states of the merge)
-  return (2 * key_tile(HD) * (HD + 4) > 2 * NT + NT * (HD + 1))
-             ? 2 * key_tile(HD) * (HD + 4)
-             : 2 * NT + NT * (HD + 1);
+  // max(two key/value tiles (and the query rows), the merge's per-thread states)
+  constexpr size_t tiles = 2 * key_tile(HD) * (HD + 4) + (q_in_smem(HD) ? NT * (HD + 4) : 0);
+  constexpr size_t merge = 2 * NT + NT * (HD + 1);
+  return tiles > merge ? tiles : merge;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
   constexpr int BC = key_tile(HD);   // keys per tile
   constexpr int CH = key_chunk(HD);  // keys per softmax update
   constexpr int LD = HD + 4;         // padded tile row, in floats (16-byte aligned)
+  constexpr bool QS = q_in_smem(HD);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Ks = smem;
   float* Vs = smem + BC * LD;
+  float* Qs = smem + 2 * BC * LD;    // QS: the block's query rows, scaled
 
   const int tid = threadIdx.x;
   const int G = NT / a.rows;         // key groups
   const int r = tid % a.rows;        // this thread's row ...
   const int g = tid / a.rows;        // ... and key group
   const int b = blockIdx.z, kvh = blockIdx.y;
-  const int q0 = blockIdx.x * a.bq;
+  const int split = blockIdx.x % a.splits;
+  const int q0 = blockIdx.x / a.splits * a.bq;
   const int pos_l = r / a.rep;
   const int qpos = q0 + pos_l;
   const bool row_ok = pos_l < a.bq && qpos < a.Sq;
   const int h = kvh * a.rep + r % a.rep;
   const int qabs = qpos + a.q_offset;
 
-  float qr[HD];
-  if (row_ok) {
-    const T* qp = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh +
-                  static_cast<int64_t>(qpos) * a.q_ss;
+  float qr[QS ? 1 : HD];
+  {
+    const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh +
+                      static_cast<int64_t>(qpos) * a.q_ss;
+    if constexpr (QS) {
+      if (g == 0)
+        for (int d = 0; d < HD; ++d) Qs[r * LD + d] = row_ok ? qp[d] * a.scale : 0.0f;
+    } else {
 #pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = to_f32(qp[d]) * a.scale;
-  } else {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = 0.0f;
+      for (int d = 0; d < HD; ++d) qr[d] = row_ok ? qp[d] * a.scale : 0.0f;
+    }
   }
 
-  // keys any row of this block may see
+  // keys any row of this block may see, in tiles; this split's share
   const int q_last = min(q0 + a.bq, a.Sq) - 1 + a.q_offset;
   int k_end = a.Skv;
   if (a.causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
   if (a.window > 0) k_begin = max(0, q0 + a.q_offset - a.window + 1);
   k_begin = (k_begin / BC) * BC;
+  int t_lo, t_hi;
+  split_tiles(k_end > k_begin ? (k_end - k_begin + BC - 1) / BC : 0, split, a.splits, t_lo,
+              t_hi);
 
   // this row's visible keys: [lo, hi)
   int hi = a.Skv;
   if (a.causal) hi = min(hi, qabs + 1);
   const int lo = a.window > 0 ? qabs - a.window + 1 : 0;
 
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
   float m = -INFINITY, l = 0.0f;
   float acc[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
 
-  for (int k0 = k_begin; k0 < k_end; k0 += BC) {
+  for (int k0 = k_begin + t_lo * BC; k0 < k_begin + t_hi * BC; k0 += BC) {
     __syncthreads();  // the previous tile is consumed
     for (int i = tid; i < BC * HD; i += NT) {
       const int j = i / HD, d = i % HD;
       const int kj = k0 + j;
       float kv = 0.0f, vv = 0.0f;
       if (kj < a.Skv) {
-        kv = to_f32(kb[static_cast<int64_t>(kj) * a.k_ss + d]);
-        vv = to_f32(vb[static_cast<int64_t>(kj) * a.v_ss + d]);
+        kv = kb[static_cast<int64_t>(kj) * a.k_ss + d];
+        vv = vb[static_cast<int64_t>(kj) * a.v_ss + d];
       }
       Ks[j * LD + d] = kv;
       Vs[j * LD + d] = vv;
     }
     __syncthreads();
     if (!row_ok) continue;
+    const float4* qv = reinterpret_cast<const float4*>(Qs + r * LD);
     for (int j0 = g; j0 < BC; j0 += G * CH) {
       float s[CH];
       float mc = -INFINITY;
@@ -159,10 +229,16 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
 #pragma unroll
           for (int d4 = 0; d4 < HD / 4; ++d4) {
             const float4 kk = kr[d4];
-            dot = fmaf(qr[4 * d4], kk.x, dot);
-            dot = fmaf(qr[4 * d4 + 1], kk.y, dot);
-            dot = fmaf(qr[4 * d4 + 2], kk.z, dot);
-            dot = fmaf(qr[4 * d4 + 3], kk.w, dot);
+            float4 qq;
+            if constexpr (QS) {
+              qq = qv[d4];
+            } else {
+              qq = make_float4(qr[4 * d4], qr[4 * d4 + 1], qr[4 * d4 + 2], qr[4 * d4 + 3]);
+            }
+            dot = fmaf(qq.x, kk.x, dot);
+            dot = fmaf(qq.y, kk.y, dot);
+            dot = fmaf(qq.z, kk.z, dot);
+            dot = fmaf(qq.w, kk.w, dot);
           }
           s[c] = dot;
           mc = fmaxf(mc, dot);
@@ -193,16 +269,23 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
     }
   }
 
-  T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh + static_cast<int64_t>(qpos) * a.o_ss;
-  float* lp = a.lse == nullptr ? nullptr
-                               : a.lse + (static_cast<int64_t>(b) * a.KV * a.rep + h) * a.Sq + qpos;
+  const int64_t row = (static_cast<int64_t>(b) * a.KV * a.rep + h) * a.Sq + qpos;
+  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh +
+              static_cast<int64_t>(qpos) * a.o_ss;
   if (G == 1) {
-    if (row_ok) {
-      const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // a row that sees no key gives 0
+    if (!row_ok) return;
+    if (a.splits > 1) {  // this split's partial: (m, l, unnormalised O)
+      float* wa = ws_acc(a, split, row, HD);
 #pragma unroll
-      for (int d = 0; d < HD; ++d) store_to(op + d, acc[d] * inv);
-      if (lp != nullptr) *lp = l > 0.0f ? m + logf(l) : -INFINITY;
+      for (int d = 0; d < HD; ++d) wa[d] = acc[d];
+      *ws_m(a, split, row, HD) = m;
+      *ws_l(a, split, row, HD) = l;
+      return;
     }
+    const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // a row that sees no key gives 0
+#pragma unroll
+    for (int d = 0; d < HD; ++d) op[d] = acc[d] * inv;
+    if (a.lse != nullptr) a.lse[row] = row_lse(m, l);
     return;
   }
 
@@ -224,60 +307,349 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
     const float mg = pm[gg * a.rows + r];
     if (mg != -INFINITY) L += pl[gg * a.rows + r] * expf(mg - M);
   }
-  const float inv = L > 0.0f ? 1.0f / L : 0.0f;
-  if (lp != nullptr && g == 0) *lp = L > 0.0f ? M + logf(L) : -INFINITY;
+  const bool part = a.splits > 1;
+  const float inv = part ? 1.0f : (L > 0.0f ? 1.0f / L : 0.0f);
+  if (g == 0) {
+    if (part) {
+      *ws_m(a, split, row, HD) = M;
+      *ws_l(a, split, row, HD) = L;
+    } else if (a.lse != nullptr) {
+      a.lse[row] = row_lse(M, L);
+    }
+  }
+  float* dst = part ? ws_acc(a, split, row, HD) : op;
   for (int d = g; d < HD; d += G) {  // this thread writes every G-th dim of its row
     float o = 0.0f;
     for (int gg = 0; gg < G; ++gg) {
       const int t = gg * a.rows + r;
       if (pm[t] != -INFINITY) o = fmaf(pacc[t * (HD + 1) + d], expf(pm[t] - M), o);
     }
-    store_to(op + d, o * inv);
+    dst[d] = o * inv;
   }
 }
 
-template <typename T, int HD>
-int launch(const FlashArgs& a, int B, cudaStream_t stream) {
-  const size_t bytes = smem_floats<HD>() * sizeof(float);
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using tc::bf16;
+
+template <int HD>
+struct FwdTiles {
+  static constexpr int ROWS = 64;                 // query rows per block: 4 warps x 16
+  static constexpr int BKV = HD <= 64 ? 64 : 32;  // keys per tile
+  static constexpr int LDS = HD + 8;              // shared row, in bf16: 16 bytes of padding
+  static constexpr int CH = HD / 8;               // 16-byte chunks per row
+  static constexpr int STAGES = 2;                // key/value tiles in flight
+  static constexpr int SMEM = (ROWS + STAGES * 2 * BKV) * LDS * 2;
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(const FlashArgs a) {
+  using TL = FwdTiles<HD>;
+  constexpr int ROWS = TL::ROWS, BKV = TL::BKV, LDS = TL::LDS, CH = TL::CH, ST = TL::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + ROWS * LDS;      // ST stages x BKV keys
+  bf16* Vs = Ks + ST * BKV * LDS;  // ST stages x BKV keys
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int split = blockIdx.x % a.splits;
+  // rows f = position * rep + head of this kv head, fewer than 2^31 (the
+  // launch checks); this block's are [f0, f0 + ROWS)
+  const int n_rows = a.Sq * a.rep;
+  const int f0 = blockIdx.x / a.splits * ROWS;
+  const int rows_ok = min(ROWS, n_rows - f0);
+  const bf16* qb = static_cast<const bf16*>(a.q) + b * a.q_sb;
+  const bf16* kb = static_cast<const bf16*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const bf16* vb = static_cast<const bf16*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+
+  for (int idx = tid; idx < ROWS * CH; idx += NT) {
+    const int r = idx / CH, c = idx % CH;
+    const bool ok = r < rows_ok;
+    const int i = ok ? (f0 + r) / a.rep : 0;
+    const int h = kvh * a.rep + (ok ? f0 + r - i * a.rep : 0);
+    tc::copy_row_chunk(Qs + r * LDS, qb + h * a.q_sh + static_cast<int64_t>(i) * a.q_ss, c,
+                       ok);
   }
-  const dim3 grid((a.Sq + a.bq - 1) / a.bq, a.KV, B);
-  flash_fwd_kernel<T, HD><<<grid, NT, bytes, stream>>>(a);
+
+  // keys any row of this block may see: [k_begin, k_end), in tiles; this
+  // split's share
+  const int blk_first = f0 / a.rep + a.q_offset;
+  const int blk_last = (f0 + rows_ok - 1) / a.rep + a.q_offset;
+  const int k_end = a.causal ? min(a.Skv, blk_last + 1) : a.Skv;
+  int k_begin = a.window > 0 ? max(0, blk_first - a.window + 1) : 0;
+  k_begin = (k_begin / BKV) * BKV;
+  int t_lo, t_hi;
+  split_tiles(k_end > k_begin ? (k_end - k_begin + BKV - 1) / BKV : 0, split, a.splits, t_lo,
+              t_hi);
+  const int n_tiles = t_hi - t_lo;
+  const int kt_first = k_begin + t_lo * BKV;
+
+  auto load_keys = [&](int t, int stage) {
+    const int kt0 = kt_first + t * BKV;
+    for (int idx = tid; idx < BKV * CH; idx += NT) {
+      const int j = idx / CH, c = idx % CH, kj = kt0 + j;
+      const bool ok = kj < a.Skv;
+      const int64_t off = static_cast<int64_t>(ok ? kj : 0);
+      tc::copy_row_chunk(Ks + (stage * BKV + j) * LDS, kb + off * a.k_ss, c, ok);
+      tc::copy_row_chunk(Vs + (stage * BKV + j) * LDS, vb + off * a.v_ss, c, ok);
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) {  // Q and the first ST - 1 key tiles
+    if (t < n_tiles) load_keys(t, t);
+    tc::cp_async_commit();
+  }
+
+  // this thread's two rows (g and g + 8 of its warp's 16): absolute
+  // positions, -1 for a row past the last
+  const int g = lane / 4, tq = lane % 4;
+  int qa[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = warp * 16 + g + half * 8;
+    qa[half] = r < rows_ok ? (f0 + r) / a.rep + a.q_offset : -1;
+  }
+  // positions of this warp's first and last rows (none if it has no row)
+  const int r_first = warp * 16;
+  const int r_last = min(r_first + 15, rows_ok - 1);
+  const bool has_rows = r_first <= r_last;
+  const int p_first = (f0 + r_first) / a.rep + a.q_offset;
+  const int p_last = (f0 + r_last) / a.rep + a.q_offset;
+
+  const float scale_log2 = a.scale * LOG2E;
+  float m2[2] = {-INFINITY, -INFINITY};  // running max of scaled scores, in log2 units
+  float l[2] = {0.0f, 0.0f};             // this lane's share of the running sum
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+  uint32_t qf[HD / 16][4];  // Q's A fragments, loaded with the first tile
+
+  for (int t = 0; t < n_tiles; ++t) {
+    tc::cp_async_wait<ST - 2>();
+    __syncthreads();  // tile t (and Q) has landed; every warp is done with tile t - 1
+    if (t + ST - 1 < n_tiles) load_keys(t + ST - 1, (t + ST - 1) % ST);  // t - 1's stage
+    tc::cp_async_commit();
+    const int stage = t % ST;
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) tc::load_a<LDS>(qf[kk], Qs + warp * 16 * LDS, kk, lane);
+    }
+
+    const int kt0 = kt_first + t * BKV;
+    const int kt_last = min(kt0 + BKV, a.Skv) - 1;
+    const bool any = has_rows && (!a.causal || kt0 <= p_last) &&
+                     (a.window <= 0 || kt_last > p_first - a.window);
+    if (!any) continue;
+    const bf16* Kt = Ks + stage * BKV * LDS;
+    const bf16* Vt = Vs + stage * BKV * LDS;
+    float s[BKV / 8][4];
+#pragma unroll
+    for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) tc::qk_step<LDS, BKV / 8>(s, qf[kk], Kt, kk, lane);
+
+    // a tile whose every key this warp's rows see whole needs no mask
+    const bool full = r_first + 15 < rows_ok && kt0 + BKV <= a.Skv &&
+                      (!a.causal || kt0 + BKV - 1 <= p_first) &&
+                      (a.window <= 0 || kt0 > p_last - a.window);
+    if (!full) {
+#pragma unroll
+      for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = qa[e >> 1];
+          if (qp < 0 || !visible(a, qp, kt0 + n * 8 + 2 * tq + (e & 1))) s[n][e] = -INFINITY;
+        }
+    }
+    // online softmax, per row: the tile's max over the four lanes of a row
+    float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+    for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e] * scale_log2);
+    float base[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 1));
+      mx[half] = fmaxf(mx[half], __shfl_xor_sync(0xffffffffu, mx[half], 2));
+      base[half] = mx[half] == -INFINITY ? 0.0f : mx[half];  // a row with no key yet
+      const float alpha = exp2f(m2[half] - base[half]);      // 0 while m2 is -inf
+      m2[half] = mx[half];
+      l[half] *= alpha;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n) {
+        acc[n][2 * half] *= alpha;
+        acc[n][2 * half + 1] *= alpha;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < BKV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[n][e], scale_log2, -base[e >> 1]));  // 0 where masked
+        s[n][e] = p;
+        l[e >> 1] += p;
+      }
+    tc::pv_product<HD, LDS, BKV / 16>(acc, s, Vt, lane);  // O += P V
+  }
+  tc::cp_async_wait<0>();
+
+  bf16* ob = static_cast<bf16*>(a.o) + b * a.o_sb;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float lh = l[half];
+    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+    if (qa[half] < 0) continue;
+    const int f = f0 + warp * 16 + g + half * 8;
+    const int i = f / a.rep;
+    const int h = kvh * a.rep + f - i * a.rep;
+    const int64_t row = (static_cast<int64_t>(b) * a.KV * a.rep + h) * a.Sq + i;
+    const float m = m2[half] * LN2;  // natural units; -inf for a row that saw no key
+    if (a.splits > 1) {  // this split's partial: (m, l, unnormalised O)
+      float* wa = ws_acc(a, split, row, HD);
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(wa + n * 8 + 2 * tq) =
+            make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+      if (tq == 0) {
+        *ws_m(a, split, row, HD) = m;
+        *ws_l(a, split, row, HD) = lh;
+      }
+      continue;
+    }
+    const float inv = lh > 0.0f ? 1.0f / lh : 0.0f;  // a row that sees no key gives 0
+    bf16* orow = ob + h * a.o_sh + static_cast<int64_t>(i) * a.o_ss;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * tq) =
+          __floats2bfloat162_rn(acc[n][2 * half] * inv, acc[n][2 * half + 1] * inv);
+    if (a.lse != nullptr && tq == 0) a.lse[row] = row_lse(m, lh);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// split-KV: the partials merged in split order
+// ---------------------------------------------------------------------------
+
+// One warp per output row (b, h, i), blocks over (i, h, b): M = max_s m_s,
+// L = sum_s l_s e^(m_s - M), O = sum_s acc_s e^(m_s - M) / L, each sum taken
+// over s = 0, 1, ... in turn.
+template <typename T>
+__global__ void __launch_bounds__(NT) flash_split_combine_kernel(const FlashArgs a, int hd) {
+  const int lane = threadIdx.x % 32;
+  const int i = blockIdx.x * (NT / 32) + threadIdx.x / 32;
+  if (i >= a.Sq) return;  // whole warps leave
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int64_t row = (static_cast<int64_t>(b) * gridDim.y + h) * a.Sq + i;
+  const int splits = a.splits;
+  const int64_t R = a.R;
+  const float* wm = ws_m(a, 0, row, hd);    // split s at wm[s * R], likewise wl
+  const float* wl = ws_l(a, 0, row, hd);
+  const float* wa = ws_acc(a, 0, row, hd);  // split s at wa[s * R * hd]
+  float M = -INFINITY;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, wm[s * R]);
+  float L = 0.0f;
+  for (int s = 0; s < splits; ++s) {
+    const float ms = wm[s * R];
+    if (ms != -INFINITY) L += wl[s * R] * expf(ms - M);
+  }
+  const float inv = L > 0.0f ? 1.0f / L : 0.0f;  // a row that sees no key gives 0
+  T* op = static_cast<T*>(a.o) + b * a.o_sb + h * a.o_sh + static_cast<int64_t>(i) * a.o_ss;
+  for (int d = lane; d < hd; d += 32) {
+    float o = 0.0f;
+    for (int s = 0; s < splits; ++s) {
+      const float ms = wm[s * R];
+      if (ms != -INFINITY) o = fmaf(wa[s * R * hd + d], expf(ms - M), o);
+    }
+    store_to(op + d, o * inv);
+  }
+  if (a.lse != nullptr && lane == 0) a.lse[row] = row_lse(M, L);
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+int set_smem(const void* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;  // more must be asked for (per device)
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+}
+
+template <int HD>
+int launch_f32(const FlashArgs& a, int B, cudaStream_t stream) {
+  const size_t bytes = smem_floats<HD>() * sizeof(float);
+  const int e = set_smem(reinterpret_cast<const void*>(flash_fwd_kernel<HD>), bytes);
+  if (e != 0) return e;
+  const int64_t blocks = static_cast<int64_t>((a.Sq + a.bq - 1) / a.bq) * a.splits;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_kernel<HD><<<dim3(static_cast<unsigned>(blocks), a.KV, B), NT, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int HD>
+int launch_bf16(const FlashArgs& a, int B, cudaStream_t stream) {
+  using TL = FwdTiles<HD>;
+  const int e = set_smem(reinterpret_cast<const void*>(flash_fwd_mma_kernel<HD>), TL::SMEM);
+  if (e != 0) return e;
+  const int64_t n_rows = static_cast<int64_t>(a.Sq) * a.rep;
+  const int64_t blocks = (n_rows + TL::ROWS - 1) / TL::ROWS * a.splits;
+  if (n_rows >= (int64_t{1} << 31) || blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_mma_kernel<HD>
+      <<<dim3(static_cast<unsigned>(blocks), a.KV, B), NT, TL::SMEM, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_hd(int dtype, const FlashArgs& a, int B, cudaStream_t s) {
+  return dtype == REPRO_BF16 ? launch_bf16<HD>(a, B, s) : launch_f32<HD>(a, B, s);
+}
+
 template <typename T>
-int launch_hd(int hd, const FlashArgs& a, int B, cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<T, 16>(a, B, s);
-    case 32: return launch<T, 32>(a, B, s);
-    case 64: return launch<T, 64>(a, B, s);
-    case 128: return launch<T, 128>(a, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+int launch_combine(const FlashArgs& a, int B, int hd, cudaStream_t s) {
+  const int H = a.KV * a.rep;
+  if (H > 65535) return static_cast<int>(cudaErrorInvalidValue);  // gridDim.y
+  const dim3 grid((a.Sq + NT / 32 - 1) / (NT / 32), H, B);
+  flash_split_combine_kernel<T><<<grid, NT, 0, s>>>(a, hd);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Launches the forward kernel and, when splits > 1, the combine kernel after
+// it on the same stream; ws then holds splits * B * H * Sq * (hd + 2) floats.
 extern "C" int repro_flash_attention(
     int dtype, int hd, const void* q, const void* k, const void* v, void* o, float* lse,
-    int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh, int64_t k_ss,
-    int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh, int64_t o_ss,
-    int B, int KV, int Sq, int Skv, int rep, int rows, int causal, int window,
-    int q_offset, float scale, void* stream) {
+    float* ws, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
+    int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
+    int64_t o_ss, int B, int KV, int Sq, int Skv, int rep, int rows, int causal, int window,
+    int q_offset, int splits, float scale, void* stream) {
   if (rows < 1 || rows > NT || (rows & (rows - 1)) != 0 || rows < rep)
     return static_cast<int>(cudaErrorInvalidValue);
-  FlashArgs a{q, k, v, o, lse, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-              o_sb, o_sh, o_ss, Sq, Skv, KV, rep, rows, rows / rep, causal, window,
-              q_offset, scale};
+  if (dtype != REPRO_F32 && dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  if (splits < 1 || (splits > 1 && ws == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  FlashArgs a{q, k, v, o, lse, ws, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+              o_sb, o_sh, o_ss, static_cast<int64_t>(B) * KV * rep * Sq, Sq, Skv, KV, rep,
+              rows, rows / rep, causal, window, q_offset, splits, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case REPRO_F32: return launch_hd<float>(hd, a, B, s);
-    case REPRO_BF16: return launch_hd<__nv_bfloat16>(hd, a, B, s);
+  int e;
+  switch (hd) {
+    case 16: e = launch_hd<16>(dtype, a, B, s); break;
+    case 32: e = launch_hd<32>(dtype, a, B, s); break;
+    case 64: e = launch_hd<64>(dtype, a, B, s); break;
+    case 128: e = launch_hd<128>(dtype, a, B, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (e != 0 || splits == 1) return e;
+  return dtype == REPRO_BF16 ? launch_combine<bf16>(a, B, hd, s)
+                             : launch_combine<float>(a, B, hd, s);
 }

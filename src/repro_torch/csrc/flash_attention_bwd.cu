@@ -62,6 +62,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -359,7 +360,7 @@ __global__ void __launch_bounds__(NT) dq_kernel(const BwdArgs a) {
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
+using namespace tc;  // bf16, cp.async, ldmatrix, mma (mma.cuh)
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -376,119 +377,6 @@ struct Tiles {
   static constexpr int DKV_SMEM = 2 * BKV * LDS * 2 + STAGES * (2 * BQ * LDS * 2 + BQ * 12);
   static constexpr int DQ_SMEM = 2 * ROWS * LDS * 2 + STAGES * 2 * BKQ * LDS * 2;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; src_bytes = 0 writes zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-// 4 bytes global -> shared, asynchronously, or a zero where !ok
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulators
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// The A operand (16 x 16) of the next product from the accumulators of
-// n-tiles 2j and 2j + 1 (16 x 8 each) of the last one.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// S += A (16 rows of As) B^T (NT * 8 rows of Bs), over the head dim: A and
-// B both row-major [row][HD] in shared memory
-template <int HD, int NT8>
-__device__ __forceinline__ void qk_product(float (&s)[NT8][4], const bf16* As, const bf16* Bs,
-                                           int lane) {
-  constexpr int LDS = Tiles<HD>::LDS;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, As + (lane & 15) * LDS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n2 = 0; n2 < NT8 / 2; ++n2) {
-      uint32_t b[4];
-      ldsm_x4(b, Bs + (n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk * 16 +
-                     ((lane >> 3) & 1) * 8);
-      mma(s[2 * n2], a, b[0], b[1]);
-      mma(s[2 * n2 + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc (16 x HD) += P (16 x 16 * KT, in accumulator fragments) Bs (rows of
-// the contraction, [row][HD] in shared memory)
-template <int HD, int KT16>
-__device__ __forceinline__ void pv_product(float (&acc)[HD / 8][4], const float (&p)[2 * KT16][4],
-                                           const bf16* Bs, int lane) {
-  constexpr int LDS = Tiles<HD>::LDS;
-#pragma unroll
-  for (int kq = 0; kq < KT16; ++kq) {
-    uint32_t a[4];
-    acc_to_a(a, p[2 * kq], p[2 * kq + 1]);
-#pragma unroll
-    for (int d2 = 0; d2 < HD / 16; ++d2) {
-      uint32_t b[4];
-      ldsm_x4_t(b, Bs + (kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + d2 * 16 +
-                       (lane >> 4) * 8);
-      mma(acc[2 * d2], a, b[0], b[1]);
-      mma(acc[2 * d2 + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// one row of HD bf16 into shared memory, or zeros where !ok
-template <int HD>
-__device__ __forceinline__ void copy_row_chunk(bf16* dst, const bf16* src, int c, bool ok) {
-  cp_async16(dst + c * 8, ok ? src + c * 8 : src, ok ? 16 : 0);
-}
 
 template <int HD>
 __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
@@ -515,8 +403,8 @@ __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
     const int r = idx / CH, c = idx % CH, kj = k0 + r;
     const bool ok = kj < a.Skv;
     const int64_t off = static_cast<int64_t>(ok ? kj : 0);
-    copy_row_chunk<HD>(Ks + r * LDS, kb + off * a.k_ss, c, ok);
-    copy_row_chunk<HD>(Vs + r * LDS, vb + off * a.v_ss, c, ok);
+    copy_row_chunk(Ks + r * LDS, kb + off * a.k_ss, c, ok);
+    copy_row_chunk(Vs + r * LDS, vb + off * a.v_ss, c, ok);
   }
 
   // query positions that may see any key of this block: [i_lo, i_hi); rows
@@ -541,8 +429,8 @@ __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
       const int i = ok ? f / a.rep : 0;
       const int h = kvh * a.rep + (ok ? f - i * a.rep : 0);
       const int64_t qi = i;
-      copy_row_chunk<HD>(Qs + (stage * BQ + r) * LDS, qb + h * a.q_sh + qi * a.q_ss, c, ok);
-      copy_row_chunk<HD>(dOs + (stage * BQ + r) * LDS, dob + h * a.do_sh + qi * a.do_ss, c, ok);
+      copy_row_chunk(Qs + (stage * BQ + r) * LDS, qb + h * a.q_sh + qi * a.q_ss, c, ok);
+      copy_row_chunk(dOs + (stage * BQ + r) * LDS, dob + h * a.do_sh + qi * a.do_ss, c, ok);
     }
     for (int r = tid; r < BQ; r += NT) {
       const int f = f0 + r;
@@ -595,8 +483,8 @@ __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
       // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns query rows
-      qk_product<HD, BQ / 8>(s, Ks + warp * 16 * LDS, Qt, lane);
-      qk_product<HD, BQ / 8>(dp, Vs + warp * 16 * LDS, dOt, lane);
+      qk_product<HD, LDS, BQ / 8>(s, Ks + warp * 16 * LDS, Qt, lane);
+      qk_product<HD, LDS, BQ / 8>(dp, Vs + warp * 16 * LDS, dOt, lane);
       // a tile every key of this warp sees whole needs no mask
       const bool full = key_lo + 15 < a.Skv && f0 + BQ <= f_end &&
                         (!a.causal || key_lo + 15 <= p_first) &&
@@ -618,8 +506,8 @@ __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
           dp[n][e] = p * (dp[n][e] - (e & 1 ? d2.y : d2.x));  // dS / scale
         }
       }
-      pv_product<HD, BQ / 16>(dv, s, dOt, lane);   // dV += P^T dO
-      pv_product<HD, BQ / 16>(dk, dp, Qt, lane);   // dK += dS^T Q
+      pv_product<HD, LDS, BQ / 16>(dv, s, dOt, lane);   // dV += P^T dO
+      pv_product<HD, LDS, BQ / 16>(dk, dp, Qt, lane);   // dK += dS^T Q
     }
   }
 
@@ -665,8 +553,8 @@ __global__ void __launch_bounds__(NT) dq_mma_kernel(const BwdArgs a) {
     const bool ok = r < used && i < a.Sq;
     const int h = kvh * a.rep + r % a.rep;
     const int64_t off = ok ? static_cast<int64_t>(i) : 0;
-    copy_row_chunk<HD>(Qs + r * LDS, qb + h * a.q_sh + off * a.q_ss, c, ok);
-    copy_row_chunk<HD>(dOs + r * LDS, dob + h * a.do_sh + off * a.do_ss, c, ok);
+    copy_row_chunk(Qs + r * LDS, qb + h * a.q_sh + off * a.q_ss, c, ok);
+    copy_row_chunk(dOs + r * LDS, dob + h * a.do_sh + off * a.do_ss, c, ok);
   }
 
   // keys any row of this block may see: [k_begin, k_end)
@@ -682,8 +570,8 @@ __global__ void __launch_bounds__(NT) dq_mma_kernel(const BwdArgs a) {
       const int j = idx / CH, c = idx % CH, kj = kt0 + j;
       const bool ok = kj < a.Skv;
       const int64_t off = static_cast<int64_t>(ok ? kj : 0);
-      copy_row_chunk<HD>(Ks + (stage * BKQ + j) * LDS, kb + off * a.k_ss, c, ok);
-      copy_row_chunk<HD>(Vs + (stage * BKQ + j) * LDS, vb + off * a.v_ss, c, ok);
+      copy_row_chunk(Ks + (stage * BKQ + j) * LDS, kb + off * a.k_ss, c, ok);
+      copy_row_chunk(Vs + (stage * BKQ + j) * LDS, vb + off * a.v_ss, c, ok);
     }
   };
 #pragma unroll
@@ -749,8 +637,8 @@ __global__ void __launch_bounds__(NT) dq_mma_kernel(const BwdArgs a) {
       for (int n = 0; n < BKQ / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
-      qk_product<HD, BKQ / 8>(s, Qs + warp * 16 * LDS, Kt, lane);    // S = Q K^T
-      qk_product<HD, BKQ / 8>(dp, dOs + warp * 16 * LDS, Vt, lane);  // dP = dO V^T
+      qk_product<HD, LDS, BKQ / 8>(s, Qs + warp * 16 * LDS, Kt, lane);    // S = Q K^T
+      qk_product<HD, LDS, BKQ / 8>(dp, dOs + warp * 16 * LDS, Vt, lane);  // dP = dO V^T
       // a tile whose every key this warp's rows see whole needs no mask
       const bool full = r_first + 15 < rows_ok && kt0 + BKQ <= a.Skv &&
                         (!a.causal || kt0 + BKQ - 1 <= p_first) &&
@@ -765,7 +653,7 @@ __global__ void __launch_bounds__(NT) dq_mma_kernel(const BwdArgs a) {
                         ? exp2f(fmaf(s[n][e], scale_log2, -lse2[half])) * (dp[n][e] - dl[half])
                         : 0.0f;  // dS / scale
         }
-      pv_product<HD, BKQ / 16>(dq, s, Kt, lane);  // dQ += dS K
+      pv_product<HD, LDS, BKQ / 16>(dq, s, Kt, lane);  // dQ += dS K
     }
   }
 

@@ -11,6 +11,12 @@ softmax runs in f32; the output has q's dtype.  Asked for it, both versions
 also return each row's log-sum-exp of scaled scores, lse (B, H, Sq) f32
 (-inf for a row that sees no key), which the backward
 (``flash_attention_bwd``) recomputes the probabilities from.
+
+On the card, bf16 runs a tensor-core kernel and f32 a scalar one.  When
+their grid (B * KV * query tiles) is too small to fill the card, as at every
+decode step, the keys are split into ``kv_splits`` contiguous ranges: one
+launch then runs two device kernels, the partials per range and their
+merge in range order (``flash_attention_split_ref`` is its plain version).
 """
 from __future__ import annotations
 
@@ -28,6 +34,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 HEAD_DIMS = (16, 32, 64, 128)
 #: threads per block; keep in step with csrc/flash_attention.cu
 THREADS = 128
+#: rows of a bf16 block: four warps of 16 (tensor-core tiles)
+BF16_ROWS = 64
+#: streaming multiprocessors of the H100: a grid of fewer blocks splits the keys
+SMS = 132
 
 _fn = None
 
@@ -71,10 +81,115 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def block_rows(rep: int, Sq: int) -> Tuple[int, int]:
-    """(rows, bq): rows per block — the rep query heads of one kv head at bq
-    positions — a power of two of at most THREADS."""
+    """(rows, bq): rows per f32 block — the rep query heads of one kv head at
+    bq positions — a power of two of at most THREADS."""
     rows = min(THREADS, 1 << max(0, rep * Sq - 1).bit_length())
     return rows, rows // rep
+
+
+def key_tile(hd: int) -> int:
+    """Keys per tile of both kernels at head dim hd."""
+    return 64 if hd <= 64 else 32
+
+
+def query_tiles(dtype: torch.dtype, rep: int, Sq: int) -> int:
+    """Query tiles per (batch, kv head): bf16 blocks take BF16_ROWS of the
+    Sq * rep rows (position-major), f32 blocks bq whole positions."""
+    if dtype == torch.bfloat16:
+        return -(-Sq * rep // BF16_ROWS)
+    return -(-Sq // block_rows(rep, Sq)[1])
+
+
+def key_range(Sq: int, Skv: int, causal: bool, window: Optional[int], q_offset: int,
+              bk: int) -> Tuple[int, int]:
+    """[k_begin, k_end) of the keys any of the Sq queries sees, k_begin
+    rounded down to a whole tile of bk keys, as a kernel block trims it."""
+    k_end = min(Skv, Sq + q_offset) if causal else Skv
+    k_begin = max(0, q_offset - window + 1) if window else 0
+    return k_begin // bk * bk, k_end
+
+
+def key_tiles(Sq: int, Skv: int, causal: bool, window: Optional[int], q_offset: int,
+              bk: int) -> Tuple[int, int]:
+    """(k_begin, n_tiles): ``key_range`` in whole tiles of bk keys."""
+    k_begin, k_end = key_range(Sq, Skv, causal, window, q_offset, bk)
+    return k_begin, (-(-(k_end - k_begin) // bk) if k_end > k_begin else 0)
+
+
+def split_ranges(n_tiles: int, splits: int):
+    """Each split's tiles [lo, hi) of n_tiles: contiguous, as even as whole
+    tiles allow (csrc/flash_attention.cu's split_tiles)."""
+    return [(s * n_tiles // splits, (s + 1) * n_tiles // splits) for s in range(splits)]
+
+
+def kv_splits(dtype: torch.dtype, B: int, KV: int, rep: int, Sq: int, Skv: int, hd: int,
+              causal: bool, window: Optional[int], q_offset: int) -> int:
+    """Key ranges per query tile: 1 when B * KV * query tiles fills the
+    card's SMS multiprocessors, else enough for about two blocks per
+    multiprocessor, at most one per key tile of the visible range."""
+    blocks = B * KV * query_tiles(dtype, rep, Sq)
+    if blocks >= SMS:
+        return 1
+    _, n_tiles = key_tiles(Sq, Skv, causal, window, q_offset, key_tile(hd))
+    return max(1, min(n_tiles, -(-2 * SMS // blocks)))
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = True, window: Optional[int] = None,
+                              q_offset: int = 0, return_lse: bool = False,
+                              splits: Optional[int] = None, bk: Optional[int] = None):
+    """Plain version of the split-KV arithmetic, in f32: the visible key
+    range (whole tiles of ``bk`` keys) cut into ``splits`` ranges as
+    ``split_ranges`` cuts it, each range's partial (m, l, unnormalised O)
+    per row, then the partials merged in range order,
+    O = sum_s O_s e^(m_s - M) / sum_s l_s e^(m_s - M) with M = max_s m_s.
+    ``splits`` defaults to what ``kv_splits`` gives the kernel, ``bk`` to
+    ``key_tile(hd)``.  Returns what ``flash_attention_ref`` returns."""
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    rep = H // KV
+    bk = bk or key_tile(hd)
+    if splits is None:
+        splits = kv_splits(q.dtype, B, KV, rep, Sq, Skv, hd, causal, window, q_offset)
+    k_begin, n_tiles = key_tiles(Sq, Skv, causal, window, q_offset, bk)
+    qg = q.reshape(B, KV, rep, Sq, hd).float()
+    mask = visible(Sq, Skv, causal, window, q_offset, q.device)
+    rows = (B, KV, rep, Sq)
+    parts = []
+    for t_lo, t_hi in split_ranges(n_tiles, splits):
+        lo, hi = k_begin + t_lo * bk, min(k_begin + t_hi * bk, Skv)
+        if hi <= lo:  # a range with no key
+            parts.append((torch.full(rows, -math.inf, device=q.device),
+                          torch.zeros(rows, device=q.device),
+                          torch.zeros(rows + (hd,), device=q.device)))
+            continue
+        s = torch.einsum("bkrqd,bksd->bkrqs", qg, k[:, :, lo:hi].float()) / math.sqrt(hd)
+        s = s.masked_fill(~mask[:, lo:hi], -math.inf)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - torch.where(m == -math.inf, 0.0, m)[..., None])
+        parts.append((m, p.sum(dim=-1), torch.einsum("bkrqs,bksd->bkrqd", p,
+                                                      v[:, :, lo:hi].float())))
+    M = torch.full(rows, -math.inf, device=q.device)
+    for m, _, _ in parts:
+        M = torch.maximum(M, m)
+    L = torch.zeros(rows, device=q.device)
+    acc = torch.zeros(rows + (hd,), device=q.device)
+    for m, l, o in parts:  # in split order; a range a row sees no key of adds 0
+        w = torch.where(m == -math.inf, 0.0, torch.exp(m - torch.where(M == -math.inf, 0.0, M)))
+        L = L + l * w
+        acc = acc + o * w[..., None]
+    out = (acc / torch.where(L == 0.0, 1.0, L)[..., None]).reshape(B, H, Sq, hd).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(L > 0.0, M + torch.log(L), -math.inf)
+    return out, lse.reshape(B, H, Sq)
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels can copy t's (B, X, S, hd) rows 16 bytes at
+    a time: a 16-byte aligned base and batch, head and position strides of
+    whole 16 bytes (the head dim is contiguous)."""
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
 
 
 def _kernel():
@@ -82,8 +197,8 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention").repro_flash_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5
-                       + [ctypes.c_int64] * 12 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int64] * 12 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -99,20 +214,31 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel on CUDA tensors the wrapper (``ops.flash_attention``)
     has checked.  The output is a (B, H, Sq, hd) view of a buffer laid out
     (B, Sq, H, hd), the layout the model consumes next; with ``return_lse``
-    the kernel also writes lse and (output, lse) is returned."""
+    the kernel also writes lse and (output, lse) is returned.  With
+    ``kv_splits`` > 1 the call runs two device kernels (partials, then their
+    merge) and allocates their f32 workspace.  The bf16 kernel copies rows
+    16 bytes at a time, so a bf16 operand whose rows are not 16-byte aligned
+    is first copied into a new contiguous tensor."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     rep = H // KV
+    if q.dtype == torch.bfloat16:  # a view at an odd offset: copy it aligned
+        q, k, v = (t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v))
     rows, _ = block_rows(rep, Sq)
+    splits = kv_splits(q.dtype, B, KV, rep, Sq, Skv, hd, causal, window, q_offset)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse
            else None)
+    ws = (torch.empty(splits * B * H * Sq * (hd + 2), dtype=torch.float32, device=q.device)
+          if splits > 1 else None)
     with torch.cuda.device(q.device):
         err = _kernel()(
             DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-            B, KV, Sq, Skv, rep, rows, int(causal), window or 0, q_offset,
+            B, KV, Sq, Skv, rep, rows, int(causal), window or 0, q_offset, splits,
             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")

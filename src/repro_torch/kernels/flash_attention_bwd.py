@@ -26,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from .flash_attention import DTYPE_CODES, visible
+from .flash_attention import DTYPE_CODES, rows_aligned, visible
 
 #: threads per block; keep in step with csrc/flash_attention_bwd.cu
 THREADS = 128
@@ -58,13 +58,6 @@ def check_launch(q: torch.Tensor, k: torch.Tensor) -> None:
     if q.shape[2] * rep >= 2**31:
         raise ValueError(f"flash_attention_bwd: {q.shape[2]} positions x {rep} heads "
                          "exceed the kernel's 2^31 query rows per kv head")
-
-
-def rows_aligned(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernels can copy t's (B, X, S, hd) rows 16 bytes at
-    a time: a 16-byte aligned base and batch, head and position strides of
-    whole 16 bytes (the head dim is contiguous)."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -27,8 +27,8 @@ from .flash_attention_bwd import flash_attention_bwd_cuda, flash_attention_bwd_r
 from .glm_fused import DTYPE_CODES as _GLM_DTYPES
 from .glm_fused import glm_fused_cuda, glm_fused_ref
 from .matmul import DTYPE_CODES as _MATMUL_DTYPES
-from .mamba_scan import (STATE_DIMS, MambaScan, mamba_scan_bwd_cuda, mamba_scan_bwd_ref,
-                         mamba_scan_cuda, mamba_scan_ref)
+from .mamba_scan import (STATE_DIMS, MambaScan, checkpoint_shape, mamba_scan_bwd_cuda,
+                         mamba_scan_bwd_ref, mamba_scan_cuda, mamba_scan_ref)
 from .matmul import a_kfast, matmul_cuda, matmul_ref, reset_loaders, split_plan
 
 #: kernel launches per wrapper since the last ``reset_launches``
@@ -159,7 +159,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     output has q's dtype.  Operands may be strided views whose head dim is
     contiguous.  ``return_lse`` also returns each row's log-sum-exp (B, H,
     Sq) f32.  Differentiable (``FlashAttention``) when an input requires
-    grad."""
+    grad.  On the card one call counts one launch, though a call whose grid
+    is too small to fill the card (every decode step) runs two device
+    kernels: partials over ``kv_splits`` key ranges, then their merge."""
     _check_attention("flash_attention", q, k, v, window, q_offset)
     if _wants_grad(q, k, v):
         if return_lse:
@@ -169,9 +171,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _device_kind("flash_attention", q, k, v) == "cpu":
         return flash_attention_ref(q, k, v, causal, window, q_offset, return_lse)
     _check_attention_launch("flash_attention", q, k, v)
-    if q.shape[1] // k.shape[1] > THREADS or q.shape[2] + q_offset >= 2**31:
-        raise ValueError(f"flash_attention: {q.shape[1] // k.shape[1]} query heads per "
-                         "kv head or positions beyond the kernel's range")
+    rep = q.shape[1] // k.shape[1]
+    if rep > THREADS or q.shape[1] > _GRID_LIMIT or q.shape[2] + q_offset >= 2**31 \
+            or q.shape[2] * rep >= 2**31:
+        raise ValueError(f"flash_attention: {q.shape[1]} query heads ({rep} per kv head) "
+                         "or positions beyond the kernel's range")
     launches["flash_attention"] += 1
     return flash_attention_cuda(q, k, v, causal, window, q_offset, return_lse)
 
@@ -230,28 +234,36 @@ def _check_scan_launch(name: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{name}: {(B, S, DI, N)} exceeds the kernel's range")
 
 
-def mamba_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def mamba_scan(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor, *,
+               checkpoints: bool = False):
     """(y, h_S) of the recurrence h_t = dA_t * h_{t-1} + dBx_t from h_0 = 0,
     y_t = sum_n h_t[:, n] * C_t[n], for f32 dA, dBx (B, S, DI, N) and C
     (B, S, N): y is (B, S, DI) and the final carry h_S is (B, DI, N).
+    ``checkpoints`` also returns the states the backward recomputes from,
+    (B, ceil(S / 16), DI, N) f32 (``MambaScan``'s forward asks for them).
     Differentiable (``MambaScan``) when an input requires grad."""
     _check_scan("mamba_scan", dA, dBx, C)
     if _wants_grad(dA, dBx, C):
+        if checkpoints:
+            raise ValueError("mamba_scan: checkpoints are for the forward of MambaScan; "
+                             "they are not differentiable")
         return MambaScan.apply(dA, dBx, C)
     if _device_kind("mamba_scan", dA, dBx, C) == "cpu":
-        return mamba_scan_ref(dA, dBx, C)
+        return mamba_scan_ref(dA, dBx, C, checkpoints)
     _check_scan_launch("mamba_scan", dA, dBx, C)
     launches["mamba_scan"] += 1
-    return mamba_scan_cuda(dA, dBx, C)
+    return mamba_scan_cuda(dA, dBx, C, checkpoints)
 
 
 def mamba_scan_bwd(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
-                   dy: torch.Tensor, dh: Optional[torch.Tensor] = None
+                   dy: torch.Tensor, dh: Optional[torch.Tensor] = None, *,
+                   checkpoints: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(d(dA), d(dBx), dC) of ``mamba_scan(dA, dBx, C)`` from the gradient of
     y, dy (B, S, DI) f32, and optionally of the final carry, dh (B, DI, N)
-    f32, which seeds the reverse recurrence."""
+    f32, which seeds the reverse recurrence.  ``checkpoints``, the
+    forward's, spare the backward a pass over dA and dBx; the result is
+    the same bits with them as without."""
     _check_scan("mamba_scan_bwd", dA, dBx, C)
     B, S, DI, N = dA.shape
     if tuple(dy.shape) != (B, S, DI) or dy.dtype != torch.float32:
@@ -260,9 +272,14 @@ def mamba_scan_bwd(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
     if dh is not None and (tuple(dh.shape) != (B, DI, N) or dh.dtype != torch.float32):
         raise ValueError(f"mamba_scan_bwd: dh must be (B, DI, N) = {(B, DI, N)} f32, "
                          f"got {tuple(dh.shape)} {dh.dtype}")
-    given = (dA, dBx, C, dy) + (() if dh is None else (dh,))
+    want = checkpoint_shape(B, S, DI, N)
+    if checkpoints is not None and (tuple(checkpoints.shape) != want
+                                    or checkpoints.dtype != torch.float32):
+        raise ValueError(f"mamba_scan_bwd: checkpoints must be {want} f32, got "
+                         f"{tuple(checkpoints.shape)} {checkpoints.dtype}")
+    given = (dA, dBx, C, dy) + tuple(t for t in (dh, checkpoints) if t is not None)
     if _device_kind("mamba_scan_bwd", *given) == "cpu":
-        return mamba_scan_bwd_ref(dA, dBx, C, dy, dh)
+        return mamba_scan_bwd_ref(dA, dBx, C, dy, dh, checkpoints)
     _check_scan_launch("mamba_scan_bwd", *given)
     launches["mamba_scan_bwd"] += 1
-    return mamba_scan_bwd_cuda(dA, dBx, C, dy, dh)
+    return mamba_scan_bwd_cuda(dA, dBx, C, dy, dh, checkpoints)

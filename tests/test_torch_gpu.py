@@ -22,10 +22,11 @@ import torch
 
 from repro_torch.core import ArrayContext, ClusterSpec
 from repro_torch.kernels import launches, ops, reset_launches
-from repro_torch.kernels.flash_attention import flash_attention_ref
+from repro_torch.kernels.flash_attention import (flash_attention_ref, flash_attention_split_ref,
+                                                 kv_splits)
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref
 from repro_torch.kernels.glm_fused import glm_fused_ref
-from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref
+from repro_torch.kernels.mamba_scan import checkpoint_shape, mamba_scan_bwd_ref, mamba_scan_ref
 from repro_torch.kernels.matmul import loaders, matmul_ref
 from repro_torch.launch.workloads import logreg_newton_loop
 
@@ -484,3 +485,70 @@ def test_flash_attention_bwd_bf16_misaligned_view_and_limits(cuda_device):
     lse65 = torch.zeros(1, 65, 8, device=cuda_device)
     with pytest.raises(ValueError, match="at most 64 at head dim 64"):
         ops.flash_attention_bwd(q65, kv, kv, q65, lse65, q65)
+
+
+# ---------------------------------------------------------------------------
+# the redesigned forward kernels: bf16 attention on the tensor cores, split-KV
+# decode, and the scan's checkpoints handed from the forward to the backward
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("window", [None, 1024], ids=["global", "local"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_split_kv_decode_at_hymba_serve_shapes(cuda_device, dtype, window):
+    """One query at 2048 over a 2081 cache, B 8, 25 / 5 heads: more than one
+    key range; the output and lse against the plain one-pass and split
+    versions, and two launches give the same bits."""
+    B, H, KV, hd, Skv, pos = 8, 25, 5, 64, 2081, 2048
+    assert kv_splits(dtype, B, KV, H // KV, 1, Skv, hd, True, window, pos) > 1
+    q = _uniform(31, (B, H, 1, hd), cuda_device, dtype)
+    k = _uniform(32, (B, KV, Skv, hd), cuda_device, dtype)
+    v = _uniform(33, (B, KV, Skv, hd), cuda_device, dtype)
+    kw = dict(causal=True, window=window, q_offset=pos)
+    reset_launches()
+    got, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    again, lse2 = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == 2
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    for plain in (flash_attention_ref, flash_attention_split_ref):
+        ref, lse_ref = plain(q, k, v, True, window, pos, return_lse=True)
+        assert _rel_err(got, ref) <= FLASH_TOL[dtype]
+        assert (lse - lse_ref).abs().max().item() <= 1e-5 * lse_ref.abs().max().item()
+
+
+def test_flash_attention_bf16_forward_misaligned_view(cuda_device):
+    """A bf16 q 2 bytes past an aligned base is copied aligned and still right."""
+    buf = _uniform(34, (2 * 10 * 60 * 64 + 1,), cuda_device, torch.bfloat16)
+    q = buf[1:].view(2, 10, 60, 64)
+    k = _uniform(35, (2, 2, 60, 64), cuda_device, torch.bfloat16)
+    got = ops.flash_attention(q, k, k, window=17)
+    assert _rel_err(got, flash_attention_ref(q, k, k, True, 17, 0)) <= FLASH_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 64, 16), (2, 77, 50, 16), (1, 65, 40, 32)],
+                         ids=str)
+def test_mamba_scan_backward_from_the_forward_checkpoints_is_bitwise(cuda_device, shape):
+    """The forward writes checkpoints without changing y or the carry; the
+    backward given them skips its own forward pass and gives the same bits
+    as without them."""
+    B, S, DI, N = shape
+    dA = _uniform(6, shape, cuda_device, torch.float32) * 0.245 + 0.745
+    dBx = _uniform(7, shape, cuda_device, torch.float32)
+    C = _uniform(8, (B, S, N), cuda_device, torch.float32)
+    dy = _uniform(9, (B, S, DI), cuda_device, torch.float32)
+    dh = _uniform(10, (B, DI, N), cuda_device, torch.float32)
+    reset_launches()
+    y, h = ops.mamba_scan(dA, dBx, C)
+    y2, h2, ck = ops.mamba_scan(dA, dBx, C, checkpoints=True)
+    assert ck.shape == checkpoint_shape(B, S, DI, N)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    _, _, ck_ref = mamba_scan_ref(dA, dBx, C, checkpoints=True)
+    assert _rel_err(ck, ck_ref) <= 1e-4
+    for seed in (None, dh):
+        without = ops.mamba_scan_bwd(dA, dBx, C, dy, seed)
+        with_ck = ops.mamba_scan_bwd(dA, dBx, C, dy, seed, checkpoints=ck)
+        for a, b in zip(without, with_ck):
+            assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert launches["mamba_scan"] == 2 and launches["mamba_scan_bwd"] == 4
