@@ -6,7 +6,7 @@ Builds the six hand-written Hopper kernels from ``src/repro_torch/csrc``
 (``matmul``, ``glm_fused``, ``flash_attention``, ``flash_attention_bwd``,
 ``mamba_scan``, ``mamba_scan_bwd``; one ``nvcc`` each, all at once), holds
 each against its plain PyTorch version at its main path's shapes and times
-both (CUDA events), then drives the three main paths at full width:
+both (CUDA events), then drives the main paths at full width:
 
 - the block runtime: the paper's logistic-regression Newton loop (n = 2**22
   rows x 256 features, float64, 32 row blocks on a 4-node x 8-worker
@@ -14,6 +14,17 @@ both (CUDA events), then drives the three main paths at full width:
   2-D block product through the matmul kernel) and on backend ``torch``
   (plain torch ops): both agree and schedule identically, and the runtime's
   bitwise contracts hold on the card;
+- the paper's other block workloads, on the same cluster at f64: CP-ALS
+  (``cpals_loop``, a 1024^3 tensor, rank 8, 3 sweeps through reshard) on
+  backends ``cuda`` and ``torch`` (the same factors and schedule; fewer
+  moved elements than the naive reshard, counted on the sim backend; the fit
+  improves), indirect TSQR of the Newton loop's X, a 16384^2 Cholesky and
+  its solve, a randomized SVD at rank 32 + 8 of a 2**22 x 256 matrix, L-BFGS
+  logistic regression on the paper's data at the Newton loop's size (cuda
+  and torch agree, the loss falls), and lineage checkpoints of the Newton
+  loop (a node dies after the checkpoint and recovery reads the archive; a
+  fresh context restores the same bits); each comm ratio equals the sim
+  backend's on the same graph;
 - LM serving: hymba-1.5b at its published configuration (32 layers,
   d 1600, bf16, random weights from a seeded generator on the card) serves
   8 prompts of 2048 tokens and generates 32 tokens each through
@@ -31,7 +42,8 @@ both (CUDA events), then drives the three main paths at full width:
   step; one step's loss and every gradient leaf agree with the plain route
   on the same weights and batch to a bf16 tolerance that a planted fault
   (the window dropped in the backward kernel only) exceeds, and in f32 at
-  8 layers to 1e-4; two backward runs give the same bits.
+  8 layers to 1e-4; two backward runs give the same bits.  The same 5 steps
+  run again on the plain route, and both loss curves are printed.
 
 Each phase prints one JSON line (a matmul case also names the loader it
 took, vector or scalar; an attention-backward case the device time of each
@@ -57,6 +69,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -77,7 +90,10 @@ from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref  #
 from repro_torch.kernels.matmul import loaders, matmul_ref  # noqa: E402
 from repro_torch.launch.serve import serve_demo  # noqa: E402
 from repro_torch.launch.train import batch_to, train_loop  # noqa: E402
-from repro_torch.launch.workloads import dgemm_graph, logreg_newton_loop  # noqa: E402
+from repro_torch.launch.workloads import (cpals_loop, dgemm_graph,  # noqa: E402
+                                          logreg_newton_loop)
+from repro_torch.glm import LogisticRegression, paper_bimodal  # noqa: E402
+from repro_torch.linalg import cholesky, cholesky_solve, rsvd, tsqr_indirect  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.sharding.plans import SINGLE_CARD  # noqa: E402
 from repro_torch.train import DataConfig, TokenPipeline, make_grad_fn  # noqa: E402
@@ -111,6 +127,27 @@ SERVE_TOL = {"bfloat16": 0.1, "float32": 1e-4}
 
 NEWTON = dict(n=1 << 22, d=CONFIG.n_features, q=32, iters=3)
 DGEMM = dict(dim=16384, g=4)
+#: the paper's other block workloads, on the Newton loop's cluster, f64:
+#: CP-ALS on a dim^3 tensor (8.6 GB, the size of the Newton loop's X) in q
+#: row slabs; TSQR of the Newton loop's X; Cholesky of an n^2 SPD matrix on a
+#: (g, g) grid; a randomized SVD (its sample has rank + oversample columns,
+#: and the matrix has exactly that rank, which tsqr_indirect's Q = Y R^-1
+#: needs: at rank 32 alone the sketch's last 8 columns are rank-deficient);
+#: L-BFGS on the paper's data at the Newton loop's size, with the ridge of
+#: the reference's own paper-data test (tests/test_glm.py): the data are
+#: separable, and without a ridge the first step takes the loss to exactly 0
+#: and the fit stops after 2 iterations
+CPALS = dict(dim=1024, rank=8, q=4, sweeps=3)
+CHOL = dict(n=16384, g=4)
+RSVD = dict(rank=32, oversample=8)
+LBFGS = dict(iters=10, reg=1e-2)
+#: CP-ALS and L-BFGS, backend cuda against torch: relative to max|factor| /
+#: max|beta| (another summation order); TSQR, Cholesky and the rSVD: the
+#: reference's own limits at f64 (tests/test_linalg_ca.py), Frobenius norms
+BLOCK_RTOL = 1e-8
+QR_TOL = dict(residual=1e-12, orthogonality=1e-10)
+CHOL_TOL = dict(factor=1e-12, solve=1e-10)
+RSVD_TOL = 1e-10
 CONTRACT_N = 1 << 16
 #: the serve path: hymba-1.5b at its published width and depth
 SERVE = dict(arch="hymba-1.5b", batch=8, prompt_len=2048, gen=32)
@@ -179,6 +216,13 @@ def check(ok, what) -> None:
 
 def sync() -> None:
     torch.cuda.synchronize()
+
+
+def _release() -> None:
+    """Free what the dropped objects held on the card (a block context holds
+    reference cycles, so only the collector frees its store)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def time_ms(fn, target_ms: float = 200.0, max_reps: int = 200) -> float:
@@ -295,12 +339,47 @@ def kernel_phase(dev):
     scalar = [c["case"] for c in matmul_cases if c["dtype"] != "bfloat16"
               and c["loader"] != "vector"]
     check(not scalar, f"matmul cases on the scalar loader: {scalar}")
+    matmul_cases += block_matmul_cases(dev, g)
     glm_cases = []
     for n in (1 << 22, n_blk):
         z = torch.randn(n, 1, device=dev, dtype=torch.float64, generator=g) * 4
         y = (torch.rand(n, 1, device=dev, generator=g) > 0.5).double()
         glm_cases.append(glm_case(f"({n}, 1) f64", z, y))
     return matmul_cases, glm_cases
+
+
+def block_matmul_cases(dev, g):
+    """The matmul kernel at the products of the block-algorithms phase, f64:
+    CP-ALS's MTTKRP (a row slab of the mode unfolding by the Khatri-Rao
+    product) and Gram, the randomized SVD's products (and the build of its
+    low-rank input), Cholesky's build and solve products.  L-BFGS's X @ beta
+    and X^T r are the Newton cases above.  A shape that takes the scalar
+    loader, or loses to torch.matmul, is recorded, not failed."""
+    def rnd(*shape):
+        return torch.randn(*shape, device=dev, dtype=torch.float64, generator=g)
+
+    dim, rank = CPALS["dim"], CPALS["rank"]
+    X, kr = rnd(dim // CPALS["q"], dim * dim), rnd(dim * dim, rank)
+    cases = [matmul_case("CP-ALS MTTKRP f64", X, kr)]
+    del X, kr
+    F = rnd(dim, rank)
+    cases.append(matmul_case("CP-ALS Gram f64", F.mT, F))
+    n_blk, d = NEWTON["n"] // NEWTON["q"], NEWTON["d"]
+    sketch = RSVD["rank"] + RSVD["oversample"]
+    A, omega, Q, ub = rnd(n_blk, d), rnd(d, sketch), rnd(n_blk, sketch), rnd(sketch, sketch)
+    cases += [matmul_case("rSVD A@Omega f64", A, omega),
+              matmul_case("rSVD A^T Q f64", A.mT, Q),
+              matmul_case("rSVD Q@Ub^T f64", Q, ub.mT),
+              matmul_case("rSVD build U@V^T f64", Q, omega.mT)]
+    del A, omega, Q, ub
+    b = CHOL["n"] // CHOL["g"]
+    M, y = rnd(b, b), rnd(b, 1)
+    cases += [matmul_case("Cholesky build M@M^T tile f64", M, M.mT),
+              matmul_case("Cholesky solve L@y f64", M, y),
+              matmul_case("Cholesky solve L^T x f64", M.mT, y)]
+    del M, y
+    _release()
+    return cases
 
 
 def serve_shapes():
@@ -406,16 +485,14 @@ def serve_kernel_phase(dev):
             flash.append(flash_case("decode-local bf16", q[:, :, :1].contiguous(), k, v,
                                     sh["window"], S))
         del q, k, v
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
     N, DI = sh["N"], sh["DI"]
     dA = torch.rand(B, S, DI, N, device=dev, generator=g) * 0.49 + 0.5
     dBx = torch.rand(B, S, DI, N, device=dev, generator=g) * 2 - 1
     C = torch.rand(B, S, N, device=dev, generator=g) * 2 - 1
     scan = [scan_case(f"prefill {list(dA.shape)} f32", dA, dBx, C)]
     del dA, dBx, C
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return flash, scan
 
 
@@ -532,8 +609,7 @@ def train_kernel_phase(dev):
         if dtype == torch.bfloat16:
             flash.append(flash_bwd_case("train-local bf16", q, k, v, sh["window"]))
         del q, k, v
-        gc.collect()
-        torch.cuda.empty_cache()
+        _release()
     N, DI = sh["N"], sh["DI"]
     dA = torch.rand(B, S, DI, N, device=dev, generator=g) * 0.49 + 0.5
     dBx = torch.rand(B, S, DI, N, device=dev, generator=g) * 2 - 1
@@ -541,8 +617,7 @@ def train_kernel_phase(dev):
     dy = torch.rand(B, S, DI, device=dev, generator=g) * 2 - 1
     scan = [scan_bwd_case(f"train {list(dA.shape)} f32", dA, dBx, C, dy)]
     del dA, dBx, C, dy
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return flash, scan
 
 
@@ -619,8 +694,7 @@ def newton_run(backend, dev):
          matmul_dispatches=result["matmul_dispatches"], plan_hits=ctx.sched_stats.plan_hits,
          finite=bool(np.isfinite(result["H"]).all()))
     del ctx, ex, g, H, beta
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return result
 
 
@@ -637,8 +711,7 @@ def dgemm_run(backend, dev):
          compute_s=wall_s, launches=counts, matmul_loaders=by_loader,
          matmul_dispatches=out["matmul_dispatches"])
     del ctx, C
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return out
 
 
@@ -662,13 +735,351 @@ def contracts(dev):
     check(res["rel_err_vs_numpy"] <= RTOL, f"contracts {res}")
 
 
+# ---------------------------------------------------------------------------
+# the paper's other block workloads: CP-ALS, TSQR, Cholesky, rSVD, L-BFGS and
+# lineage checkpoints, on the Newton loop's cluster
+# ---------------------------------------------------------------------------
+
+def _block_ctx(backend, dev, node_grid=(4, 1)):
+    return ArrayContext(cluster=ClusterSpec(4, 8), node_grid=node_grid, backend=backend,
+                        dtype="float64", pipeline=True, plan_cache=True, seed=0,
+                        device=str(dev))
+
+
+def _timed(ctx, fn):
+    """``fn()``'s result and its wall seconds, pipelined ops drained and the
+    device synchronized."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    ctx.flush()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def _dev_blocks(ga):
+    """A GraphArray's blocks as the tensors on the card, in index order."""
+    ex = ga.ctx.executor
+    return [ex.get(ga.block(idx).vid) for idx in ga.grid.iter_indices()]
+
+
+def _rows(ga):
+    """A (q, 1)- or (q, q)-blocked GraphArray assembled on the card."""
+    g = ga.grid.grid
+    blocks = _dev_blocks(ga)
+    if len(g) == 1 or g[1] == 1:
+        return torch.cat(blocks)
+    return torch.cat([torch.cat(blocks[i * g[1]:(i + 1) * g[1]], dim=1) for i in range(g[0])])
+
+
+def _fro(t) -> float:
+    return torch.linalg.vector_norm(t).item()
+
+
+def _kernel_launch_check(ctx, name, backend):
+    """On backend cuda every 2-D block product launched the kernel; on torch
+    none did.  Returns the launches."""
+    n = launches["matmul"]
+    want = _matmul_dispatches(ctx) if backend == "cuda" else 0
+    check(n == want, f"{name} {backend}: {n} matmul launches vs {want} 2-D matmul dispatches")
+    return n
+
+
+def _factor_sweeps(ex):
+    """CP-ALS's factors after every sweep, off the card: each mode update ends
+    in the in-loop reshard that gathers the factor to one block (a
+    ``concat_blocks`` of shape (dim, rank)), three a sweep."""
+    shape = (CPALS["dim"], CPALS["rank"])
+    got = [ex.get(v) for v, rec in ex.lineage.items()
+           if rec.op == "concat_blocks" and ex.shapes[v] == shape]
+    check(len(got) == 3 * CPALS["sweeps"], f"CP-ALS factor gathers: {len(got)}")
+    return [got[3 * i:3 * i + 3] for i in range(CPALS["sweeps"])]
+
+
+def _cp_fit(x_slabs, factors) -> float:
+    """1 - ||X - [[A, B, C]]|| / ||X||, on the card, one row slab at a time."""
+    A, B, C = factors
+    err = norm = 0.0
+    row = 0
+    for x in x_slabs:
+        approx = torch.einsum("if,jf,kf->ijk", A[row:row + x.shape[0]], B, C)
+        row += x.shape[0]
+        err += (x - approx).square().sum().item()
+        norm += x.square().sum().item()
+        del approx
+    return 1.0 - float(np.sqrt(err / norm))
+
+
+def cpals_run(backend, dev, method="reshard"):
+    """``cpals_loop`` (CPALS["sweeps"] sweeps, plan cache on) on ``backend``;
+    on a data backend also the factors after every sweep and the fit after
+    the first and the last, on the card."""
+    ctx = _block_ctx(backend, dev, (4, 1, 1))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    A, loop_s = _timed_workload(ctx, lambda c: cpals_loop(
+        c, CPALS["dim"], rank=CPALS["rank"], q=CPALS["q"], iters=CPALS["sweeps"],
+        method=method))
+    st = ctx.sched_stats
+    out = dict(schedule=_schedule(ctx, A), moved=st.reshard_moved_elements,
+               reshards=st.reshards, hit_rate=st.hit_rate())
+    fields = dict(backend=backend, method=method, dim=CPALS["dim"], rank=CPALS["rank"],
+                  q=CPALS["q"], sweeps=CPALS["sweeps"], reshard_moved_elements=out["moved"],
+                  reshards=out["reshards"], plan_hit_rate=out["hit_rate"])
+    if backend != "sim":
+        ex = ctx.executor
+        sweeps = _factor_sweeps(ex)
+        x_slabs = _blocks(ex, "create:random")
+        out.update(factors=[f.cpu().numpy() for f in sweeps[-1]],
+                   fit=[_cp_fit(x_slabs, sweeps[0]), _cp_fit(x_slabs, sweeps[-1])],
+                   launches=_kernel_launch_check(ctx, "CP-ALS", backend),
+                   loaders=dict(loaders))
+        fields.update(loop_s=loop_s, s_per_sweep=loop_s / CPALS["sweeps"],
+                      fit_after_sweep=dict(zip((1, CPALS["sweeps"]), out["fit"])),
+                      max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+                      mem_peak_store_bytes=ex.memory.peak_bytes(),
+                      matmul_launches=out["launches"], matmul_loaders=out["loaders"])
+        del ex, sweeps, x_slabs
+    emit(f"cpals_{backend}" + ("" if method == "reshard" else f"_{method}"), **fields)
+    return out
+
+
+def cpals_phase(dev):
+    runs = {}
+    for backend in ("cuda", "torch", "sim"):
+        runs[backend] = cpals_run(backend, dev)
+        _release()
+    naive = cpals_run("sim", dev, method="naive")
+    cuda, plain = runs["cuda"], runs["torch"]
+    rel = max(_rel(a, b) for a, b in zip(cuda["factors"], plain["factors"]))
+    res = dict(factor_rel_err=rel, rtol=BLOCK_RTOL,
+               same_schedule=cuda["schedule"] == plain["schedule"] == runs["sim"]["schedule"],
+               moved_elements={"cuda": cuda["moved"], "torch": plain["moved"],
+                               "sim": runs["sim"]["moved"], "naive (sim)": naive["moved"]},
+               moved_vs_naive=cuda["moved"] / naive["moved"], fit=cuda["fit"])
+    emit("cpals_parity", **res)
+    check(rel <= BLOCK_RTOL, f"CP-ALS factors cuda vs torch: {rel}")
+    check(res["same_schedule"], "CP-ALS schedules differ between backends")
+    check(cuda["moved"] == plain["moved"] == runs["sim"]["moved"] < naive["moved"],
+          f"CP-ALS moved elements {res['moved_elements']}")
+    check(np.isfinite(cuda["fit"]).all() and cuda["fit"][1] > cuda["fit"][0],
+          f"CP-ALS fit does not improve: {cuda['fit']}")
+    return cuda["launches"]
+
+
+def _tsqr(ctx):
+    X = ctx.random((NEWTON["n"], NEWTON["d"]), grid=(NEWTON["q"], 1))
+    ctx.reset_loads()
+    return X, _timed(ctx, lambda: tsqr_indirect(ctx, X))
+
+
+def tsqr_phase(dev):
+    """Indirect TSQR of the Newton loop's X on backend cuda, and its comm
+    ratio against the sim backend's on the same graph."""
+    ctx = _block_ctx("cuda", dev)
+    reset_launches()
+    X, ((Q, R), tsqr_s) = _tsqr(ctx)
+    n = _kernel_launch_check(ctx, "TSQR", "cuda")
+    Rt = _dev_blocks(R)[0]
+    xs, qs = _dev_blocks(X), _dev_blocks(Q)
+    resid = np.sqrt(sum(_fro(q @ Rt - x) ** 2 for q, x in zip(qs, xs))
+                    / sum(_fro(x) ** 2 for x in xs))
+    gram = sum(q.mT @ q for q in qs)
+    orth = _fro(gram - torch.eye(gram.shape[0], dtype=gram.dtype, device=dev))
+    ratio = ctx.loads()["comm_ratio_tsqr"]
+    sim = _block_ctx("sim", dev)
+    _tsqr(sim)
+    res = dict(n=NEWTON["n"], d=NEWTON["d"], q=NEWTON["q"], s=tsqr_s, residual=resid,
+               orthogonality=orth, tol=QR_TOL, comm_ratio_tsqr=ratio,
+               comm_ratio_tsqr_sim=sim.loads()["comm_ratio_tsqr"], matmul_launches=n)
+    emit("tsqr", **res)
+    check(resid <= QR_TOL["residual"] and orth <= QR_TOL["orthogonality"], f"TSQR {res}")
+    check(ratio == res["comm_ratio_tsqr_sim"], f"TSQR comm ratio {res}")
+    return n
+
+
+def _cholesky(ctx):
+    """A = M M^T / n + I from the seed (its products on the runtime), a
+    right-hand side, then the factorization and the solve."""
+    n, g = CHOL["n"], CHOL["g"]
+    M = ctx.random((n, n), grid=(g, g))
+    A = ((M @ M.T) * (1.0 / n) + ctx.from_numpy(np.eye(n), grid=(g, g))).compute()
+    b = ctx.random((n, 1), grid=(g, 1))
+    ctx.flush()
+    ctx.reset_loads()
+    L, chol_s = _timed(ctx, lambda: cholesky(ctx, A))
+    x, solve_s = _timed(ctx, lambda: cholesky_solve(ctx, L, b))
+    return A, b, L, x, chol_s, solve_s
+
+
+def cholesky_phase(dev):
+    ctx = _block_ctx("cuda", dev)
+    reset_launches()
+    A, b, L, x, chol_s, solve_s = _cholesky(ctx)
+    n = _kernel_launch_check(ctx, "Cholesky", "cuda")
+    At, Lt, bt, xt = _rows(A), _rows(L), _rows(b), _rows(x)
+    factor = _fro(Lt @ Lt.mT - At) / _fro(At)
+    solve = _fro(At @ xt - bt) / _fro(bt)
+    upper_zero = bool((torch.triu(Lt, 1) == 0).all().item())
+    ratio = ctx.loads()["comm_ratio_cholesky"]
+    del At, Lt, bt, xt
+    sim = _block_ctx("sim", dev)
+    _cholesky(sim)
+    res = dict(n=CHOL["n"], grid=[CHOL["g"]] * 2, cholesky_s=chol_s, solve_s=solve_s,
+               factor_residual=factor, solve_residual=solve, tol=CHOL_TOL,
+               strict_upper_zero=upper_zero, comm_ratio_cholesky=ratio,
+               comm_ratio_cholesky_sim=sim.loads()["comm_ratio_cholesky"],
+               matmul_launches=n)
+    emit("cholesky", **res)
+    check(factor <= CHOL_TOL["factor"] and solve <= CHOL_TOL["solve"] and upper_zero,
+          f"Cholesky {res}")
+    check(ratio == res["comm_ratio_cholesky_sim"], f"Cholesky comm ratio {res}")
+    return n
+
+
+def _rsvd(ctx):
+    """An exactly rank-(rank + oversample) matrix U V^T from the seed (its
+    products on the runtime), then the randomized SVD."""
+    r = RSVD["rank"] + RSVD["oversample"]
+    U = ctx.random((NEWTON["n"], r), grid=(NEWTON["q"], 1))
+    V = ctx.random((NEWTON["d"], r), grid=(1, 1))
+    A = (U @ V.T).compute()
+    ctx.flush()
+    ctx.reset_loads()
+    return A, _timed(ctx, lambda: rsvd(ctx, A, rank=RSVD["rank"],
+                                       oversample=RSVD["oversample"], seed=1))
+
+
+def rsvd_phase(dev):
+    ctx = _block_ctx("cuda", dev)
+    reset_launches()
+    A, ((U, S, V), rsvd_s) = _rsvd(ctx)
+    n = _kernel_launch_check(ctx, "rSVD", "cuda")
+    St, Vt = _dev_blocks(S)[0], _dev_blocks(V)[0]
+    us_vt = [(u * St) @ Vt.mT for u in _dev_blocks(U)]
+    xs = _dev_blocks(A)
+    recon = np.sqrt(sum(_fro(r - x) ** 2 for r, x in zip(us_vt, xs))
+                    / sum(_fro(x) ** 2 for x in xs))
+    ratio = ctx.loads()["comm_ratio_rsvd"]
+    del us_vt, xs
+    sim = _block_ctx("sim", dev)
+    _rsvd(sim)
+    res = dict(m=NEWTON["n"], d=NEWTON["d"], q=NEWTON["q"], **RSVD,
+               matrix_rank=RSVD["rank"] + RSVD["oversample"], s=rsvd_s,
+               reconstruction=recon, tol=RSVD_TOL, comm_ratio_rsvd=ratio,
+               comm_ratio_rsvd_sim=sim.loads()["comm_ratio_rsvd"], matmul_launches=n)
+    emit("rsvd", **res)
+    check(recon <= RSVD_TOL, f"rSVD {res}")
+    check(ratio == res["comm_ratio_rsvd_sim"], f"rSVD comm ratio {res}")
+    return n
+
+
+def lbfgs_phase(dev):
+    """LogisticRegression(solver="lbfgs") on the paper's data at the Newton
+    loop's size, on backends cuda and torch; the fit is timed without the
+    data's creation."""
+    X, y = paper_bimodal(NEWTON["n"], NEWTON["d"], seed=0)
+    runs = {}
+    for backend in ("cuda", "torch"):
+        ctx = _block_ctx(backend, dev)
+        Xg = ctx.from_numpy(X, grid=(NEWTON["q"], 1))
+        yg = ctx.from_numpy(y, grid=(NEWTON["q"], 1))
+        ctx.flush()
+        model = LogisticRegression(ctx, solver="lbfgs", max_iter=LBFGS["iters"],
+                                   reg=LBFGS["reg"])
+        reset_launches()
+        _, fit_s = _timed(ctx, lambda: model.fit(Xg, yg))
+        res = model.result
+        runs[backend] = dict(beta=model.beta, objectives=res.objectives,
+                             launches=_kernel_launch_check(ctx, "L-BFGS", backend))
+        emit(f"lbfgs_{backend}", n=NEWTON["n"], d=NEWTON["d"], q=NEWTON["q"],
+             reg=LBFGS["reg"], iterations=res.iterations, fit_s=fit_s, s_per_iter=fit_s / res.iterations,
+             objectives=res.objectives, grad_norms=res.grad_norms,
+             matmul_launches=runs[backend]["launches"])
+        del ctx, Xg, yg, model, res
+        _release()
+    cuda, plain = runs["cuda"], runs["torch"]
+    obj = cuda["objectives"]
+    res = dict(beta_rel_err=_rel(cuda["beta"], plain["beta"]), rtol=BLOCK_RTOL,
+               loss_first=obj[0], loss_last=obj[-1],
+               decreasing=all(b < a for a, b in zip(obj, obj[1:])))
+    emit("lbfgs_parity", **res)
+    check(res["beta_rel_err"] <= BLOCK_RTOL, f"L-BFGS beta cuda vs torch {res}")
+    check(res["decreasing"] and np.isfinite(obj).all(), f"L-BFGS loss {obj}")
+    return cuda["launches"]
+
+
+def _ancestors(ex, vids) -> int:
+    """Ops in the lineage below ``vids``: what a replay walks without a
+    checkpoint when every block is lost."""
+    seen, stack = set(), [ex.resolve(v) for v in vids]
+    while stack:
+        v = stack.pop()
+        if v not in seen:
+            seen.add(v)
+            stack.extend(ex.resolve(i) for i in ex.lineage[v].in_ids)
+    return len(seen)
+
+
+def checkpoint_phase(dev):
+    """The Newton loop's beta and H checkpointed after iteration 2: the node
+    holding beta dies and recovery reads the archive, not the lineage; a
+    fresh context restored from the archive holds the same bits on the card."""
+    ctx = _block_ctx("cuda", dev)
+    reset_launches()
+    _g, H, beta = logreg_newton_loop(ctx, NEWTON["n"], NEWTON["d"], NEWTON["q"], iters=2)
+    ctx.flush()
+    n = _kernel_launch_check(ctx, "checkpoint Newton", "cuda")
+    ex = ctx.executor
+    vids = [beta.block((0, 0)).vid, H.block((0, 0)).vid]
+    depth = _ancestors(ex, vids)
+    bits = [beta.to_numpy().tobytes(), H.to_numpy().tobytes()]
+    with tempfile.TemporaryDirectory() as tmp:
+        _, ckpt_s = _timed(ctx, lambda: ctx.checkpoint([beta, H], tmp))
+        node = ex.memory.node_of[ex.resolve(vids[0])]
+        lost = ex.fail_node(node)
+        replayed = ex.recover(vids)
+        survived = [beta.to_numpy().tobytes(), H.to_numpy().tobytes()] == bits
+        roots = sorted({ex.lineage[ex.resolve(v)].op for v in vids})
+        del ctx, ex, beta, H, _g
+        _release()
+        _restored, (beta2, H2) = ArrayContext.restore(tmp)
+        same = [beta2.to_numpy().tobytes(), H2.to_numpy().tobytes()] == bits
+        devices = sorted({str(t.device) for t in _dev_blocks(beta2) + _dev_blocks(H2)})
+    res = dict(n=NEWTON["n"], d=NEWTON["d"], iters_before=2, checkpoint_s=ckpt_s,
+               failed_node=node, blocks_lost=len(lost), replayed=replayed,
+               lineage_ops_without_checkpoint=depth, bits_survive=survived, roots=roots,
+               restored_bits_equal=same, restored_on=devices, matmul_launches=n)
+    emit("checkpoint", **res)
+    check(survived and roots == ["create:restore"] and replayed <= len(vids) < depth,
+          f"checkpoint recovery {res}")
+    check(same and devices == [str(dev)], f"checkpoint restore {res}")
+    return n
+
+
+def block_algorithms_phase(dev):
+    """The paper's other block workloads at full size on the card; returns
+    the matmul kernel's launches on backend cuda (each workload's counts set
+    to 0 just before it and read just after)."""
+    phases = {"cpals": cpals_phase, "tsqr": tsqr_phase, "cholesky": cholesky_phase,
+              "rsvd": rsvd_phase, "lbfgs": lbfgs_phase, "checkpoint": checkpoint_phase}
+    counts, wall = {}, {}
+    for name, phase in phases.items():
+        t0 = time.perf_counter()
+        counts[name] = phase(dev)
+        _release()
+        wall[name] = time.perf_counter() - t0
+    emit("block_algorithms", wall_s=sum(wall.values()), wall_s_by_workload=wall,
+         matmul_launches=counts)
+    return sum(counts.values())
+
+
 def serve_run(dev, cfg, params, impl, forced=None, gen=None):
     """One serve_demo run of model ``cfg`` at SERVE's batch and prompt on the
     card, with its launches and peak memory; the launch counts are set to 0
     just before it."""
     record = {}
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     tokens = serve_demo(cfg, SERVE["batch"], SERVE["prompt_len"], gen or SERVE["gen"],
@@ -763,8 +1174,7 @@ def serve_phase(dev):
     check({k: kern["launches"][k] for k in want} == want,
           f"serve f32 kernel launches {kern['launches']} != {want}")
     del params, kern, plain
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return main_launches
 
 
@@ -796,8 +1206,7 @@ def train_run(dev):
         elif step == last_timed + 1:
             profiler.stop()
 
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     state, history = train_loop(TRAIN["arch"], steps=last_timed + 2,
@@ -808,8 +1217,7 @@ def train_run(dev):
     n_params = sum(t.numel() for _, t in _leaves(state["params"]))
     n_leaves = len(list(_leaves(state["params"])))
     del state
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     timed = steps[TRAIN["warm"]:last_timed + 1]
     s_per_step = sum(st["s"] for st in timed) / len(timed)
     profile = train_profile(profiler, steps[-1]["s"])
@@ -830,7 +1238,34 @@ def train_run(dev):
     for st in steps:
         check(st["launches"] == want, f"train step {st['step']} launches "
                                       f"{st['launches']} != {want}")
-    return {k: sum(st["launches"][k] for st in steps) for k in TRAIN_KERNELS}
+    return {k: sum(st["launches"][k] for st in steps) for k in TRAIN_KERNELS}, steps
+
+
+def train_plain_curve(dev, kernel_steps):
+    """The train run's steps again, from the same seed and batches, on the
+    plain route (``impl="plain"``): both loss curves and gradient norms, and
+    whether each rises at its last step (does the rise at step 4 come from
+    the kernels or from the schedule?)."""
+    steps = []
+    _release()
+    reset_launches()
+    state, _ = train_loop(TRAIN["arch"], steps=len(kernel_steps), batch=TRAIN["batch"],
+                          seq=TRAIN["seq"], reduced=False, lr=TRAIN["lr"], log_every=1,
+                          device=dev, impl="plain",
+                          on_step=lambda step, metrics: steps.append(dict(metrics, step=step)),
+                          log_fn=lambda line: print(f"# {line}", file=sys.stderr))
+    del state
+    _release()
+    check(all(launches[k] == 0 for k in TRAIN_KERNELS),
+          f"train plain route launched kernels: {dict(launches)}")
+    curves = {name: {k: [st[k] for st in run] for k in ("loss", "grad_norm", "lr", "s")}
+              for name, run in (("kernel", kernel_steps), ("plain", steps))}
+    rises = {name: c["loss"][-1] > c["loss"][-2] for name, c in curves.items()}
+    emit("train_plain_curve", n_layers=get_config(TRAIN["arch"]).n_layers,
+         steps=len(steps), curves=curves, last_step_rises=rises,
+         loss_rel_diff=[abs(a - b) / abs(b) for a, b in zip(curves["kernel"]["loss"],
+                                                          curves["plain"]["loss"])])
+    check(all(np.isfinite(st["loss"]) for st in steps), f"train plain route: {curves}")
 
 
 def train_profile(profiler, step_s):
@@ -896,12 +1331,14 @@ def train_compare(label, kern, plain, tol):
 
 
 def train_phase(dev):
-    """Training hymba-1.5b through the kernels (``train_run``), then the
-    gradients of one step on the same weights and first batch: two kernel
+    """Training hymba-1.5b through the kernels (``train_run``) and the same
+    steps on the plain route (``train_plain_curve``), then the gradients of
+    one step on the same weights and first batch: two kernel
     runs bitwise equal, the kernel route against the plain route (bf16, at
     TRAIN_PLAIN_LAYERS), a planted fault caught, and f32 at 8 layers.
     Returns the launches of the train run (the main path's)."""
-    main_launches = train_run(dev)
+    main_launches, kernel_steps = train_run(dev)
+    train_plain_curve(dev, kernel_steps)
     cfg = get_config(TRAIN["arch"])
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype="float32")
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
@@ -944,8 +1381,7 @@ def train_phase(dev):
     check(per_leaf[worst] > TRAIN_TOL["bfloat16"],
           f"the bf16 train limit misses a planted fault: {worst} {per_leaf[worst]}")
     del fault, plain, cparams, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
 
     # f32: full width, 8 layers, batch 1
     cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_F32["layers"], dtype="float32")
@@ -960,8 +1396,7 @@ def train_phase(dev):
     plain = _grads(cfg32, params, batch, "plain", "float32")
     train_compare("f32", kern, plain, TRAIN_TOL["float32"])
     del kern, plain, params
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     return main_launches
 
 
@@ -1006,8 +1441,7 @@ def main() -> int:
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
     matmul_cases, glm_cases = kernel_phase(dev)
-    gc.collect()
-    torch.cuda.empty_cache()
+    _release()
     flash_cases, scan_cases = serve_kernel_phase(dev)
     flash_bwd_cases, scan_bwd_cases = train_kernel_phase(dev)
 
@@ -1046,6 +1480,9 @@ def main() -> int:
           f"DGEMM launches {dg_cuda['launches']} vs {dg_cuda['matmul_dispatches']}")
     check(dg_cuda["matmul_loaders"]["scalar"] == 0,
           f"DGEMM products on the scalar loader: {dg_cuda['matmul_loaders']}")
+    # the paper's other block workloads (CP-ALS, TSQR, Cholesky, rSVD,
+    # L-BFGS, checkpoints), their products on the kernel on backend cuda
+    block_launches = block_algorithms_phase(dev)
 
     # main path 2: LM serving, through the attention and scan kernels
     serve_launches = serve_phase(dev)
@@ -1059,6 +1496,7 @@ def main() -> int:
     # serve run through the kernels, and the train run
     main_launches = {k: cuda["launches"][k] + dg_cuda["launches"][k]
                      for k in ("matmul", "glm_fused")}
+    main_launches["matmul"] += block_launches
     main_launches.update({k: serve_launches[k] + train_launches[k]
                           for k in ("flash_attention", "mamba_scan")})
     main_launches.update({k: train_launches[k]

@@ -103,3 +103,11 @@ def restore(ckpt_dir: str, step: Optional[int] = None) -> Tuple[Any, Dict]:
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     return _unflatten(flat), meta
+
+
+def load_npz(path: str) -> Dict[str, np.ndarray]:
+    """Load one checkpoint archive as a flat {key: host array} dict — the
+    block-granular read path behind ``create:restore`` lineage roots (the
+    executor caches the opened archive per path)."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}

@@ -2,8 +2,8 @@
 
 The port's copy of ``repro.core``, with the same semantics: the same graph
 and seed give the same LSHS placements, loads and simulated makespans in
-both packages.  Chaos, tracing, resharding and elastic resizing are not
-ported yet (ROADMAP Queue 1).
+both packages.  Chaos and tracing are not ported yet (ROADMAP Queue 1
+item 5).
 
 Public API:
     ArrayContext, ClusterSpec, NodeGrid, ArrayGrid, auto_grid,
@@ -27,6 +27,7 @@ from .layout import (
     node_grid_factorizations,
     tune_node_grid,
 )
+from .reshard import reshard, reshard_naive
 from .plan import PlacementPlan, PlanCache, SchedStats, fingerprint as plan_fingerprint, replay_plan
 from .schedulers import DynamicScheduler, LSHS, RoundRobinScheduler, make_scheduler
 from . import bounds
@@ -52,6 +53,8 @@ __all__ = [
     "WorkerClocks",
     "plan_fingerprint",
     "replay_plan",
+    "reshard",
+    "reshard_naive",
     "LayoutChoice",
     "auto_grid",
     "bounds",

@@ -16,6 +16,7 @@ there is none; tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
+import os
 import random
 import zlib
 from time import perf_counter
@@ -355,19 +356,127 @@ class ArrayContext:
             v.meta["dest"] = node
             stack.extend(v.children)
 
-    # -- features of later slices ----------------------------------------------
+    # -- lineage checkpointing (bounded recovery) -------------------------------
     def checkpoint(self, arrays: Sequence[GraphArray], dir: str,
                    step: Optional[int] = None, keep: int = 3) -> str:
-        raise NotImplementedError(
-            "checkpoint waits for the checkpoint/ckpt.py port "
-            "(ROADMAP Queue 1 item 2)")
+        """Snapshot the live blocks of ``arrays`` through the atomic
+        ``repro_torch.checkpoint`` staging machinery and rewrite their lineage
+        records to ``create:restore`` roots, truncating replay depth: a node
+        kill after this point replays at most the ops since the last
+        checkpoint, not the whole history back to ``create:`` roots.  Blocks
+        are copied off their device into the archive as numpy arrays.
+        Returns the published checkpoint directory."""
+        from repro_torch.checkpoint import ckpt as _ckpt
+
+        from .executor import OpRecord
+
+        ex = self.executor
+        if ex.mode == "sim":
+            raise RuntimeError("sim executor holds no data to checkpoint")
+        arrays = list(arrays)
+        for ga in arrays:
+            self.compute(ga)
+        ex.flush()
+        state: Dict[str, np.ndarray] = {}
+        metas = []
+        for ga in arrays:
+            blocks = []
+            for idx in ga.grid.iter_indices():
+                v = ga.block(idx)
+                rv = ex.resolve(v.vid)
+                key = f"b{rv}"
+                if key not in state:
+                    state[key] = ex.backend.to_host(ex.get(rv))
+                blocks.append({"index": list(idx), "key": key,
+                               "placement": list(v.placement),
+                               "shape": list(v.shape)})
+            metas.append({"shape": list(ga.shape), "grid": list(ga.grid.grid),
+                          "dtype": ga.grid.dtype, "blocks": blocks})
+        if step is None:
+            step = self._ckpt_seq
+        self._ckpt_seq = step + 1
+        meta = {
+            "arrays": metas,
+            "cluster": [self.cluster.num_nodes,
+                        self.cluster.workers_per_node],
+            "node_grid": list(self.node_grid.dims),
+            "backend": self.backend,
+            "device": None if self.device is None else str(self.device),
+            "dtype": self.dtype,
+            "seed": self._seed,
+            "pipeline": self.pipeline,
+            "scheduler": self.scheduler.name,
+        }
+        final = _ckpt.save(dir, step, state, meta=meta, keep=keep)
+        npz = os.path.join(final, "state.npz")
+        # lineage rewrite: checkpointed blocks become restore roots — replay
+        # reloads their bits from the archive instead of recursing deeper
+        for ga in arrays:
+            for idx in ga.grid.iter_indices():
+                v = ga.block(idx)
+                rv = ex.resolve(v.vid)
+                ex.lineage[rv] = OpRecord(
+                    rv, "create:restore",
+                    {"seed": None, "value": None,
+                     "path": npz, "key": f"b{rv}"},
+                    (), tuple(v.placement),
+                )
+        mm = ex.memory
+        mm.stats.checkpoints += 1
+        mm.stats.checkpoint_blocks += len(state)
+        mm._ckpt_cache[npz] = dict(state)
+        return final
 
     @classmethod
-    def restore(cls, dir: str, step: Optional[int] = None, **overrides):
-        raise NotImplementedError(
-            "restore waits for the checkpoint/ckpt.py port "
-            "(ROADMAP Queue 1 item 2)")
+    def restore(cls, dir: str, step: Optional[int] = None,
+                **overrides) -> Tuple["ArrayContext", list]:
+        """Rebuild a context and its checkpointed arrays after simulated
+        driver loss: a fresh ``ArrayContext`` (configuration from the
+        checkpoint's meta, overridable) whose arrays materialize from
+        ``create:restore`` roots — bitwise the blocks that were saved, put
+        back on the context's device (the checkpointed context's unless
+        ``device=`` overrides it).
+        Returns ``(ctx, arrays)`` in the order given to ``checkpoint``."""
+        from repro_torch.checkpoint import ckpt as _ckpt
 
+        state, meta = _ckpt.restore(dir, step)
+        npz = os.path.join(dir, f"step_{meta['step']:08d}", "state.npz")
+        k, w = meta["cluster"]
+        kwargs = {
+            "cluster": ClusterSpec(k, w),
+            "node_grid": tuple(meta["node_grid"]),
+            "backend": meta["backend"],
+            "device": meta.get("device"),
+            "dtype": meta["dtype"],
+            "seed": meta["seed"],
+            "pipeline": meta["pipeline"],
+            "scheduler": meta["scheduler"],
+        }
+        kwargs.update(overrides)
+        ctx = cls(**kwargs)
+        # prime the archive cache with the blocks restore() already read
+        ctx.executor.memory._ckpt_cache[npz] = dict(state)
+        arrays = []
+        for am in meta["arrays"]:
+            agrid = ArrayGrid(tuple(am["shape"]), tuple(am["grid"]),
+                              am["dtype"])
+            blocks = np.empty(agrid.grid if agrid.grid else (), dtype=object)
+            for bm in am["blocks"]:
+                idx = tuple(bm["index"])
+                node, worker = bm["placement"]
+                v = leaf(tuple(bm["shape"]), node, worker)
+                ctx.executor.create(
+                    v.vid, tuple(bm["shape"]), (node, worker),
+                    kind="restore", ckpt=(npz, bm["key"]),
+                )
+                ctx.state.add_object(v.vid, node, worker,
+                                     int(np.prod(bm["shape"])))
+                ctx.executor.note_handle(v)
+                blocks[idx if agrid.grid else ()] = v
+            arrays.append(GraphArray(ctx, agrid, blocks, node_grid=None))
+        return ctx, arrays
+
+    # -- features of later slices ----------------------------------------------
     def enable_chaos(self, plan, seed: int = 0, retry=None):
         raise NotImplementedError(
             "enable_chaos waits for the core/chaos.py port "

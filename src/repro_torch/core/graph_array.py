@@ -570,9 +570,9 @@ class GraphArray:
         ``(blockshape, node_grid)`` layout via an LSHS-scheduled block-level
         move graph (``core.reshard``).  ``node_grid=None`` asks the layout
         tuner to pick the min-max-load factorization."""
-        raise NotImplementedError(
-            "GraphArray.reshard waits for the core/reshard.py port "
-            "(ROADMAP Queue 1 item 4)")
+        from .reshard import reshard as _reshard
+
+        return _reshard(self, grid=grid, node_grid=node_grid)
 
     # -- materialization --------------------------------------------------------
     def compute(self) -> "GraphArray":

@@ -476,7 +476,8 @@ class MemoryManager:
         """Host value of one checkpointed block (``create:restore`` roots)."""
         arch = self._ckpt_cache.get(path)
         if arch is None:
-            raise NotImplementedError(
-                "checkpoint archives wait for the checkpoint/ckpt.py port "
-                "(ROADMAP Queue 1 item 2)")
+            from repro_torch.checkpoint.ckpt import load_npz
+
+            arch = load_npz(path)
+            self._ckpt_cache[path] = arch
         return arch[key]

@@ -1,7 +1,18 @@
-"""Generalized linear models on GraphArray (paper §6, §8.5): the Newton
-solver and the model link functions.  L-BFGS, the estimator front end and
-the data generators are not ported yet (ROADMAP Queue 1 item 3)."""
+"""Generalized linear models on GraphArray (paper §6, §8.5)."""
+from .data import overlapping_gaussians, paper_bimodal
 from .models import LinearModel, LogisticModel, PoissonModel
 from .newton import NewtonSolver
+from .lbfgs import LBFGSSolver
+from .glm import GLM, LogisticRegression
 
-__all__ = ["LinearModel", "LogisticModel", "NewtonSolver", "PoissonModel"]
+__all__ = [
+    "GLM",
+    "LBFGSSolver",
+    "LinearModel",
+    "LogisticModel",
+    "LogisticRegression",
+    "NewtonSolver",
+    "PoissonModel",
+    "overlapping_gaussians",
+    "paper_bimodal",
+]

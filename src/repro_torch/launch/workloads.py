@@ -4,8 +4,7 @@ One definition of the logreg Newton-iteration graph (the Fig. 15 workload)
 and the dense square matmul, shared by the launch driver
 (``repro_torch.launch.blocks``), ``chip_smoke.py`` and the port's tests — so
 all of them exercise the *same* expression graph as the reference's
-``repro.launch.workloads``.  (``cpals_loop`` waits for the CP-ALS port,
-ROADMAP Queue 1 item 4.)
+``repro.launch.workloads``.
 """
 from __future__ import annotations
 
@@ -71,6 +70,44 @@ def logreg_newton_loop(ctx: ArrayContext, n: int, d: int, q: int,
         delta = _single_block_binary(ctx, "solve", H, g).compute()
         beta = (beta - delta).compute()
     return g, H, beta
+
+
+def dgemm_loop(ctx: ArrayContext, dim: int, g: int, iters: int = 10,
+               reset_loads: bool = True):
+    """Repeated C = A @ B on fixed operands.  Each iteration spreads a few
+    more block copies, so residency (part of the structural fingerprint)
+    keeps shifting within one run and plans mostly re-record; an identical
+    second run evolves residency the same way and replays every plan from a
+    shared cache — the cross-run (e.g. re-submitted job) caching regime."""
+    A = ctx.random((dim, dim), grid=(g, g))
+    B = ctx.random((dim, dim), grid=(g, g))
+    if reset_loads:
+        ctx.reset_loads()
+    C = None
+    for _ in range(iters):
+        C = (A @ B).compute()
+    return C
+
+
+def cpals_loop(ctx: ArrayContext, dim: int, rank: int = 8, q: int = 4,
+               iters: int = 3, method: str = "reshard",
+               reset_loads: bool = True):
+    """``iters`` full CP-ALS sweeps (all three mode updates via
+    matricization + reshard, ``repro_torch.factor``) on a ``(q, 1, 1)``-partitioned
+    ``dim³`` tensor — the reshard subsystem's flagship iterative workload:
+    the in-loop factor gathers repeat structurally, so ``--plan-cache``
+    replays their move graphs from sweep 2 on.  ``method="naive"`` swaps in
+    the all-to-all gather/scatter baseline for the moved-bytes ablation.
+
+    Returns the mode-0 factor GraphArray."""
+    from repro_torch.factor import cp_als
+
+    X = ctx.random((dim, dim, dim), grid=(q, 1, 1))
+    if reset_loads:
+        ctx.reset_loads()
+    res = cp_als(X, rank=rank, iters=max(iters, 1), method=method,
+                 track_fit=False)
+    return res.factors[0]
 
 
 def dgemm_loop(ctx: ArrayContext, dim: int, g: int, iters: int = 10,

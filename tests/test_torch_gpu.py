@@ -552,3 +552,50 @@ def test_mamba_scan_backward_from_the_forward_checkpoints_is_bitwise(cuda_device
             assert torch.equal(a, b)
     torch.cuda.synchronize()
     assert launches["mamba_scan"] == 2 and launches["mamba_scan_bwd"] == 4
+
+
+def _block_ctx(backend, node_grid=(4, 1), **kw):
+    return ArrayContext(cluster=ClusterSpec(4, 2), node_grid=node_grid, backend=backend,
+                        dtype="float64", seed=0, device="cuda:0", **kw)
+
+
+def test_cp_als_on_card_matches_torch_backend_and_mirror(cuda_device):
+    """Two CP-ALS sweeps on the card: every MTTKRP and Gram product launches
+    the matmul kernel, the factors equal the torch backend's to 1e-8 and the
+    numpy mirror's to 1e-8, and both backends schedule alike."""
+    from repro_torch.factor import cp_als, cp_als_reference
+
+    Xn = np.random.default_rng(7).standard_normal((32, 24, 16))
+    out = {}
+    for backend in ("cuda", "torch"):
+        ctx = _block_ctx(backend, (4, 1, 1), plan_cache=True, pipeline=True)
+        reset_launches()
+        res = cp_als(ctx.from_numpy(Xn, grid=(4, 1, 1)), rank=3, iters=2, seed=1)
+        out[backend] = ([f.to_numpy() for f in res.factors], launches["matmul"],
+                        res.moved_elements)
+    (fs, n_kernel, moved), (fs_t, n_torch, moved_t) = out["cuda"], out["torch"]
+    # per sweep and mode: 4 MTTKRP row blocks and 2 Grams
+    assert n_kernel == 2 * 3 * (4 + 2) and n_torch == 0
+    assert moved == moved_t > 0
+    for f, f_t, m in zip(fs, fs_t, cp_als_reference(Xn, rank=3, iters=2, seed=1)):
+        np.testing.assert_allclose(f, f_t, rtol=1e-8, atol=1e-10)
+        np.testing.assert_allclose(f, m, rtol=1e-8, atol=1e-8)
+
+
+def test_tsqr_on_card_matches_torch_backend(cuda_device):
+    """Indirect TSQR on the card: Q R = X and Q^T Q = I to the chip run's
+    limits, the same comm ratio as on backend torch."""
+    from repro_torch.linalg import tsqr_indirect
+
+    out = {}
+    for backend in ("cuda", "torch"):
+        ctx = _block_ctx(backend)
+        X = ctx.random((1 << 14, 64), grid=(8, 1))
+        Q, R = tsqr_indirect(ctx, X)
+        out[backend] = (X.to_numpy(), Q.to_numpy(), R.to_numpy(),
+                        ctx.loads()["comm_ratio_tsqr"])
+    (X, Q, R, ratio), (_, Q_t, _, ratio_t) = out["cuda"], out["torch"]
+    assert np.linalg.norm(Q @ R - X) / np.linalg.norm(X) <= 1e-12
+    assert np.abs(Q.T @ Q - np.eye(64)).max() <= 1e-10
+    np.testing.assert_allclose(Q, Q_t, rtol=0, atol=1e-10)
+    assert ratio == ratio_t

@@ -44,7 +44,8 @@ def test_no_jax_or_reference_imports(path):
 @pytest.mark.parametrize("modules", [
     "repro_torch, repro_torch.core, repro_torch.backend, repro_torch.backend.cuda_backend, "
     "repro_torch.kernels, repro_torch.glm, repro_torch.launch.blocks, repro_torch.interop, "
-    "repro_torch.obs, repro_torch.configs.glm_logreg",
+    "repro_torch.obs, repro_torch.configs.glm_logreg, repro_torch.factor, repro_torch.linalg, "
+    "repro_torch.tensor, repro_torch.core.elastic, repro_torch.core.straggler",
     "repro_torch.models, repro_torch.kernels.flash_attention, repro_torch.kernels.mamba_scan, "
     "repro_torch.train, repro_torch.launch.serve, repro_torch.configs.hymba_1p5b",
     "repro_torch.kernels.flash_attention_bwd, repro_torch.train.optim, "
@@ -128,15 +129,16 @@ def _block_runtime_feature(name):
         return ArrayContext(device="cpu", trace=True)
     if name == "calibration":
         return ArrayContext(device="cpu", calibration={})
-    if name == "restore":
-        return ArrayContext.restore("d")
-    ctx = ArrayContext(device="cpu")
-    X = ctx.random((8, 4), grid=(2, 1))
-    if name == "chaos":
-        return ctx.enable_chaos(None)
-    if name == "checkpoint":
-        return ctx.checkpoint([X], "d")
-    return X.reshard(grid=(1, 1))
+    if name.startswith("--"):  # the launch driver's flags
+        from repro_torch.launch import blocks
+
+        argv = sys.argv
+        sys.argv = ["blocks", "--device", "cpu", "--backend", "sim", name]
+        try:
+            return blocks.main()
+        finally:
+            sys.argv = argv
+    return ArrayContext(device="cpu").enable_chaos(None)
 
 
 def _hymba(**changes):
@@ -198,7 +200,8 @@ def _lm_feature(name):
 
 @pytest.mark.parametrize("feature", [
     ("block", "trace"), ("block", "calibration"), ("block", "chaos"),
-    ("block", "checkpoint"), ("block", "restore"), ("block", "reshard"),
+    ("block", "--chaos"), ("block", "--trace"), ("block", "--calibrate"),
+    ("block", "--profile"),
     ("lm", "moe"), ("lm", "mrope"), ("lm", "encdec"), ("lm", "softcap"),
     ("lm", "per-row pos"), ("lm", "non-causal mask"), ("lm", "Rules"),
     ("lm", "sharded steps"), ("lm", "sharded train step"), ("lm", "activation_rules"),
