@@ -132,8 +132,11 @@ class TorchBackend(BlockBackend):
         tr = self.tracer
         if fn is not None:
             self.stats.jit_calls += 1
-            if tr is not None:
-                tr.record("compile_hit", op, placement[0], placement[1])
+            if tr is not None:  # FlightRecorder.record, inlined
+                ev = tr.events
+                if len(ev) == tr.capacity:
+                    tr.dropped += 1
+                ev.append(("compile_hit", op, placement, perf_counter()))
             return fn(*inputs)
         fn = build(op, meta)
         if fn is None:

@@ -2,8 +2,7 @@
 
 The port's copy of ``repro.core``, with the same semantics: the same graph
 and seed give the same LSHS placements, loads and simulated makespans in
-both packages.  Chaos and tracing are not ported yet (ROADMAP Queue 1
-item 5).
+both packages.
 
 Public API:
     ArrayContext, ClusterSpec, NodeGrid, ArrayGrid, auto_grid,
@@ -11,6 +10,7 @@ Public API:
     LSHS / RoundRobinScheduler / DynamicScheduler, ClusterState, CostModel,
     bounds (α-β-γ communication model, Appendix A).
 """
+from .chaos import ChaosEngine, ChaosPlan, ChaosStats, RetryPolicy
 from .cluster import ClusterState, CostModel, WorkerClocks, MEM, NET_IN, NET_OUT
 from .context import ArrayContext
 from .executor import Executor
@@ -28,6 +28,7 @@ from .layout import (
     tune_node_grid,
 )
 from .reshard import reshard, reshard_naive
+from .trace import FlightRecorder, TraceEvent
 from .plan import PlacementPlan, PlanCache, SchedStats, fingerprint as plan_fingerprint, replay_plan
 from .schedulers import DynamicScheduler, LSHS, RoundRobinScheduler, make_scheduler
 from . import bounds
@@ -35,11 +36,15 @@ from . import bounds
 __all__ = [
     "ArrayContext",
     "ArrayGrid",
+    "ChaosEngine",
+    "ChaosPlan",
+    "ChaosStats",
     "ClusterSpec",
     "ClusterState",
     "CostModel",
     "DynamicScheduler",
     "Executor",
+    "FlightRecorder",
     "GraphArray",
     "HierarchicalLayout",
     "LSHS",
@@ -48,8 +53,10 @@ __all__ = [
     "NodeGrid",
     "PlacementPlan",
     "PlanCache",
+    "RetryPolicy",
     "RoundRobinScheduler",
     "SchedStats",
+    "TraceEvent",
     "WorkerClocks",
     "plan_fingerprint",
     "replay_plan",

@@ -24,6 +24,7 @@ pipelined execution bit-identical to sync execution.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from time import perf_counter
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -148,8 +149,9 @@ class WorkerClocks:
         # defaults are exact identities, so nominal tracks are unaffected.
         self.node_slowdown = np.ones(k)
         self.link_factor = 1.0
-        # flight-recorder tap (core.trace.FlightRecorder.attach_clocks):
-        # called after every place() with the full start-time breakdown.
+        # flight-recorder tap (core.trace.FlightRecorder.attach_clocks): a
+        # (recorder, track) pair; every place() appends one ``op`` event
+        # with the full start-time breakdown.
         # Read-only: the recorder never mutates clocks, so tracing cannot
         # perturb simulated time.  Clones never record (what-if simulations
         # are not real placements).
@@ -205,7 +207,7 @@ class WorkerClocks:
         """
         cm = self.cost_model
         rec = self.recorder
-        w_busy0 = float(self.busy[node, worker]) if rec is not None else 0.0
+        w_busy0 = self.busy.item(node, worker) if rec is not None else 0.0
         xlog = [] if rec is not None else None
         t_ready = 0.0
         for obj, _elements in in_objs:
@@ -228,9 +230,14 @@ class WorkerClocks:
                        * self.node_slowdown[node])
         self.busy[node, worker] = end
         self.ready[out_obj] = end
-        if rec is not None:
-            rec(self, node, worker, out_obj, work_elements, in_objs, xlog,
-                w_busy0, t_ready, t_xfer, start, end)
+        if rec is not None:  # FlightRecorder.record, inlined (see its comment)
+            tr, track = rec
+            ev = tr.events
+            if len(ev) == tr.capacity:
+                tr.dropped += 1
+            ev.append(("op", track, node, worker, start, end, perf_counter(),
+                       (self, out_obj, work_elements, in_objs, xlog,
+                        w_busy0, t_ready, t_xfer)))
         return start, end
 
     def estimate_finish(
@@ -411,7 +418,6 @@ class ClusterState:
         if worker is None:
             worker = self.pick_worker(node)
         tracer = self.tracer
-        n_xfer0 = len(self.transfers) if tracer is not None else 0
         xfers: List[Tuple[int, int, float]] = []  # (src, obj, elements)
         for obj in inputs:
             holders = self.M.get(obj)
@@ -450,9 +456,10 @@ class ClusterState:
                                           in_objs, xfers, kind=kind)
         eta = self.clocks_pipe.place(node, worker, out_obj, work, in_objs,
                                      xfers, kind=kind)
-        if tracer is not None and len(self.transfers) > n_xfer0:
+        if tracer is not None and xfers:
+            # one TransferRecord was appended per entry of xfers
             tracer.on_transition(self, node, worker, out_obj, out_elements,
-                                 self.transfers[n_xfer0:], eta_sync, eta)
+                                 self.transfers[-len(xfers):], eta_sync, eta)
         if self.transition_hook is not None:
             self.transition_hook(node, out_obj, out_elements, inputs, worker, eta)
         return eta

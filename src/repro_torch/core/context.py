@@ -75,14 +75,6 @@ class ArrayContext:
         # device: where torch/cuda blocks live — ``None`` or "cuda" is every
         # visible CUDA device (node i on device i % count), "cuda:<i>" one
         # card, "cpu" the host.  Ignored by numpy and sim.
-        if trace is not None and trace is not False and trace != 0:
-            raise NotImplementedError(
-                "trace= waits for the core/trace.py port "
-                "(ROADMAP Queue 1 item 5)")
-        if calibration is not None:
-            raise NotImplementedError(
-                "calibration= waits for the obs/calibrate.py port "
-                "(ROADMAP Queue 1 item 5)")
         if backend is None:
             backend = "cuda"
         self.cluster = cluster
@@ -93,7 +85,20 @@ class ArrayContext:
         if node_grid.num_nodes != cluster.num_nodes:
             raise ValueError("node_grid must factor the cluster's node count")
         self.node_grid = node_grid
-        self.calibration = None
+        # measured-cost calibration (repro_torch.obs.calibrate): ``calibration``
+        # is a CalibrationProfile, a dict, or a path to a profile JSON.  The
+        # fitted per-op-kind compute coefficients and link alpha/beta replace
+        # the CostModel's default constants before any clock state is built,
+        # so schedulers, chaos clocks and the memory manager all see the
+        # calibrated model.  The profile signature is folded into the plan
+        # cache's config signature below: swapping profiles invalidates plans.
+        if calibration is not None:
+            from repro_torch.obs.calibrate import load_profile
+
+            self.calibration = load_profile(calibration)
+            cost_model = self.calibration.cost_model(cost_model)
+        else:
+            self.calibration = None
         self.state = ClusterState(cluster, cost_model=cost_model, system=system)
         self.pipeline = pipeline
         self.backend = backend
@@ -148,7 +153,22 @@ class ArrayContext:
             getattr(self.scheduler, "dest_hint", False), seed, auto_layout,
             cm.calibration_sig,
         )).encode())
+        # flight recorder (core.trace): ``trace`` is False (off), True
+        # (default capacity), an int capacity, or a FlightRecorder to share.
+        # The recorder observes — it never mutates clocks, RNG or stores —
+        # so traced runs are bit- and clock-identical to untraced ones.
         self.tracer = None
+        # note: not ``if trace:`` — an empty FlightRecorder is len()-falsy
+        if trace is not None and trace is not False and trace != 0:
+            from .trace import FlightRecorder
+
+            if isinstance(trace, FlightRecorder):
+                rec = trace
+            elif isinstance(trace, bool):
+                rec = FlightRecorder()
+            else:
+                rec = FlightRecorder(capacity=int(trace))
+            self._install_tracer(rec)
         # unified metrics registry (repro_torch.obs.metrics): every stats source
         # registers as a named provider and ``loads()`` is one ``snapshot()``
         # — the key schema is golden-tested per feature set in test_obs
@@ -156,6 +176,15 @@ class ArrayContext:
 
         self.metrics = MetricsRegistry()
         self._register_metrics()
+
+    def _install_tracer(self, rec) -> None:
+        self.tracer = rec
+        self.executor.tracer = rec
+        self.state.tracer = rec
+        rec.attach_clocks(self.state.clocks_sync, "sync")
+        rec.attach_clocks(self.state.clocks_pipe, "pipe")
+        if self.executor.backend is not None:
+            self.executor.backend.tracer = rec
 
     def _register_metrics(self) -> None:
         """Wire the runtime stats objects into the registry as providers, in
@@ -476,11 +505,17 @@ class ArrayContext:
             arrays.append(GraphArray(ctx, agrid, blocks, node_grid=None))
         return ctx, arrays
 
-    # -- features of later slices ----------------------------------------------
+    # -- chaos runtime ----------------------------------------------------------
     def enable_chaos(self, plan, seed: int = 0, retry=None):
-        raise NotImplementedError(
-            "enable_chaos waits for the core/chaos.py port "
-            "(ROADMAP Queue 1 item 5)")
+        """Attach a seeded fault-injection engine (``core.chaos``) to this
+        context's executor: stragglers, link degradation, transient-fault
+        retry/backoff, node death + lineage replay, and live speculative
+        re-execution.  Scheduling is untouched, so outputs stay bit-identical
+        to the fault-free run; same (seed, plan) ⇒ same chaos schedule.
+        Returns the attached ``ChaosEngine``."""
+        from .chaos import ChaosEngine
+
+        return ChaosEngine(plan, seed=seed, retry=retry).attach(self)
 
     # -- pipelined dispatch -----------------------------------------------------
     def flush(self) -> int:
@@ -489,6 +524,32 @@ class ArrayContext:
         return self.executor.flush()
 
     # -- reporting ------------------------------------------------------------------
+    def export_trace(self, path: Optional[str] = None) -> Dict:
+        """Export the flight recorder as Chrome/Perfetto ``trace_event`` JSON
+        (write to ``path`` when given, return the document either way).
+        Requires the context to have been built with ``trace=...``."""
+        if self.tracer is None:
+            raise RuntimeError(
+                "tracing is off — construct ArrayContext(trace=True)")
+        from repro_torch.obs.perfetto import export_chrome_trace, write_chrome_trace
+
+        makespans = {
+            "sync": self.state.makespan(pipeline=False),
+            "pipe": self.state.makespan(pipeline=True),
+        }
+        if self.chaos_engine is not None:
+            makespans["chaos"] = self.chaos_engine.clocks.makespan()
+        meta = {
+            "backend": self.backend,
+            "nodes": self.cluster.num_nodes,
+            "workers_per_node": self.cluster.workers_per_node,
+            "bytes_per_element": self.state.cost_model.bytes_per_element,
+        }
+        if path is not None:
+            return write_chrome_trace(path, self.tracer,
+                                      makespans=makespans, meta=meta)
+        return export_chrome_trace(self.tracer, makespans=makespans, meta=meta)
+
     def loads(self) -> Dict[str, float]:
         """One merged snapshot of every runtime stats source — cluster load
         summary, executor/scheduling counters, comm-bound ratios, backend
@@ -508,6 +569,8 @@ class ArrayContext:
             self.executor.backend.stats.reset()
         self.executor.memory.stats.reset()
         self.sched_stats.reset()
+        if self.tracer is not None:
+            self.tracer.clear()
 
 
 def _devices(device) -> Optional[list]:

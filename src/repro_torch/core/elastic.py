@@ -17,8 +17,7 @@ new home by reference (net-in only) instead of indexing stale placements.
 
 A chaos engine attached to the old context (``core.chaos``) is re-bound to
 the new one: clock rows and residency for surviving node ids carry over, and
-nodes removed by the shrink leave its dead set.  (The port attaches none
-until ``core/chaos.py`` is ported, ROADMAP Queue 1 item 5.)
+nodes removed by the shrink leave its dead set.
 
 The new context keeps the old one's block device and dtype, so arrays it
 creates land beside the blocks it inherits.

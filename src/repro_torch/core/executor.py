@@ -264,13 +264,14 @@ class Executor:
         in_shapes = [self.shapes[self.resolve(i)] for i in in_ids]
         out_shape = infer_shape(op, meta, in_shapes)
         self.shapes[out_id] = out_shape
-        if self.tracer is not None:
-            # deferred args tuple (FlightRecorder._materialize builds the
-            # dict); the lineage record already owns the frozen input tuple
-            self.tracer.record(
-                "dispatch", op, placement[0], placement[1],
-                eta[0] if eta else 0.0, eta[1] if eta else 0.0,
-                (out_id, lineage_rec.in_ids, self.pipeline))
+        tr = self.tracer
+        if tr is not None:
+            # FlightRecorder.record, inlined in its compact dispatch layout
+            # (core/trace.py): the lineage record holds the event's fields
+            ev = tr.events
+            if len(ev) == tr.capacity:
+                tr.dropped += 1
+            ev.append(("dispatch", lineage_rec, self.pipeline, perf_counter()))
         if self.mode == "sim":
             self.store[out_id] = None
             self.memory.on_materialize(out_id, placement[0],
@@ -346,16 +347,16 @@ class Executor:
         self.memory.on_materialize(out_id, placement[0], out_elements)
         self.memory.unpin(in_ids)
         if tr is not None:
-            # ``work`` mirrors the clock model's elements-touched measure
-            # (output + every input) so retire events pair one-to-one with
-            # simulated op durations for calibration fits / drift reports
-            work = out_elements
-            for i in in_ids:
-                s = self.shapes[self.resolve(i)]
-                work += int(np.prod(s)) if s else 1
-            tr.record("retire", op, placement[0], placement[1],
-                      args={"out": out_id, "elements": out_elements,
-                            "work": work, "wall_s": wall_s})
+            # FlightRecorder.record, inlined in its compact retire layout
+            # (core/trace.py), which sums ``work`` — the clock model's
+            # elements-touched measure (output + every input), so retire
+            # events pair one-to-one with simulated op durations for
+            # calibration fits / drift reports — when the event is read
+            ev = tr.events
+            if len(ev) == tr.capacity:
+                tr.dropped += 1
+            ev.append(("retire", op, placement, perf_counter(), out_id,
+                       out_elements, in_ids, wall_s, self))
         if self.chaos is None:
             self.memory.drain_stalls()  # stats keep them; nominal clocks don't
         return stall

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import weakref
 from dataclasses import dataclass, field
+from time import perf_counter
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -245,8 +246,11 @@ class MemoryManager:
         self.stats.gc_freed_elements += e
         tr = self.executor.tracer
         if tr is not None:
-            tr.record("gc_free", f"obj{vid}", node, -1,
-                      args={"obj": vid, "elements": e})
+            # FlightRecorder.record, inlined in its compact gc_free layout
+            ev = tr.events
+            if len(ev) == tr.capacity:
+                tr.dropped += 1
+            ev.append(("gc_free", vid, e, node, perf_counter()))
 
     def flush_deferred(self) -> None:
         """Run the frees recorded while deferral was active (recovery end)."""

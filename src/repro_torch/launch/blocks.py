@@ -27,9 +27,13 @@ The ``--fail-node`` flag injects a node failure while pipelined ops are
 still queued, then recovers from lineage — the fault-tolerance path of the
 async executor.
 
-The reference driver's ``--chaos``, ``--trace``, ``--calibrate`` and
-``--profile`` flags wait for their modules' ports (ROADMAP Queue 1 item 5):
-the driver accepts them and raises.
+``--chaos`` delegates to the full chaos scenario driver (``launch.chaos``):
+stragglers + live node death + transient faults composed on the logreg-Newton
+loop, with a fault-free reference run and bit-identity / determinism checks.
+``--trace PATH`` writes the run's flight-recorder trace as Perfetto JSON
+(``python -m repro_torch.launch.trace_report PATH`` summarizes it);
+``--calibrate`` fits a cost profile on the live backend first (written to
+``--profile PATH`` when given) and ``--profile PATH`` alone applies one.
 """
 from __future__ import annotations
 
@@ -68,9 +72,6 @@ def build_workload(ctx: ArrayContext, workload: str, scale: int, iters: int = 1,
                           iters=max(iters, 1), method=reshard_method)
     raise ValueError(f"unknown workload {workload!r}")
 
-
-#: the reference driver's flags whose modules are not ported yet
-_LATER_FLAGS = ("--chaos", "--trace", "--calibrate", "--profile")
 
 
 def main() -> None:
@@ -127,15 +128,55 @@ def main() -> None:
     ap.add_argument("--fail-node", type=int, default=None,
                     help="inject a node failure mid-run, then recover from "
                          "lineage (any data-holding backend: numpy/torch/cuda)")
-    for flag in _LATER_FLAGS:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help="waits for ROADMAP Queue 1 item 5")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="record a flight-recorder trace and write "
+                         "Chrome/Perfetto trace_event JSON to PATH (inspect "
+                         "with python -m repro_torch.launch.trace_report PATH)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="run the composed chaos scenario instead "
+                         "(launch.chaos: stragglers + node death + transient "
+                         "faults on logreg-Newton, fault-free comparison)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="micro-profile the live backend (repro_torch.obs."
+                         "calibrate) and run with the fitted cost profile; "
+                         "writes the profile JSON to --profile PATH if given")
+    ap.add_argument("--profile", default=None, metavar="PATH",
+                    help="calibration profile JSON to apply to the cost "
+                         "model (written instead when --calibrate is set)")
     args = ap.parse_args()
-    later = [f for f in _LATER_FLAGS if getattr(args, f[2:]) is not None]
-    if later:
-        raise NotImplementedError(
-            f"{', '.join(later)} wait for the core/trace.py, core/chaos.py and "
-            "obs/calibrate.py ports (ROADMAP Queue 1 item 5)")
+
+    calibration = None
+    if args.calibrate:
+        from repro_torch.obs.calibrate import run_calibration
+        backend = "numpy" if args.backend == "sim" else args.backend
+        calibration = run_calibration(backend=backend, device=args.device,
+                                      dtype=args.dtype,
+                                      nodes=min(args.nodes, 4),
+                                      workers=min(args.workers, 2),
+                                      seed=args.seed)
+        if args.profile:
+            calibration.save(args.profile)
+            print(f"# calibration profile -> {args.profile}")
+    elif args.profile:
+        calibration = args.profile
+
+    if args.chaos:
+        from .chaos import run_chaos_scenario
+        backend = "numpy" if args.backend == "sim" else args.backend
+        report = run_chaos_scenario(
+            nodes=args.nodes, workers=args.workers, backend=backend,
+            device=args.device,
+            iters=max(args.iters, 3), seed=args.seed,
+            scheduler=args.scheduler, plan_cache=args.plan_cache,
+            trace_path=args.trace, calibration=calibration,
+        )
+        print(json.dumps(report, indent=2, default=float))
+        tr = report.get("trace")
+        if tr is not None:
+            print(f"# trace: {tr['events']} events -> {tr['path']}, "
+                  f"critical path {tr['critical_path_len']} ops, top stall "
+                  f"{tr['top_stall']}")
+        return
 
     ctx = ArrayContext(
         cluster=ClusterSpec(args.nodes, args.workers),
@@ -149,6 +190,8 @@ def main() -> None:
         auto_layout=args.auto_layout,
         mem_capacity=args.mem_capacity,
         gc=True if args.gc else None,
+        trace=args.trace is not None,
+        calibration=calibration,
         device=args.device,
     )
     out = build_workload(ctx, args.workload, args.scale, iters=args.iters,
@@ -183,6 +226,11 @@ def main() -> None:
     )
     report.update(ctx.sched_stats.as_dict())
     print(json.dumps(report, indent=2, default=float))
+    if args.trace is not None:
+        from repro_torch.obs import analyze, summary_line
+
+        doc = ctx.export_trace(args.trace)
+        print(summary_line(analyze(doc), path=args.trace))
 
 
 if __name__ == "__main__":

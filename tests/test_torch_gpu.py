@@ -599,3 +599,64 @@ def test_tsqr_on_card_matches_torch_backend(cuda_device):
     assert np.abs(Q.T @ Q - np.eye(64)).max() <= 1e-10
     np.testing.assert_allclose(Q, Q_t, rtol=0, atol=1e-10)
     assert ratio == ratio_t
+
+
+def _newton_on_card(ctx, n=1 << 14, d=64, q=8):
+    _g, H, beta = logreg_newton_loop(ctx, n, d, q, iters=2, reset_loads=False)
+    ctx.flush()
+    return beta.to_numpy(), H.to_numpy()
+
+
+def _chaos_newton(chaos_plan, device="cuda:0"):
+    ctx = ArrayContext(cluster=ClusterSpec(4, 2), node_grid=(4, 1), backend="cuda",
+                       dtype="float64", seed=0, device=device, pipeline=True, trace=True)
+    eng = ctx.enable_chaos(chaos_plan, seed=3)
+    reset_launches()
+    return ctx, eng, _newton_on_card(ctx), launches["matmul"]
+
+
+def test_chaos_node_death_replays_bitwise_on_card(cuda_device):
+    """Node 3 dies halfway through the drain, with a straggler and transient
+    faults, on the card: lineage replays (products among them) and re-routed
+    ops give the fault-free run's bits, and every execution of a 2-D
+    product, each replay included, launches the matmul kernel once (the
+    trace counts executions and replays)."""
+    from repro_torch.core import ChaosPlan
+
+    _c, clean, ref, _n = _chaos_newton(ChaosPlan())
+    plan = ChaosPlan(node_failures={3: 0.5 * clean.makespan()}, stragglers={1: 4.0},
+                     transient_fault_prob=0.05)
+    ctx, eng, got, n_launch = _chaos_newton(plan)
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(got, ref))
+    assert eng.dead == {3} and eng.stats.blocks_replayed > 0
+    ex = ctx.executor
+    runs = [e for e in ctx.tracer.of("retire", "replay") if e.name == "matmul"
+            and all(len(ex.shapes[ex.resolve(i)]) == 2
+                    for i in ex.lineage[e.args["out"]].in_ids)]
+    assert any(e.kind == "replay" for e in runs)
+    assert n_launch == len(runs)
+
+
+def test_traced_run_is_bit_and_clock_neutral_on_card(cuda_device):
+    """The flight recorder on the card changes no bits and no simulated
+    clocks; every executed op carries its host wall."""
+    plain_ctx = _block_ctx("cuda", pipeline=True)
+    plain = _newton_on_card(plain_ctx)
+    ctx = _block_ctx("cuda", pipeline=True, trace=True)
+    traced = _newton_on_card(ctx)
+    assert all(a.tobytes() == b.tobytes() for a, b in zip(traced, plain))
+    for pipeline in (False, True):
+        assert ctx.state.makespan(pipeline=pipeline) == plain_ctx.state.makespan(
+            pipeline=pipeline)
+    retired = ctx.tracer.of("retire")
+    assert retired and all(e.args["wall_s"] > 0.0 for e in retired)
+
+
+def test_device_class_names_the_card(cuda_device):
+    from repro_torch.launch.mesh import device_class, device_inventory
+
+    name = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    assert device_class("cuda") == f"cuda:cuda ({name}) x{count}"
+    assert device_class("torch", "cuda:0") == f"torch:cuda ({name}) x1"
+    assert [d["device_kind"] for d in device_inventory()][0] == name

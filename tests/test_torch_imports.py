@@ -51,7 +51,10 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.kernels.flash_attention_bwd, repro_torch.train.optim, "
     "repro_torch.train.data, repro_torch.train.steps, repro_torch.launch.train, "
     "repro_torch.checkpoint, repro_torch.sharding.plans",
-], ids=["block runtime", "LM serving", "LM training"])
+    "repro_torch.core.trace, repro_torch.core.chaos, repro_torch.obs.perfetto, "
+    "repro_torch.obs.critical_path, repro_torch.obs.calibrate, repro_torch.obs.controller, "
+    "repro_torch.launch.chaos, repro_torch.launch.trace_report, repro_torch.launch.mesh",
+], ids=["block runtime", "LM serving", "LM training", "fault tolerance and observability"])
 def test_import_loads_neither_jax_nor_reference(modules):
     code = (f"import sys, {modules}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -100,15 +103,33 @@ def _train(**kw):
     return state["params"]["embed"].device
 
 
+def _calibrate(**kw):
+    from repro_torch.obs import run_calibration
+
+    profile = run_calibration(nodes=2, workers=1, n=64, d=4, iters=1, sweep=(8,), **kw)
+    # the device class reads "<backend>:<platform> (<name>) x<count>"
+    return torch.device(profile.metadata["device"].split(":")[1].split(" ")[0])
+
+
+def _chaos_scenario(**kw):
+    from repro_torch.core import ChaosPlan
+    from repro_torch.launch.chaos import run_scenario
+
+    run = run_scenario(ChaosPlan(), nodes=2, d=4, iters=1, **kw)
+    return run["ctx"].executor.backend.devices[0]
+
+
 def _carry(**kw):
     from repro_torch.interop import params_from_jax
 
     return params_from_jax({"w": np.zeros((2, 3), np.float32)}, **kw)["w"].device
 
 
-@pytest.mark.parametrize("entry", [_context, _context_torch, _serve, _train, _carry],
+@pytest.mark.parametrize("entry", [_context, _context_torch, _serve, _train, _carry,
+                                   _calibrate, _chaos_scenario],
                          ids=["ArrayContext", "ArrayContext torch", "serve_demo",
-                              "train_loop", "params_from_jax"])
+                              "train_loop", "params_from_jax", "run_calibration",
+                              "run_scenario"])
 def test_default_context_is_on_the_card(entry):
     """Without ``device``, and with ``device="cuda"``, an entry point runs on
     the card, and raises where there is none; ``device="cpu"`` runs on the
@@ -120,25 +141,6 @@ def test_default_context_is_on_the_card(entry):
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 entry(**kw)
     assert entry(device="cpu") == torch.device("cpu")
-
-
-def _block_runtime_feature(name):
-    from repro_torch.core import ArrayContext
-
-    if name == "trace":
-        return ArrayContext(device="cpu", trace=True)
-    if name == "calibration":
-        return ArrayContext(device="cpu", calibration={})
-    if name.startswith("--"):  # the launch driver's flags
-        from repro_torch.launch import blocks
-
-        argv = sys.argv
-        sys.argv = ["blocks", "--device", "cpu", "--backend", "sim", name]
-        try:
-            return blocks.main()
-        finally:
-            sys.argv = argv
-    return ArrayContext(device="cpu").enable_chaos(None)
 
 
 def _hymba(**changes):
@@ -199,9 +201,6 @@ def _lm_feature(name):
 
 
 @pytest.mark.parametrize("feature", [
-    ("block", "trace"), ("block", "calibration"), ("block", "chaos"),
-    ("block", "--chaos"), ("block", "--trace"), ("block", "--calibrate"),
-    ("block", "--profile"),
     ("lm", "moe"), ("lm", "mrope"), ("lm", "encdec"), ("lm", "softcap"),
     ("lm", "per-row pos"), ("lm", "non-causal mask"), ("lm", "Rules"),
     ("lm", "sharded steps"), ("lm", "sharded train step"), ("lm", "activation_rules"),
@@ -209,7 +208,6 @@ def _lm_feature(name):
     ("lm", "falcon-mamba-7b"), ("lm", "qwen3-moe-235b-a22b"),
 ], ids=lambda f: f[1])
 def test_features_of_later_slices_raise(feature):
-    kind, name = feature
-    call = _block_runtime_feature if kind == "block" else _lm_feature
+    _kind, name = feature
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(name)
+        _lm_feature(name)
