@@ -45,6 +45,21 @@ both (CUDA events), then drives the main paths at full width:
   kernel run's tokens) give the same logits to a bf16 tolerance, which a
   planted fault (the local layers' window removed) is shown to exceed; an
   f32 run at full width and 8 layers agrees to 1e-4 with the same tokens;
+- continuous batching (``serve.ContinuousBatcher``): hymba-1.5b as published
+  (bf16, 8 slots over caches of 4096, 20 requests with seeded prompts of
+  64-3072 tokens and 8-48 new tokens) and falcon-mamba-7b as published
+  (attention-free, 64 layers, d 4096, 7.27 B parameters in bf16; 4 slots
+  over 2048, 8 requests of 128-1536 and 8-24), every request submitted
+  before the run; each admission's prefill and every decode step's
+  attention on the flash-attention kernel with one query offset per slot,
+  each admission's scan on the selective-scan kernel, launches exact.
+  Each request's logits agree with its own B = 1 prefill and decode
+  teacher-forced with the batcher's tokens to the bf16 serve tolerance,
+  which a planted fault (every row at slot 0's offset) is shown to
+  exceed; in f32 at full width and 8 layers every request's tokens equal
+  its standalone run's, logits to 1e-4.  A line per model reports wall
+  time, tokens/s, decode seconds per step, time to first token, mean
+  active slots, admissions and peak memory;
 - LM training: hymba-1.5b at its published configuration (1.66 B
   parameters, f32 master weights and AdamW state, bf16 compute, full remat)
   trains on batches of 4 x 2048 tokens through ``train_loop`` (1 warm-up
@@ -65,7 +80,8 @@ report of every kernel goes to standard error; a register spill in the
 libraries redesigned for Hopper (``REDESIGNED``) fails the run, as does a
 Newton or DGEMM product on the scalar loader.  The attention forward is timed
 at prefill and at decode, where it splits the keys (two device kernels per
-call, whose device times a decode case also reports); the scan forward with
+call, whose device times a decode case also reports), also with one offset
+per row (``decode-ragged``: 8 slots at their own positions); the scan forward with
 its checkpoints written, and the scan backward on both its routes (from the
 forward's checkpoints, the one training takes, and without them), which must
 give the same bits.  Any failure raises and exits non-zero.
@@ -111,9 +127,10 @@ from repro_torch.launch.workloads import (cpals_loop, dgemm_graph,  # noqa: E402
                                           logreg_newton_loop)
 from repro_torch.glm import LogisticRegression, paper_bimodal  # noqa: E402
 from repro_torch.linalg import cholesky, cholesky_solve, rsvd, tsqr_indirect  # noqa: E402
-from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.obs import analyze, drift_report, run_calibration  # noqa: E402
 from repro_torch.obs.calibrate import fastest_retires  # noqa: E402
+from repro_torch.serve import ContinuousBatcher  # noqa: E402
 from repro_torch.sharding.plans import SINGLE_CARD  # noqa: E402
 from repro_torch.train import DataConfig, TokenPipeline, make_grad_fn  # noqa: E402
 from repro_torch.models.transformer import _leaves  # noqa: E402
@@ -211,8 +228,21 @@ HELD_OUT_PASSES = 3
 SERVE = dict(arch="hymba-1.5b", batch=8, prompt_len=2048, gen=32)
 #: the f32 check: full width, 8 layers (layer 7 is the first global one)
 SERVE_F32_LAYERS = 8
-#: depth of the warm-up runs before each timed pair of serve runs
+#: a continuous-batching decode step's attention: 8 slots at their own
+#: positions over serve_batched's hymba cache, from the first key to the last
+RAGGED = dict(max_len=4096, offsets=(0, 63, 1023, 1024, 2047, 2500, 3071, 4095))
+#: depth of the warm-up runs before each timed pair of serve runs (and before
+#: each serve_batched model)
 SERVE_WARM_LAYERS = 2
+#: continuous batching (serve/batcher.py): each model at its published width
+#: and depth, bf16, seeded weights; every request submitted before the run,
+#: prompt lengths and max_new drawn by numpy over these inclusive ranges
+SERVE_BATCHED = (
+    dict(arch="hymba-1.5b", slots=8, max_len=4096, requests=20, prompt=(64, 3072),
+         new=(8, 48)),
+    dict(arch="falcon-mamba-7b", slots=4, max_len=2048, requests=8, prompt=(128, 1536),
+         new=(8, 24)),
+)
 #: the train path: hymba-1.5b at its published width and depth, f32 master
 #: weights and AdamW state, bf16 compute, full remat; 1 warm-up step, then
 #: TRAIN["steps"] timed ones, then one step under torch.profiler
@@ -456,34 +486,46 @@ def serve_shapes():
 
 
 def flash_case(name, q, k, v, window, q_offset):
+    """One attention case; ``q_offset`` an int, or a tuple of per-row offsets
+    (handed to the kernel as a (B,) int32 tensor on the card with its host
+    max, as continuous batching hands them)."""
     dtype = q.dtype
-    kw = dict(causal=True, window=window, q_offset=q_offset)
+    B, H, Sq, hd = q.shape
+    KV, Skv = k.shape[1], k.shape[2]
+    per_row = isinstance(q_offset, tuple)
+    offset, host_max = q_offset, q_offset
+    if per_row:
+        offset = torch.tensor(q_offset, dtype=torch.int32, device=q.device)
+        host_max = max(q_offset)
+    kw = dict(causal=True, window=window, q_offset=offset,
+              max_offset=host_max if per_row else None)
     got = ops.flash_attention(q, k, v, **kw)
     again = ops.flash_attention(q, k, v, **kw)
-    ref = flash_attention_ref(q, k, v, True, window, q_offset)
+    ref = flash_attention_ref(q, k, v, True, window, offset)
     sync()
     check(torch.equal(got, again), f"flash_attention {name}: two launches differ")
     err = (got.float() - ref.float()).abs().max().item()
     rel = err / ref.float().abs().max().item()
-    B, H, Sq, hd = q.shape
-    KV, Skv = k.shape[1], k.shape[2]
-    mask = visible(Sq, Skv, True, window, q_offset, q.device)
-    pairs = int(mask.sum().item())            # (query, key) pairs this run needs
-    keys = int(mask.any(dim=0).sum().item())  # keys any query sees
+    mask = visible(Sq, Skv, True, window, offset, q.device)  # (B,) Sq, Skv
+    rows = mask if per_row else mask.expand(B, Sq, Skv)
+    pairs = int(rows.sum().item())               # (query, key) pairs this run needs
+    keys = int(rows.any(dim=1).sum().item())     # keys any query of each row sees
+    sdpa_mask = mask[:, None] if per_row else mask
     # QK^T and PV: 2 flops each per (pair, head, dim)
-    bound_ms, bound_by = bound(4.0 * B * H * pairs * hd,
-                               (2 * B * H * Sq * hd + 2 * B * KV * keys * hd)
+    bound_ms, bound_by = bound(4.0 * H * pairs * hd,
+                               (2 * B * H * Sq * hd + 2 * KV * keys * hd)
                                * q.element_size(), dtype)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, attn_mask=mask, enable_gqa=True)
-    splits = kv_splits(dtype, B, KV, H // KV, Sq, Skv, hd, True, window, q_offset)
+        q, k, v, attn_mask=sdpa_mask, enable_gqa=True)
+    splits = kv_splits(dtype, B, KV, H // KV, Sq, Skv, hd, True, window, host_max)
     case = dict(case=name, dtype=str(dtype).replace("torch.", ""),
-                q=list(q.shape), kv=list(k.shape), window=window, q_offset=q_offset,
+                q=list(q.shape), kv=list(k.shape), window=window,
+                q_offset=list(q_offset) if per_row else q_offset,
                 splits=splits, blocks=B * KV * query_tiles(dtype, H // KV, Sq) * splits,
                 max_abs_err=err, rel_err=rel, tol=FLASH_TOL[dtype],
                 ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
                 plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, True, window,
-                                                             q_offset)),
+                                                             offset)),
                 library_ms=time_ms(library), library="scaled_dot_product_attention",
                 bound_ms=bound_ms, bound_by=bound_by, peak=PEAK_NAME[dtype])
     if splits > 1:  # the call's two device kernels
@@ -524,10 +566,25 @@ def scan_case(name, dA, dBx, C):
     return case
 
 
+def ragged_decode_cases(dev, g):
+    """A continuous-batching decode step of hymba-1.5b: 8 slots, each at its
+    own position in a cache of RAGGED["max_len"], global and local."""
+    cfg = get_config(SERVE["arch"])
+    B, H, KV, hd = len(RAGGED["offsets"]), cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = (torch.rand((B, H, 1, hd), device=dev, generator=g) * 2 - 1).bfloat16()
+    k, v = ((torch.rand((B, KV, RAGGED["max_len"], hd), device=dev, generator=g) * 2 - 1)
+            .bfloat16() for _ in range(2))
+    cases = [flash_case("decode-ragged bf16", q, k, v, None, RAGGED["offsets"]),
+             flash_case("decode-ragged-local bf16", q, k, v, cfg.window, RAGGED["offsets"])]
+    del q, k, v
+    return cases
+
+
 def serve_kernel_phase(dev):
     """Both new kernels at the serve path's shapes: prefill of the global and
-    the local layers, a decode step at the last prompt position, and the
-    prefill scan."""
+    the local layers, a decode step at the last prompt position, a ragged
+    decode step (each row at its own position, as continuous batching runs
+    it), and the prefill scan."""
     g = torch.Generator(device=dev).manual_seed(1)
     sh = serve_shapes()
     B, S, H, KV, hd = sh["B"], sh["S"], sh["H"], sh["KV"], sh["hd"]
@@ -546,6 +603,7 @@ def serve_kernel_phase(dev):
             flash.append(flash_case("decode bf16", q[:, :, :1].contiguous(), k, v, None, S))
             flash.append(flash_case("decode-local bf16", q[:, :, :1].contiguous(), k, v,
                                     sh["window"], S))
+            flash += ragged_decode_cases(dev, g)
         del q, k, v
         _release()
     N, DI = sh["N"], sh["DI"]
@@ -1537,6 +1595,186 @@ def serve_phase(dev):
     return main_launches
 
 
+def batched_requests(cfg, spec, seed=0):
+    """spec["requests"] (prompt, max_new) pairs drawn by numpy from ``seed``:
+    prompt lengths and max_new uniform over their inclusive ranges."""
+    rng = np.random.default_rng(seed)
+    n = spec["requests"]
+    lengths = rng.integers(spec["prompt"][0], spec["prompt"][1] + 1, n)
+    news = rng.integers(spec["new"][0], spec["new"][1] + 1, n)
+    return [(rng.integers(0, cfg.vocab, int(s)), int(m)) for s, m in zip(lengths, news)]
+
+
+def batched_run(dev, cfg, params, spec, requests):
+    """Every request submitted to one ContinuousBatcher on the card, then
+    ``run()`` to the end, timed by the host clock (the per-request logits
+    the batcher records are copied to the host inside it); the launch
+    counts are set to 0 just before ``run()``."""
+    _release()
+    torch.cuda.reset_peak_memory_stats(dev)
+    record = {}
+    batcher = ContinuousBatcher(cfg, params, max_slots=spec["slots"],
+                                max_len=spec["max_len"], record=record)
+    rids = [batcher.submit(p, m) for p, m in requests]
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = batcher.run()
+    sync()
+    record.update(wall_s=time.perf_counter() - t0, launches=dict(launches),
+                  tokens=[out[r] for r in rids], logits=[record["logits"][r] for r in rids],
+                  max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    return record
+
+
+def standalone(dev, cfg, params, prompt, n, max_len, forced=None):
+    """One request alone (B = 1) on the kernel route: prefill, then n - 1
+    decode steps fed ``forced`` tokens (teacher forcing) or the greedy ones;
+    its (n, V) f32 logits."""
+    logits, cache = prefill(params, {"tokens": torch.as_tensor(prompt[None], device=dev)},
+                            cfg, max_len)
+    rows = [logits[0, -1]]
+    for i in range(n - 1):
+        tok = (torch.argmax(rows[-1])[None, None] if forced is None
+               else torch.tensor([[forced[i]]], device=dev))
+        logits, cache = decode_step(params, tok, cache, cfg)
+        rows.append(logits[0, -1])
+    return torch.stack(rows).float().cpu().numpy()
+
+
+def _rel_rows(got, want) -> float:
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def slot0_offsets(flash):
+    """``ops.flash_attention`` with a planted fault: every row of a per-row
+    call gets the first row's offset."""
+    def faulty(q, k, v, *, q_offset=0, **kw):
+        if isinstance(q_offset, torch.Tensor):
+            q_offset = q_offset[:1].expand(q_offset.shape[0]).contiguous()
+        return flash(q, k, v, q_offset=q_offset, **kw)
+    return faulty
+
+
+def batched_summary(cfg, spec, rec) -> dict:
+    steps = rec["steps"]
+    decode = [st["wall_s"] for st in steps if st["admitted"] == 0]
+    ttft = list(rec["ttft_s"].values())
+    generated = sum(len(t) for t in rec["tokens"])
+    return dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers, slots=spec["slots"],
+                max_len=spec["max_len"], requests=spec["requests"],
+                wall_s=rec["wall_s"], generated_tokens=generated,
+                tokens_per_s=generated / rec["wall_s"],
+                decode_s_per_step=dict(mean=float(np.mean(decode)),
+                                       p50=float(np.median(decode)), max=max(decode),
+                                       steps=len(decode)),
+                ttft_s=dict(p50=float(np.median(ttft)), max=max(ttft)),
+                mean_active_slots=float(np.mean([st["active"] for st in steps])),
+                admissions=sum(st["admitted"] for st in steps), steps=len(steps),
+                max_memory_allocated=rec["max_memory_allocated"],
+                launches={k: rec["launches"][k] for k in ("flash_attention", "mamba_scan")})
+
+
+def batched_launch_check(cfg, rec) -> None:
+    L, steps = cfg.n_layers, len(rec["steps"])
+    admissions = sum(st["admitted"] for st in rec["steps"])
+    flash = 0 if cfg.attention_free else L * (admissions + steps)
+    want = {"flash_attention": flash, "mamba_scan": L * admissions}
+    got = {k: rec["launches"][k] for k in want}
+    check(got == want, f"serve_batched {cfg.name} launches {got} != {want}")
+
+
+def batched_warm_up(dev, cfg, spec):
+    """SERVE_WARM_LAYERS layers, two requests of the shortest prompt, the
+    pool's shapes."""
+    cfg = dataclasses.replace(cfg, n_layers=SERVE_WARM_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    short = dict(spec, requests=2, prompt=(spec["prompt"][0],) * 2, new=(4, 4))
+    batched_run(dev, cfg, params, spec, batched_requests(cfg, short))
+
+
+def serve_batched_model(dev, spec):
+    """One model through the batcher in bf16 at its published configuration:
+    each request's logits against its own B = 1 run teacher-forced with the
+    batcher's tokens (SERVE_TOL); for attention, a planted fault (every row
+    at slot 0's offset) on the first decode step of the first pool of
+    requests must exceed that limit.  Returns the run's launches."""
+    cfg = get_config(spec["arch"])
+    batched_warm_up(dev, cfg, spec)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    requests = batched_requests(cfg, spec)
+    rec = batched_run(dev, cfg, params, spec, requests)
+    batched_launch_check(cfg, rec)
+    tol = SERVE_TOL["bfloat16"]
+    errs, agree, alone = [], [], []
+    for (prompt, _), toks, got in zip(requests, rec["tokens"], rec["logits"]):
+        want = standalone(dev, cfg, params, prompt, len(toks), spec["max_len"], forced=toks)
+        errs.append(_rel_rows(got, want))
+        agree.append(float(np.mean(want.argmax(-1) == np.asarray(toks))))
+        alone.append(want)
+    finite = all(np.isfinite(g).all() for g in rec["logits"])
+    res = dict(rel_err_max=max(errs), rel_err_per_request=errs, tol=tol, finite=finite,
+               greedy_agree=float(np.mean(agree)))
+    if not cfg.attention_free:
+        first = [(p, 2) for p, _ in requests[:spec["slots"]]]
+        flash = ops.flash_attention
+        ops.flash_attention = slot0_offsets(flash)
+        try:
+            fault = batched_run(dev, cfg, params, spec, first)
+        finally:
+            ops.flash_attention = flash
+        res["planted_fault_rel_err"] = max(_rel_rows(f[1], w[1])
+                                           for f, w in zip(fault["logits"], alone))
+    emit("serve_batched", **batched_summary(cfg, spec, rec), teacher_forced=res)
+    check(finite and max(errs) <= tol, f"serve_batched {cfg.name}: rel err {errs} > {tol}")
+    if not cfg.attention_free:
+        check(res["planted_fault_rel_err"] > tol,
+              f"serve_batched: the bf16 limit misses the planted fault: {res}")
+    launched = rec["launches"]
+    del params, rec, alone
+    _release()
+    return launched
+
+
+def serve_batched_f32(dev, spec):
+    """hymba-1.5b in f32 at full width and SERVE_F32_LAYERS layers through the
+    batcher: every request's greedy tokens equal its own B = 1 run's, its
+    logits to SERVE_TOL["float32"]."""
+    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=SERVE_F32_LAYERS,
+                              dtype="float32")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    requests = batched_requests(cfg, spec)
+    rec = batched_run(dev, cfg, params, spec, requests)
+    batched_launch_check(cfg, rec)
+    errs, same = [], []
+    for (prompt, _), toks, got in zip(requests, rec["tokens"], rec["logits"]):
+        want = standalone(dev, cfg, params, prompt, len(toks), spec["max_len"])
+        errs.append(_rel_rows(got, want))
+        same.append(want.argmax(-1).tolist() == toks)
+    tol = SERVE_TOL["float32"]
+    emit("serve_batched_f32", **batched_summary(cfg, spec, rec), rel_err_max=max(errs),
+         tol=tol, tokens_equal=sum(same))
+    check(all(same), f"serve_batched f32: tokens differ from standalone for "
+                     f"{[i for i, ok in enumerate(same) if not ok]}")
+    check(max(errs) <= tol, f"serve_batched f32: rel err {max(errs)} > {tol}")
+    del params, rec
+    _release()
+
+
+def serve_batched_phase(dev):
+    """Continuous batching on the card: each SERVE_BATCHED model in bf16 at
+    its published configuration, then the f32 check.  Returns the bf16
+    runs' launches, summed."""
+    main = {"flash_attention": 0, "mamba_scan": 0}
+    for spec in SERVE_BATCHED:
+        launched = serve_batched_model(dev, spec)
+        for k in main:
+            main[k] += launched[k]
+        if spec["arch"] == SERVE["arch"]:
+            serve_batched_f32(dev, spec)
+    return main
+
+
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd")
 
 
@@ -1801,10 +2039,19 @@ def main() -> int:
          built=sorted(reports), allow_tf32_matmul=torch.backends.cuda.matmul.allow_tf32,
          allow_tf32_cudnn=torch.backends.cudnn.allow_tf32)
 
+    phase_s = {"build": build_s}  # host wall per phase, for the time limit's budget
+    t_phase = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+
     matmul_cases, glm_cases = kernel_phase(dev)
     _release()
     flash_cases, scan_cases = serve_kernel_phase(dev)
     flash_bwd_cases, scan_bwd_cases = train_kernel_phase(dev)
+    lap("kernel_cases")
 
     # the runtime's bitwise contracts at n = 2**16 first: they also warm the
     # libraries (cuBLAS, cuSOLVER) and the callable cache both backends share
@@ -1841,26 +2088,36 @@ def main() -> int:
           f"DGEMM launches {dg_cuda['launches']} vs {dg_cuda['matmul_dispatches']}")
     check(dg_cuda["matmul_loaders"]["scalar"] == 0,
           f"DGEMM products on the scalar loader: {dg_cuda['matmul_loaders']}")
+    lap("runtime")
     # the paper's other block workloads (CP-ALS, TSQR, Cholesky, rSVD,
     # L-BFGS, checkpoints), their products on the kernel on backend cuda
     block_launches = block_algorithms_phase(dev)
+    lap("block_algorithms")
     # the block runtime's flight recorder, chaos runtime and calibration
     fault_obs_launches = fault_obs_phase(dev, smi)
+    lap("fault_obs")
 
-    # main path 2: LM serving, through the attention and scan kernels
+    # main path 2: LM serving, through the attention and scan kernels: one
+    # fixed batch, then continuous batching (each slot at its own position)
     serve_launches = serve_phase(dev)
+    lap("serve")
+    batched_launches = serve_batched_phase(dev)
+    lap("serve_batched")
     # main path 3: LM training, through the attention and scan kernels and
     # their backward kernels
     train_launches = train_phase(dev)
+    lap("train")
+    emit("timing", phase_s=phase_s, total_s=time.perf_counter() - t0)
 
     # launches of the main paths' own runs: the block runtime on backend
     # cuda (like the reference's backend, it never routes to glm_fused, held
     # against its plain version above at the main path's shapes), the bf16
-    # serve run through the kernels, and the train run
+    # serve run through the kernels, the bf16 continuous-batching runs of
+    # both models, and the train run
     main_launches = {k: cuda["launches"][k] + dg_cuda["launches"][k]
                      for k in ("matmul", "glm_fused")}
     main_launches["matmul"] += block_launches + fault_obs_launches
-    main_launches.update({k: serve_launches[k] + train_launches[k]
+    main_launches.update({k: serve_launches[k] + batched_launches[k] + train_launches[k]
                           for k in ("flash_attention", "mamba_scan")})
     main_launches.update({k: train_launches[k]
                           for k in ("flash_attention_bwd", "mamba_scan_bwd")})

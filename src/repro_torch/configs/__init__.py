@@ -1,6 +1,6 @@
 """Workload configurations: the paper's own GLM workload (``glm_logreg``)
-and the LM zoo's architectures that the port serves and trains so far
-(``hymba-1.5b``).
+and the LM zoo's architectures that the port runs so far (``hymba-1.5b``,
+served and trained; ``falcon-mamba-7b``, served).
 
 Each module exports ``CONFIG`` (exact published sizes).  ``get_config(id)``
 and ``list_archs()`` are the programmatic API, as in ``repro.configs``; an
@@ -13,6 +13,7 @@ from typing import List
 #: ported architectures: alias -> module
 _PORTED = {
     "hymba-1.5b": "hymba_1p5b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "glm_logreg": "glm_logreg",
 }
 
@@ -22,7 +23,6 @@ _LATER = {
     "gemma3-4b": "Queue 1 item 6 (dense configs with head_dim 256)",
     "nemotron-4-15b": "Queue 1 item 6 (nemotron-4-15b: layernorm, relu^2)",
     "command-r-35b": "Queue 1 item 6 (dense configs)",
-    "falcon-mamba-7b": "Queue 1 item 6 (falcon-mamba-7b)",
     "qwen2-vl-7b": "Queue 1 item 6 (qwen2-vl-7b: mrope)",
     "whisper-small": "Queue 1 item 6 (whisper-small: cross and non-causal attention)",
     "qwen3-moe-235b-a22b": "Queue 1 item 6 (the MoE configs)",

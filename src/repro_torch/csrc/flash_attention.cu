@@ -1,10 +1,12 @@
 // Flash attention forward for Hopper (sm_90a): grouped-query attention with
 // a 1/sqrt(hd) scale, an online softmax over key tiles, causal masking with a
-// query offset, an optional sliding window, and tiles that are wholly masked
-// skipped.  f32 or bf16 in and out, f32 inside.  When given an lse buffer it
-// also writes each row's log-sum-exp of scaled scores, lse = m + log(l), as
-// (B, H, Sq) f32 (-inf for a row that sees no key): the backward
-// (flash_attention_bwd.cu) recomputes the probabilities from it.
+// query offset (one for the launch, or one per batch row: continuous
+// batching decodes each slot at its own position), an optional sliding
+// window, and tiles that are wholly masked skipped.  f32 or bf16 in and out,
+// f32 inside.  When given an lse buffer it also writes each row's
+// log-sum-exp of scaled scores, lse = m + log(l), as (B, H, Sq) f32 (-inf for
+// a row that sees no key): the backward (flash_attention_bwd.cu) recomputes
+// the probabilities from it.
 //
 // Replaces: src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (body _flash_kernel).
@@ -45,7 +47,10 @@
 //   flash_split_combine_kernel, merges the partials of each row in split
 //   order (rescale by exp(m_s - max m) and sum, no atomics, so two launches
 //   give the same bits) and writes O and lse.  A split that sees no key of
-//   a row (m = -inf) adds nothing to it.
+//   a row (m = -inf) adds nothing to it.  With per-row offsets each batch
+//   row cuts its own visible range into the same `splits` (chosen by the
+//   host from the largest offset), so a row near the start of its cache
+//   may leave some splits empty: those write the empty partial.
 // - Key tiles outside [first key any row may see, last key any row may see]
 //   are never loaded; keys >= Skv are masked explicitly, so a ragged cache
 //   needs no padding.
@@ -74,6 +79,7 @@ struct FlashArgs {
   void* o;
   float* lse;   // (B, H, Sq) contiguous, or null: not written
   float* ws;    // splits > 1: partial O (splits, R, hd), then m and l (splits, R)
+  const int* q_offsets;  // (B,) int32: batch row b's query offset; null: q_offset for all
   int64_t q_sb, q_sh, q_ss;  // element strides: batch, head, position
   int64_t k_sb, k_sh, k_ss;
   int64_t v_sb, v_sh, v_ss;
@@ -85,13 +91,18 @@ struct FlashArgs {
   int bq;       // f32: query positions per block, rows / rep
   int causal;   // 0 or 1
   int window;   // 0: no window; else key j is visible iff j > q - window
-  int q_offset; // absolute position of query 0
+  int q_offset; // absolute position of query 0 (of every row, when q_offsets is null)
   int splits;   // key ranges per (query tile, batch, kv head); 1: no split
   float scale;
 };
 
 __device__ __forceinline__ bool visible(const FlashArgs& a, int qabs, int kj) {
   return kj < a.Skv && (!a.causal || kj <= qabs) && (a.window <= 0 || kj > qabs - a.window);
+}
+
+// absolute position of batch row b's query 0
+__device__ __forceinline__ int row_offset(const FlashArgs& a, int b) {
+  return a.q_offsets != nullptr ? a.q_offsets[b] : a.q_offset;
 }
 
 // This split's key tiles [t_lo, t_hi) of n_tiles: contiguous, as even as
@@ -160,7 +171,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
   const int qpos = q0 + pos_l;
   const bool row_ok = pos_l < a.bq && qpos < a.Sq;
   const int h = kvh * a.rep + r % a.rep;
-  const int qabs = qpos + a.q_offset;
+  const int q_offset = row_offset(a, b);
+  const int qabs = qpos + q_offset;
 
   float qr[QS ? 1 : HD];
   {
@@ -176,11 +188,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
   }
 
   // keys any row of this block may see, in tiles; this split's share
-  const int q_last = min(q0 + a.bq, a.Sq) - 1 + a.q_offset;
+  const int q_last = min(q0 + a.bq, a.Sq) - 1 + q_offset;
   int k_end = a.Skv;
   if (a.causal) k_end = min(k_end, q_last + 1);
   int k_begin = 0;
-  if (a.window > 0) k_begin = max(0, q0 + a.q_offset - a.window + 1);
+  if (a.window > 0) k_begin = max(0, q0 + q_offset - a.window + 1);
   k_begin = (k_begin / BC) * BC;
   int t_lo, t_hi;
   split_tiles(k_end > k_begin ? (k_end - k_begin + BC - 1) / BC : 0, split, a.splits, t_lo,
@@ -376,8 +388,9 @@ __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(const FlashArgs a) {
 
   // keys any row of this block may see: [k_begin, k_end), in tiles; this
   // split's share
-  const int blk_first = f0 / a.rep + a.q_offset;
-  const int blk_last = (f0 + rows_ok - 1) / a.rep + a.q_offset;
+  const int q_offset = row_offset(a, b);
+  const int blk_first = f0 / a.rep + q_offset;
+  const int blk_last = (f0 + rows_ok - 1) / a.rep + q_offset;
   const int k_end = a.causal ? min(a.Skv, blk_last + 1) : a.Skv;
   int k_begin = a.window > 0 ? max(0, blk_first - a.window + 1) : 0;
   k_begin = (k_begin / BKV) * BKV;
@@ -410,14 +423,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(const FlashArgs a) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = warp * 16 + g + half * 8;
-    qa[half] = r < rows_ok ? (f0 + r) / a.rep + a.q_offset : -1;
+    qa[half] = r < rows_ok ? (f0 + r) / a.rep + q_offset : -1;
   }
   // positions of this warp's first and last rows (none if it has no row)
   const int r_first = warp * 16;
   const int r_last = min(r_first + 15, rows_ok - 1);
   const bool has_rows = r_first <= r_last;
-  const int p_first = (f0 + r_first) / a.rep + a.q_offset;
-  const int p_last = (f0 + r_last) / a.rep + a.q_offset;
+  const int p_first = (f0 + r_first) / a.rep + q_offset;
+  const int p_last = (f0 + r_last) / a.rep + q_offset;
 
   const float scale_log2 = a.scale * LOG2E;
   float m2[2] = {-INFINITY, -INFINITY};  // running max of scaled scores, in log2 units
@@ -627,18 +640,21 @@ int launch_combine(const FlashArgs& a, int B, int hd, cudaStream_t s) {
 
 // Launches the forward kernel and, when splits > 1, the combine kernel after
 // it on the same stream; ws then holds splits * B * H * Sq * (hd + 2) floats.
+// q_offsets, when not null, is a device array of B int32 offsets >= 0, one
+// per batch row, read in place of q_offset; the host chose `splits` from the
+// largest of them.
 extern "C" int repro_flash_attention(
     int dtype, int hd, const void* q, const void* k, const void* v, void* o, float* lse,
-    float* ws, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
-    int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb, int64_t o_sh,
-    int64_t o_ss, int B, int KV, int Sq, int Skv, int rep, int rows, int causal, int window,
-    int q_offset, int splits, float scale, void* stream) {
+    float* ws, const int* q_offsets, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
+    int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
+    int64_t o_sh, int64_t o_ss, int B, int KV, int Sq, int Skv, int rep, int rows, int causal,
+    int window, int q_offset, int splits, float scale, void* stream) {
   if (rows < 1 || rows > NT || (rows & (rows - 1)) != 0 || rows < rep)
     return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != REPRO_F32 && dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
   if (splits < 1 || (splits > 1 && ws == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  FlashArgs a{q, k, v, o, lse, ws, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-              o_sb, o_sh, o_ss, static_cast<int64_t>(B) * KV * rep * Sq, Sq, Skv, KV, rep,
+  FlashArgs a{q, k, v, o, lse, ws, q_offsets, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+              v_ss, o_sb, o_sh, o_ss, static_cast<int64_t>(B) * KV * rep * Sq, Sq, Skv, KV, rep,
               rows, rows / rep, causal, window, q_offset, splits, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e;

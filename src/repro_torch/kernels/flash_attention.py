@@ -5,7 +5,10 @@ Counterpart of ``repro.kernels.flash_attention.flash_attention_pallas`` (the
 kernel) and ``repro.kernels.ref.flash_attention_ref`` (the oracle).  Layout
 q (B, H, Sq, hd), k/v (B, KV, Skv, hd); query head h reads kv head
 h // (H / KV).  Key j is visible to query i iff j < Skv and, when causal,
-j <= i + q_offset and, with a window, j > i + q_offset - window.  A query
+j <= i + q_offset and, with a window, j > i + q_offset - window.
+``q_offset`` is one int for the whole batch, or a (B,) int32 tensor with one
+offset per batch row (continuous batching decodes each slot at its own
+position; the kernel reads the tensor in place).  A query
 that sees no key gets 0 (the Pallas kernel's safe denominator).  The
 softmax runs in f32; the output has q's dtype.  Asked for it, both versions
 also return each row's log-sum-exp of scaled scores, lse (B, H, Sq) f32
@@ -17,12 +20,15 @@ their grid (B * KV * query tiles) is too small to fill the card, as at every
 decode step, the keys are split into ``kv_splits`` contiguous ranges: one
 launch then runs two device kernels, the partials per range and their
 merge in range order (``flash_attention_split_ref`` is its plain version).
+With per-row offsets the host chooses the ranges from the largest offset,
+a host int the caller passes beside the tensor, and each row cuts its own
+visible range into that many.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -39,15 +45,24 @@ BF16_ROWS = 64
 #: streaming multiprocessors of the H100: a grid of fewer blocks splits the keys
 SMS = 132
 
+#: a query offset: one int for the batch, or a (B,) int32 tensor, one per row
+Offset = Union[int, torch.Tensor]
+
 _fn = None
 
 
 def visible(q_len: int, kv_len: int, causal: bool, window: Optional[int],
-            q_offset: int, device=None) -> torch.Tensor:
-    """(q_len, kv_len) boolean mask of the keys each query sees."""
-    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+            q_offset: Offset, device=None) -> torch.Tensor:
+    """(q_len, kv_len) boolean mask of the keys each query sees; (B, q_len,
+    kv_len) for a (B,) tensor of per-row offsets."""
+    q_pos = torch.arange(q_len, device=device)[:, None]
     k_pos = torch.arange(kv_len, device=device)[None, :]
-    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if isinstance(q_offset, torch.Tensor):
+        q_pos = q_pos[None] + q_offset.to(device=device, dtype=torch.int64)[:, None, None]
+        k_pos = k_pos[None]
+    else:
+        q_pos = q_pos + q_offset
+    mask = torch.ones(q_pos.shape[:-1] + (kv_len,), dtype=torch.bool, device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window is not None:
@@ -57,7 +72,7 @@ def visible(q_len: int, kv_len: int, causal: bool, window: Optional[int],
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
-                        q_offset: int = 0, return_lse: bool = False):
+                        q_offset: Offset = 0, return_lse: bool = False):
     """Plain version: the same online-softmax arithmetic in one pass, in f32.
     Returns the output, or (output, lse) with ``return_lse``."""
     B, H, Sq, hd = q.shape
@@ -66,6 +81,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(B, KV, rep, Sq, hd).float()
     s = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) / math.sqrt(hd)
     mask = visible(Sq, Skv, causal, window, q_offset, q.device)
+    if mask.ndim == 3:  # per-row offsets: (B, Sq, Skv)
+        mask = mask[:, None, None]
     s = s.masked_fill(~mask, -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(m == -math.inf, 0.0, m)  # a row that sees no key
@@ -136,7 +153,7 @@ def kv_splits(dtype: torch.dtype, B: int, KV: int, rep: int, Sq: int, Skv: int, 
 
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               causal: bool = True, window: Optional[int] = None,
-                              q_offset: int = 0, return_lse: bool = False,
+                              q_offset: Offset = 0, return_lse: bool = False,
                               splits: Optional[int] = None, bk: Optional[int] = None):
     """Plain version of the split-KV arithmetic, in f32: the visible key
     range (whole tiles of ``bk`` keys) cut into ``splits`` ranges as
@@ -144,11 +161,23 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     per row, then the partials merged in range order,
     O = sum_s O_s e^(m_s - M) / sum_s l_s e^(m_s - M) with M = max_s m_s.
     ``splits`` defaults to what ``kv_splits`` gives the kernel, ``bk`` to
-    ``key_tile(hd)``.  Returns what ``flash_attention_ref`` returns."""
+    ``key_tile(hd)``.  Returns what ``flash_attention_ref`` returns.  With
+    per-row offsets each row cuts its own visible range into ``splits``
+    ranges, which default to the kernel's choice at the largest offset."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     rep = H // KV
     bk = bk or key_tile(hd)
+    if isinstance(q_offset, torch.Tensor):
+        offsets = q_offset.tolist()
+        if splits is None:
+            splits = kv_splits(q.dtype, B, KV, rep, Sq, Skv, hd, causal, window,
+                               max(offsets))
+        rows = [flash_attention_split_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal, window,
+                                          off, True, splits, bk)
+                for b, off in enumerate(offsets)]
+        out = torch.cat([o for o, _ in rows])
+        return (out, torch.cat([lse for _, lse in rows])) if return_lse else out
     if splits is None:
         splits = kv_splits(q.dtype, B, KV, rep, Sq, Skv, hd, causal, window, q_offset)
     k_begin, n_tiles = key_tiles(Sq, Skv, causal, window, q_offset, bk)
@@ -197,7 +226,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention").repro_flash_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
                        + [ctypes.c_int64] * 12 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
@@ -210,11 +239,15 @@ def _strides(t: torch.Tensor):
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool, window: Optional[int], q_offset: int,
-                         return_lse: bool = False):
+                         return_lse: bool = False,
+                         q_offsets: Optional[torch.Tensor] = None):
     """Launch the kernel on CUDA tensors the wrapper (``ops.flash_attention``)
-    has checked.  The output is a (B, H, Sq, hd) view of a buffer laid out
-    (B, Sq, H, hd), the layout the model consumes next; with ``return_lse``
-    the kernel also writes lse and (output, lse) is returned.  With
+    has checked.  ``q_offsets``, a (B,) int32 tensor on the card, gives each
+    batch row its own offset; ``q_offset`` is then the largest of them, from
+    which the key ranges are chosen (the device tensor is never read here).
+    The output is a (B, H, Sq, hd) view of a buffer laid out (B, Sq, H, hd),
+    the layout the model consumes next; with ``return_lse`` the kernel also
+    writes lse and (output, lse) is returned.  With
     ``kv_splits`` > 1 the call runs two device kernels (partials, then their
     merge) and allocates their f32 workspace.  The bf16 kernel copies rows
     16 bytes at a time, so a bf16 operand whose rows are not 16-byte aligned
@@ -237,6 +270,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(),
             None if ws is None else ws.data_ptr(),
+            None if q_offsets is None else q_offsets.data_ptr(),
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             B, KV, Sq, Skv, rep, rows, int(causal), window or 0, q_offset, splits,
             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)

@@ -20,7 +20,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .flash_attention import DTYPE_CODES as _FLASH_DTYPES
-from .flash_attention import HEAD_DIMS, THREADS, flash_attention_cuda, flash_attention_ref
+from .flash_attention import (HEAD_DIMS, THREADS, Offset, flash_attention_cuda,
+                              flash_attention_ref)
 from .flash_attention_bwd import FlashAttention
 from .flash_attention_bwd import check_launch as check_bwd_launch
 from .flash_attention_bwd import flash_attention_bwd_cuda, flash_attention_bwd_ref
@@ -113,7 +114,7 @@ def glm_fused(z: torch.Tensor, y: torch.Tensor
 
 
 def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     window: Optional[int], q_offset: int) -> None:
+                     window: Optional[int], q_offset: Offset) -> None:
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: need q (B, H, Sq, hd) and k, v "
                          f"(B, KV, Skv, hd), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -130,8 +131,15 @@ def _check_attention(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
                         f"one of {sorted(map(str, _FLASH_DTYPES))} on all three")
     if window is not None and (not isinstance(window, int) or window < 1):
         raise ValueError(f"{name}: window must be None or an int >= 1, got {window!r}")
-    if not isinstance(q_offset, int) or q_offset < 0:
-        raise ValueError(f"{name}: q_offset must be an int >= 0, got {q_offset!r}")
+    if isinstance(q_offset, torch.Tensor):
+        if (q_offset.dtype != torch.int32 or tuple(q_offset.shape) != (B,)
+                or q_offset.device != q.device):
+            raise ValueError(f"{name}: per-row q_offset must be a ({B},) int32 tensor on "
+                             f"{q.device}, got {tuple(q_offset.shape)} {q_offset.dtype} "
+                             f"on {q_offset.device}")
+    elif not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"{name}: q_offset must be an int >= 0 or a (B,) int32 tensor, "
+                         f"got {q_offset!r}")
 
 
 def _check_attention_launch(name: str, *tensors: torch.Tensor) -> None:
@@ -151,11 +159,17 @@ def _check_attention_launch(name: str, *tensors: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    q_offset: int = 0, return_lse: bool = False):
+                    q_offset: Offset = 0, max_offset: Optional[int] = None,
+                    return_lse: bool = False):
     """Grouped-query attention of q (B, H, Sq, hd) over k, v (B, KV, Skv, hd)
     with a 1/sqrt(hd) scale: causal from absolute query position
     ``q_offset``, and with a sliding ``window`` (key j visible to query
-    position p iff j > p - window) when one is given.  f32 or bf16; the
+    position p iff j > p - window) when one is given.  ``q_offset`` is an
+    int >= 0 for the whole batch or a (B,) int32 tensor on q's device, one
+    offset >= 0 per batch row (continuous batching); with a tensor on the
+    card, ``max_offset`` must give the largest of them as a host int (the
+    launch is planned from it, and the device tensor is never read on the
+    host).  f32 or bf16; the
     output has q's dtype.  Operands may be strided views whose head dim is
     contiguous.  ``return_lse`` also returns each row's log-sum-exp (B, H,
     Sq) f32.  Differentiable (``FlashAttention``) when an input requires
@@ -163,7 +177,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     is too small to fill the card (every decode step) runs two device
     kernels: partials over ``kv_splits`` key ranges, then their merge."""
     _check_attention("flash_attention", q, k, v, window, q_offset)
+    per_row = isinstance(q_offset, torch.Tensor)
     if _wants_grad(q, k, v):
+        if per_row:
+            raise NotImplementedError(
+                "flash_attention: per-row query offsets are for serving (ROADMAP Queue 1 "
+                "item 6.1, serve/batcher.py); FlashAttention's backward takes one offset")
         if return_lse:
             raise ValueError("flash_attention: return_lse is for the forward of "
                              "FlashAttention; lse is not differentiable")
@@ -171,13 +190,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _device_kind("flash_attention", q, k, v) == "cpu":
         return flash_attention_ref(q, k, v, causal, window, q_offset, return_lse)
     _check_attention_launch("flash_attention", q, k, v)
+    host_offset = q_offset
+    if per_row:
+        if not isinstance(max_offset, int) or max_offset < 0:
+            raise ValueError("flash_attention: a per-row q_offset on the card needs "
+                             f"max_offset, the largest offset as an int >= 0, got "
+                             f"{max_offset!r}")
+        host_offset = max_offset
     rep = q.shape[1] // k.shape[1]
-    if rep > THREADS or q.shape[1] > _GRID_LIMIT or q.shape[2] + q_offset >= 2**31 \
+    if rep > THREADS or q.shape[1] > _GRID_LIMIT or q.shape[2] + host_offset >= 2**31 \
             or q.shape[2] * rep >= 2**31:
         raise ValueError(f"flash_attention: {q.shape[1]} query heads ({rep} per kv head) "
                          "or positions beyond the kernel's range")
     launches["flash_attention"] += 1
-    return flash_attention_cuda(q, k, v, causal, window, q_offset, return_lse)
+    return flash_attention_cuda(q, k, v, causal, window, host_offset, return_lse,
+                                q_offset.contiguous() if per_row else None)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -189,6 +216,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``o``, its log-sum-exp ``lse`` (B, H, Sq) f32 and the output gradient
     ``do``; each in its input's dtype.  o and do have q's shape and dtype."""
     _check_attention("flash_attention_bwd", q, k, v, window, q_offset)
+    if isinstance(q_offset, torch.Tensor):
+        raise NotImplementedError(
+            "flash_attention_bwd: per-row query offsets are for serving (ROADMAP Queue 1 "
+            "item 6.1, serve/batcher.py); the backward takes one offset")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and do "

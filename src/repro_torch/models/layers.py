@@ -4,7 +4,9 @@ soft-capping.
 
 All functions are pure apart from the KV-cache update, which writes the new
 keys and values into the cache tensors in place (the reference returns an
-updated copy; in place saves a cache-sized copy per layer and step).
+updated copy; in place saves a cache-sized copy per layer and step).  The
+cache position is one host int for the batch, or one per row (continuous
+batching: each slot decodes at its own position).
 Parameters are plain dicts of tensors in the reference's layouts (``x @ W``
 with W (D, H*hd)).  Softmax and norm statistics are computed in float32
 regardless of the compute dtype.
@@ -19,7 +21,7 @@ itself: it is there to hold the kernel route against it.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -102,9 +104,10 @@ def position_embed(x, positions, cfg):
 
 
 def make_causal_mask(q_len: int, kv_len: int, window: Optional[int] = None,
-                     q_offset: int = 0, device=None) -> torch.Tensor:
+                     q_offset: Union[int, torch.Tensor] = 0, device=None) -> torch.Tensor:
     """(q_len, kv_len) boolean mask; True = attend.  ``window`` bounds the
-    lookback (sliding-window attention)."""
+    lookback (sliding-window attention).  A (B,) tensor of per-row offsets
+    gives a (B, q_len, kv_len) mask."""
     return visible(q_len, kv_len, True, window, q_offset, device)
 
 
@@ -112,16 +115,33 @@ def make_causal_mask(q_len: int, kv_len: int, window: Optional[int] = None,
 class CausalMask:
     """The causal mask of a block of ``q_len`` queries at absolute positions
     ``q_offset ...`` over ``kv_len`` keys, with an optional sliding
-    ``window``: the one form of mask the flash-attention kernel takes.  The
-    whole batch shares ``q_offset`` (a host int)."""
+    ``window``: the one form of mask the flash-attention kernel takes.
+    ``q_offset`` is a host int that the whole batch shares, or a tuple of
+    host ints, one per batch row.  With a tuple, ``offsets`` may carry the
+    same offsets as a (B,) int32 tensor on the device, built once and shared
+    by every layer; it is left out of equality and hashing, so the mask
+    stays a hashable value."""
     q_len: int
     kv_len: int
     window: Optional[int] = None
-    q_offset: int = 0
+    q_offset: Union[int, Tuple[int, ...]] = 0
+    offsets: Optional[torch.Tensor] = field(default=None, compare=False, repr=False)
+
+    @property
+    def per_row(self) -> bool:
+        return isinstance(self.q_offset, tuple)
+
+    def device_offsets(self, device) -> torch.Tensor:
+        """The per-row offsets as a (B,) int32 tensor: ``offsets``, or else
+        built on ``device``."""
+        if self.offsets is not None:
+            return self.offsets
+        return torch.tensor(self.q_offset, dtype=torch.int32, device=device)
 
     def dense(self, device=None) -> torch.Tensor:
-        return make_causal_mask(self.q_len, self.kv_len, self.window, self.q_offset,
-                                device)
+        """(q_len, kv_len) boolean mask; (B, q_len, kv_len) per row."""
+        offset = self.device_offsets(device or "cpu") if self.per_row else self.q_offset
+        return make_causal_mask(self.q_len, self.kv_len, self.window, offset, device)
 
 
 ATTN_CHUNK = 1024   # q-chunk size above which chunked attention kicks in
@@ -184,14 +204,17 @@ def attention_scores(
                                   "(dense configs with head_dim 256)")
     if not isinstance(mask, CausalMask):
         raise NotImplementedError(
-            "the flash-attention kernel takes causal masks with one query offset for "
-            "the whole batch; cross-attention, non-causal or per-row masks wait for "
-            "ROADMAP Queue 1 item 6 (serve/batcher.py, whisper-small)")
+            "the flash-attention kernel takes causal masks (CausalMask); cross-attention "
+            "and non-causal masks wait for ROADMAP Queue 1 item 6 (whisper-small)")
     if (mask.q_len, mask.kv_len) != (q.shape[1], k.shape[1]):
         raise ValueError(f"attention_scores: mask is ({mask.q_len}, {mask.kv_len}) for "
                          f"{q.shape[1]} queries and {k.shape[1]} keys")
+    offset, max_offset = mask.q_offset, None
+    if mask.per_row:
+        offset, max_offset = mask.device_offsets(q.device), max(mask.q_offset)
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=True, window=mask.window, q_offset=mask.q_offset)
+                              causal=True, window=mask.window, q_offset=offset,
+                              max_offset=max_offset)
     return out.transpose(1, 2)
 
 
@@ -201,14 +224,16 @@ def attention_block(
     cfg,
     positions: Optional[torch.Tensor],
     mask: Union[None, torch.Tensor, CausalMask],
-    cache: Optional[Dict] = None,  # {"k","v": (B, S_max, KV, hd), "pos": int}
+    cache: Optional[Dict] = None,  # {"k","v": (B, S_max, KV, hd), "pos": int or ints}
     kv_x: Optional[torch.Tensor] = None,
     cross: bool = False,
     impl: str = "kernel",
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self-attention; with a cache, writes this block's keys and values at
     positions pos .. pos + S - 1 (in place) and attends over the whole
-    cache."""
+    cache.  With one ``pos`` per row (a tuple of host ints), row b's keys
+    and values go to its own positions, ``positions[b]`` on the device, in
+    one indexed write."""
     if cross or kv_x is not None:
         raise NotImplementedError("cross-attention (whisper-small) is not ported yet: "
                                   "ROADMAP Queue 1 item 6 (whisper-small)")
@@ -232,12 +257,22 @@ def attention_block(
     if cache is not None:
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
-        if pos + S > ck.shape[1]:
+        last = max(pos) if isinstance(pos, tuple) else pos
+        if last + S > ck.shape[1]:
             raise ValueError(f"KV cache of {ck.shape[1]} positions cannot take "
-                             f"positions {pos}..{pos + S - 1}")
-        ck[:, pos:pos + S] = k.to(ck.dtype)
-        cv[:, pos:pos + S] = v.to(cv.dtype)
-        new_cache = {"k": ck, "v": cv, "pos": pos + S}
+                             f"positions {last}..{last + S - 1}")
+        if isinstance(pos, tuple):
+            if positions is None or tuple(positions.shape) != (B, S):
+                raise ValueError("attention_block: per-row cache positions need the "
+                                 "(B, S) positions of the new keys")
+            rows = torch.arange(B, device=ck.device)[:, None]
+            ck[rows, positions] = k.to(ck.dtype)
+            cv[rows, positions] = v.to(cv.dtype)
+            new_cache = {"k": ck, "v": cv, "pos": tuple(p + S for p in pos)}
+        else:
+            ck[:, pos:pos + S] = k.to(ck.dtype)
+            cv[:, pos:pos + S] = v.to(cv.dtype)
+            new_cache = {"k": ck, "v": cv, "pos": pos + S}
         k, v = ck, cv
     out = attention_scores(q, k, v, mask, cfg.logit_softcap, impl)
     out = constrain(out, "batch", "seq", "heads", None)

@@ -17,7 +17,8 @@ and autograd runs through its kernels' backward kernels.  ``forward`` is
 differentiable, with the reference's remat policies per layer; ``prefill``
 and ``decode_step`` run without autograd.  Decoding updates the cache
 tensors in place and returns the cache with its position advanced; the
-position is a host int that the whole batch shares.  MoE and
+position is a host int that the whole batch shares, or a tuple of host ints,
+one per row (``serve.ContinuousBatcher``'s slots).  MoE and
 encoder-decoder wait for later slices and raise ``NotImplementedError``
 naming their ROADMAP items.
 """
@@ -316,7 +317,10 @@ def _embed_inputs(cfg, params, batch):
     if cfg.learned_pos:
         S = x.shape[1]
         off = batch.get("pos_offset", 0)
-        x = x + params["pos_embed"][off:off + S][None]
+        if isinstance(off, torch.Tensor):  # per row: (B,) offsets on the device
+            x = x + params["pos_embed"][off[:, None] + torch.arange(S, device=off.device)]
+        else:
+            x = x + params["pos_embed"][off:off + S][None]
     return constrain(x.to(getattr(torch, cfg.dtype)), "batch", "seq", "embed")
 
 
@@ -385,33 +389,39 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, impl: str = "kernel")
     return logits, {"layers": caches, "pos": S}
 
 
-def _host_pos(pos) -> int:
-    if isinstance(pos, torch.Tensor):
-        if pos.numel() != 1:
-            raise NotImplementedError(
-                "per-row decode positions (continuous batching) need a per-row query "
-                "offset in the attention kernel: ROADMAP Queue 1 item 6 "
-                "(serve/batcher.py)")
-        pos = pos.item()
-    return int(pos)
-
-
 @torch.no_grad()
 def decode_step(params, tokens, cache, cfg: ModelConfig, impl: str = "kernel"):
-    """One serving step: tokens (B, 1) -> logits (B, 1, V), updated cache."""
+    """One serving step: tokens (B, 1) -> logits (B, 1, V), updated cache.
+    ``cache["pos"]`` is a host int that every row shares, or a sequence of B
+    host ints, one per row: row b's token then sits at its own position for
+    the position embedding, the cache write and the causal mask.  The
+    per-row positions go to the device once, as one (B,) int32 tensor that
+    every layer shares."""
     if cfg.encdec:
         raise NotImplementedError(_ENCDEC)
-    pos = _host_pos(cache["pos"])
+    pos = cache["pos"]
+    B = tokens.shape[0]
+    dev = params["embed"].device
+    per_row = isinstance(pos, (tuple, list))
+    if per_row:
+        pos = tuple(int(p) for p in pos)
+        if len(pos) != B or min(pos) < 0:
+            raise ValueError(f"decode_step: per-row positions {pos} for {B} rows")
+        offsets = torch.tensor(pos, dtype=torch.int32, device=dev)
+        positions, pos_offset = offsets[:, None], offsets
+    else:
+        pos = int(pos)
+        positions, pos_offset = _positions(B, 1, pos, dev), pos
     key = "embeds" if tokens.is_floating_point() else "tokens"
-    x = _embed_inputs(cfg, params, {key: tokens, "pos_offset": pos})
-    B = x.shape[0]
-    positions = _positions(B, 1, pos, x.device)
+    x = _embed_inputs(cfg, params, {key: tokens, "pos_offset": pos_offset})
     layers_cache = cache["layers"]
     mask = None
     if "k" in layers_cache:
-        mask = CausalMask(1, layers_cache["k"].shape[2], q_offset=pos)
+        mask = CausalMask(1, layers_cache["k"].shape[2], q_offset=pos,
+                          offsets=offsets if per_row else None)
     x, layers_cache = decoder_stack(cfg, params["layers"], x, positions, mask,
                                     layers_cache, pos, impl)
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = _lm_logits(cfg, params, x)
-    return logits, {"layers": layers_cache, "pos": pos + 1}
+    new_pos = tuple(p + 1 for p in pos) if per_row else pos + 1
+    return logits, {"layers": layers_cache, "pos": new_pos}

@@ -660,3 +660,141 @@ def test_device_class_names_the_card(cuda_device):
     assert device_class("cuda") == f"cuda:cuda ({name}) x{count}"
     assert device_class("torch", "cuda:0") == f"torch:cuda ({name}) x1"
     assert [d["device_kind"] for d in device_inventory()][0] == name
+
+
+# ---------------------------------------------------------------------------
+# per-row query offsets (continuous batching) in the attention forward
+# ---------------------------------------------------------------------------
+
+RAGGED_CASES = [  # B, H, KV, Sq, Skv, hd, window, offsets
+    # decode at the serve_batched shapes: split-KV, offsets crossing the window
+    (8, 25, 5, 1, 4096, 64, None, (0, 63, 1023, 1024, 2047, 2500, 3071, 4095)),
+    (8, 25, 5, 1, 4096, 64, 1024, (0, 63, 1023, 1024, 2047, 2500, 3071, 4095)),
+    # row 3 sees no key (its window starts past the cache's end)
+    (4, 25, 5, 1, 333, 64, 100, (0, 100, 332, 500)),
+    # prefill of three rows at their own offsets
+    (3, 25, 5, 70, 333, 64, None, (0, 100, 263)),
+    (3, 25, 5, 70, 333, 64, 100, (0, 100, 263)),
+]
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_per_row_offsets_vs_plain(cuda_device, case, dtype):
+    """Each batch row at its own offset: output and lse against the plain
+    one-pass and per-row split versions; two launches give the same bits."""
+    B, H, KV, Sq, Skv, hd, window, offsets = case
+    q = _uniform(41, (B, H, Sq, hd), cuda_device, dtype)
+    k = _uniform(42, (B, KV, Skv, hd), cuda_device, dtype)
+    v = _uniform(43, (B, KV, Skv, hd), cuda_device, dtype)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=True, window=window, q_offset=off, max_offset=max(offsets),
+              return_lse=True)
+    reset_launches()
+    got, lse = ops.flash_attention(q, k, v, **kw)
+    again, lse2 = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == 2
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    kw.pop("max_offset")
+    for plain in (flash_attention_ref, flash_attention_split_ref):
+        ref, lse_ref = plain(q, k, v, **kw)
+        assert _rel_err(got, ref) <= FLASH_TOL[dtype]
+        finite = torch.isfinite(lse_ref)
+        assert torch.equal(finite, torch.isfinite(lse))
+        assert (lse - lse_ref)[finite].abs().max().item() <= \
+            1e-5 * lse_ref[finite].abs().max().item()
+    if window == 100 and Sq == 1:  # the row that sees no key gives 0
+        assert not got[3].float().abs().any()
+
+
+@pytest.mark.parametrize("case", [RAGGED_CASES[1], RAGGED_CASES[4]], ids=["decode", "prefill"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_equal_per_row_offsets_give_the_scalar_bits(cuda_device, case, dtype):
+    B, H, KV, Sq, Skv, hd, window, _ = case
+    q = _uniform(44, (B, H, Sq, hd), cuda_device, dtype)
+    k = _uniform(45, (B, KV, Skv, hd), cuda_device, dtype)
+    pos = Skv - Sq
+    scalar = ops.flash_attention(q, k, k, window=window, q_offset=pos)
+    off = torch.full((B,), pos, dtype=torch.int32, device=cuda_device)
+    per_row = ops.flash_attention(q, k, k, window=window, q_offset=off, max_offset=pos)
+    assert torch.equal(per_row, scalar)
+
+
+def test_flash_attention_per_row_offsets_need_the_host_max(cuda_device):
+    q = torch.zeros(2, 4, 1, 64, device=cuda_device)
+    off = torch.tensor([3, 9], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="max_offset"):
+        ops.flash_attention(q, q, q, q_offset=off)
+    with pytest.raises(ValueError, match="per-row q_offset"):
+        ops.flash_attention(q, q, q, q_offset=off.cpu(), max_offset=9)
+
+
+def test_batched_decode_step_does_not_sync_in_the_attention_wrapper(cuda_device):
+    """A per-row decode step's attention calls neither read the offsets back
+    nor synchronise: under sync debug mode "error" the wrapper raises
+    nothing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import layers
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), n_layers=8)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    _, cache = prefill(params, {"tokens": torch.zeros(3, 30, dtype=torch.long,
+                                                      device=cuda_device)}, cfg, 64)
+    cache["pos"] = (30, 12, 7)
+    calls = []
+    flash = ops.flash_attention
+
+    def strict(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = flash(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        calls.append(kw["max_offset"])
+        return out
+
+    layers.ops.flash_attention = strict
+    try:
+        logits, cache = decode_step(params, torch.zeros(3, 1, dtype=torch.long,
+                                                        device=cuda_device), cache, cfg)
+    finally:
+        layers.ops.flash_attention = flash
+    torch.cuda.synchronize()
+    assert calls == [30] * 8 and cache["pos"] == (31, 13, 8)
+    assert torch.isfinite(logits).all()
+
+
+def test_continuous_batcher_on_card_equals_standalone_decode(cuda_device):
+    """Reduced hymba at f32, 8 layers (layer 7 global), 5 ragged requests
+    through 2 slots: every request's tokens equal its own B = 1 prefill and
+    decode on the card, logits to 1e-4 of max|logit|, and every layer's
+    attention (admissions and decode steps) and prefill scan launched its
+    kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve import ContinuousBatcher
+
+    cfg = dataclasses.replace(get_config("hymba-1.5b").reduced(), n_layers=8)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (5, 21, 13, 30, 40)]
+    record = {}
+    b = ContinuousBatcher(cfg, params, max_slots=2, max_len=64, record=record)
+    rids = [b.submit(p, max_new=6) for p in prompts]
+    reset_launches()
+    out = b.run()
+    steps = len(record["steps"])
+    assert launches["flash_attention"] == 8 * (len(prompts) + steps)
+    assert launches["mamba_scan"] == 8 * len(prompts)
+    for rid, p in zip(rids, prompts):
+        logits, cache = prefill(params, {"tokens": torch.as_tensor(p[None], device=cuda_device)},
+                                cfg, 64)
+        rows = [logits[0, -1]]
+        for _ in range(5):
+            lg, cache = decode_step(params, torch.argmax(rows[-1])[None, None], cache, cfg)
+            rows.append(lg[0, -1])
+        want = torch.stack(rows).cpu().numpy()
+        assert out[rid] == want.argmax(-1).tolist(), rid
+        assert np.abs(record["logits"][rid] - want).max() <= 1e-4 * np.abs(want).max()

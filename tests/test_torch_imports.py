@@ -47,7 +47,8 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.obs, repro_torch.configs.glm_logreg, repro_torch.factor, repro_torch.linalg, "
     "repro_torch.tensor, repro_torch.core.elastic, repro_torch.core.straggler",
     "repro_torch.models, repro_torch.kernels.flash_attention, repro_torch.kernels.mamba_scan, "
-    "repro_torch.train, repro_torch.launch.serve, repro_torch.configs.hymba_1p5b",
+    "repro_torch.train, repro_torch.launch.serve, repro_torch.configs.hymba_1p5b, "
+    "repro_torch.serve, repro_torch.configs.falcon_mamba_7b",
     "repro_torch.kernels.flash_attention_bwd, repro_torch.train.optim, "
     "repro_torch.train.data, repro_torch.train.steps, repro_torch.launch.train, "
     "repro_torch.checkpoint, repro_torch.sharding.plans",
@@ -152,7 +153,7 @@ def _hymba(**changes):
 
 
 def _lm_feature(name):
-    from repro_torch.models import MoEConfig, decode_step, forward, prefill
+    from repro_torch.models import MoEConfig, forward
     from repro_torch.models import layers, partitioning
 
     tokens = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
@@ -168,11 +169,6 @@ def _lm_feature(name):
     if name == "softcap":
         cfg, params = _hymba(logit_softcap=30.0)
         return forward(params, tokens, cfg)
-    if name == "per-row pos":
-        cfg, params = _hymba()
-        _, cache = prefill(params, tokens, cfg, 8)
-        cache["pos"] = torch.tensor([4, 3])
-        return decode_step(params, torch.zeros(2, 1, dtype=torch.long), cache, cfg)
     if name == "non-causal mask":
         q = torch.zeros(1, 4, 4, 16)
         return layers.attention_scores(q, q, q, torch.ones(4, 4, dtype=torch.bool))
@@ -202,10 +198,10 @@ def _lm_feature(name):
 
 @pytest.mark.parametrize("feature", [
     ("lm", "moe"), ("lm", "mrope"), ("lm", "encdec"), ("lm", "softcap"),
-    ("lm", "per-row pos"), ("lm", "non-causal mask"), ("lm", "Rules"),
+    ("lm", "non-causal mask"), ("lm", "Rules"),
     ("lm", "sharded steps"), ("lm", "sharded train step"), ("lm", "activation_rules"),
     ("lm", "gemma3-4b"), ("lm", "whisper-small"),
-    ("lm", "falcon-mamba-7b"), ("lm", "qwen3-moe-235b-a22b"),
+    ("lm", "qwen3-moe-235b-a22b"),
 ], ids=lambda f: f[1])
 def test_features_of_later_slices_raise(feature):
     _kind, name = feature
