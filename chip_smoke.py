@@ -60,6 +60,16 @@ both (CUDA events), then drives the main paths at full width:
   its standalone run's, logits to 1e-4.  A line per model reports wall
   time, tokens/s, decode seconds per step, time to first token, mean
   active slots, admissions and peak memory;
+- the dense and VLM decoders: gemma3-4b, gemma-7b (head dim 256),
+  nemotron-4-15b, command-r-35b (30.28 B parameters, 60.6 GB of bf16
+  weights) and qwen2-vl-7b (M-RoPE, embedding prompts), each as published
+  in bf16, serve 4 prompts of 2048 tokens and generate 16 through
+  ``serve_demo``, one model at a time: every layer's attention on the
+  flash-attention kernel, the plain route teacher-forced with the kernel
+  route's tokens within the bf16 serve tolerance, a planted fault (a
+  window of 1024 on every layer; gemma3-4b's local layers unwindowed)
+  shown to exceed it, launch counts exact, and an f32 leg at full width
+  and 4 layers with the same tokens;
 - LM training: hymba-1.5b at its published configuration (1.66 B
   parameters, f32 master weights and AdamW state, bf16 compute, full remat)
   trains on batches of 4 x 2048 tokens through ``train_loop`` (1 warm-up
@@ -81,10 +91,13 @@ libraries redesigned for Hopper (``REDESIGNED``) fails the run, as does a
 Newton or DGEMM product on the scalar loader.  The attention forward is timed
 at prefill and at decode, where it splits the keys (two device kernels per
 call, whose device times a decode case also reports), also with one offset
-per row (``decode-ragged``: 8 slots at their own positions); the scan forward with
-its checkpoints written, and the scan backward on both its routes (from the
-forward's checkpoints, the one training takes, and without them), which must
-give the same bits.  Any failure raises and exits non-zero.
+per row (``decode-ragged``: 8 slots at their own positions), and at the
+dense decoders' shapes (head dim 256, 6 to 8 query heads per kv head); the
+scan forward with its checkpoints written, and the scan backward on both
+its routes (from the forward's checkpoints, the one training takes, and
+without them), which must give the same bits.  The block phases make each
+large random block on the host once (``HostBlocks``).  Any failure raises
+and exits non-zero.
 
 Needs one CUDA device; exits non-zero without printing a result where there
 is none, or where ``src/repro_torch`` is not beside this script.
@@ -109,7 +122,7 @@ import torch  # noqa: E402
 
 from repro_torch.configs.glm_logreg import CONFIG  # noqa: E402
 from repro_torch.core import (ArrayContext, ClusterSpec, CostModel,  # noqa: E402
-                              FlightRecorder)
+                              Executor, FlightRecorder)
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build, launches, ops, reset_launches  # noqa: E402
 from repro_torch.kernels.flash_attention import (flash_attention_ref, kv_splits,  # noqa: E402
@@ -243,6 +256,19 @@ SERVE_BATCHED = (
     dict(arch="falcon-mamba-7b", slots=4, max_len=2048, requests=8, prompt=(128, 1536),
          new=(8, 24)),
 )
+#: the dense and VLM decoders (serve_dense): each as published (width and
+#: depth) in bf16 with seeded weights, served a batch of prompts through
+#: serve_demo (max_len = prompt_len + gen + 1 = 2065)
+SERVE_DENSE = dict(archs=("gemma3-4b", "gemma-7b", "nemotron-4-15b", "command-r-35b",
+                          "qwen2-vl-7b"), batch=4, prompt_len=2048, gen=16)
+#: each one's f32 leg: full width, 4 layers
+SERVE_DENSE_F32 = dict(layers=4, batch=2, prompt_len=512, gen=8)
+#: the planted fault of a model without a window: this window on every layer
+#: (gemma3-4b's fault is serve_phase's, its local layers' window removed)
+DENSE_FAULT_WINDOW = 1024
+#: block values of at least this many elements that the block phases make
+#: once on the host and hand out again (HostBlocks)
+HOST_BLOCK_MIN = 1 << 20
 #: the train path: hymba-1.5b at its published width and depth, f32 master
 #: weights and AdamW state, bf16 compute, full remat; 1 warm-up step, then
 #: TRAIN["steps"] timed ones, then one step under torch.profiler
@@ -315,6 +341,41 @@ def _release() -> None:
     reference cycles, so only the collector frees its store)."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+class HostBlocks:
+    """The block runtime makes every random block with numpy on the host (the
+    same bits on every backend), seeded by the context's seed and the order
+    of creation, so the block phases create the same blocks again and again:
+    the Newton loop's 8.6 GB X in seven runs, the CP-ALS tensor in two, the
+    DGEMM's operands in two.  Inside this context ``Executor.create`` hands a
+    random or uniform block of at least HOST_BLOCK_MIN elements the array
+    made the first time, as the block's value (which a lineage replay then
+    reuses): the same bits, made once.  What it saves is host time that no
+    phase measures (each phase's clock starts after its operands exist)."""
+
+    def __enter__(self):
+        self.arrays = {}
+        real = self.real = Executor.create
+
+        def create(ex, vid, shape, placement, kind="zeros", value=None, seed=None,
+                   ckpt=None):
+            if (value is None and kind in ("random", "uniform") and ex.mode != "sim"
+                    and math.prod(shape) >= HOST_BLOCK_MIN):
+                key = (kind, seed, tuple(shape))
+                if key not in self.arrays:
+                    rng = np.random.default_rng(seed)
+                    self.arrays[key] = (rng.standard_normal(shape) if kind == "random"
+                                        else rng.random(shape))
+                value = self.arrays[key]
+            return real(ex, vid, shape, placement, kind, value, seed, ckpt)
+
+        Executor.create = create
+        return self
+
+    def __exit__(self, *exc):
+        Executor.create = self.real
+        self.arrays.clear()
 
 
 def time_ms(fn, target_ms: float = 200.0, max_reps: int = 200) -> float:
@@ -521,7 +582,7 @@ def flash_case(name, q, k, v, window, q_offset):
     case = dict(case=name, dtype=str(dtype).replace("torch.", ""),
                 q=list(q.shape), kv=list(k.shape), window=window,
                 q_offset=list(q_offset) if per_row else q_offset,
-                splits=splits, blocks=B * KV * query_tiles(dtype, H // KV, Sq) * splits,
+                splits=splits, blocks=B * KV * query_tiles(dtype, H // KV, Sq, hd) * splits,
                 max_abs_err=err, rel_err=rel, tol=FLASH_TOL[dtype],
                 ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
                 plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, True, window,
@@ -614,6 +675,56 @@ def serve_kernel_phase(dev):
     del dA, dBx, C
     _release()
     return flash, scan
+
+
+def dense_kernel_cases(dev):
+    """The attention kernel at serve_dense's shapes, bf16 unless named:
+    gemma3-4b (hd 256, rep 2) prefill of its global and local layers, a
+    decode step, a ragged decode step over a 4096 cache and an f32 prefill
+    (batch 1); gemma-7b's prefill (hd 256, rep 1); command-r-35b's prefill
+    and decode step (hd 128, rep 8); qwen2-vl-7b's prefill (hd 128, rep 7)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    B, S = SERVE_DENSE["batch"], SERVE_DENSE["prompt_len"]
+    max_len = S + SERVE_DENSE["gen"] + 1
+
+    def u(*shape, dtype=torch.bfloat16):
+        return (torch.rand(shape, device=dev, generator=g) * 2 - 1).to(dtype)
+
+    def heads(arch):
+        cfg = get_config(arch)
+        return cfg, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    cases = []
+    cfg, H, KV, hd = heads("gemma3-4b")
+    q, k, v = u(B, H, S, hd), u(B, KV, max_len, hd), u(B, KV, max_len, hd)
+    cases += [flash_case("gemma3-4b prefill-global bf16", q, k, v, None, 0),
+              flash_case("gemma3-4b prefill-local bf16", q, k, v, cfg.window, 0),
+              flash_case("gemma3-4b decode bf16", q[:, :, :1].contiguous(), k, v, None, S)]
+    q32, k32, v32 = (t[:1].float() for t in (q, k, v))
+    cases.append(flash_case("gemma3-4b prefill-global f32 (batch 1)", q32, k32, v32, None, 0))
+    del q, k, v, q32, k32, v32
+    rows = len(RAGGED["offsets"])
+    q, k, v = u(rows, H, 1, hd), u(rows, KV, RAGGED["max_len"], hd), u(rows, KV,
+                                                                        RAGGED["max_len"], hd)
+    cases.append(flash_case("gemma3-4b decode-ragged bf16", q, k, v, None, RAGGED["offsets"]))
+    del q, k, v
+    _, H, KV, hd = heads("gemma-7b")
+    q, k, v = u(B, H, S, hd), u(B, KV, max_len, hd), u(B, KV, max_len, hd)
+    cases.append(flash_case("gemma-7b prefill-global bf16", q, k, v, None, 0))
+    del q, k, v
+    _release()
+    _, H, KV, hd = heads("command-r-35b")
+    q, k, v = u(B, H, S, hd), u(B, KV, max_len, hd), u(B, KV, max_len, hd)
+    cases += [flash_case("command-r-35b prefill-global bf16", q, k, v, None, 0),
+              flash_case("command-r-35b decode bf16", q[:, :, :1].contiguous(), k, v, None, S)]
+    del q, k, v
+    _release()
+    _, H, KV, hd = heads("qwen2-vl-7b")
+    q, k, v = u(B, H, S, hd), u(B, KV, max_len, hd), u(B, KV, max_len, hd)
+    cases.append(flash_case("qwen2-vl-7b prefill-global bf16", q, k, v, None, 0))
+    del q, k, v
+    _release()
+    return cases
 
 
 def train_shapes():
@@ -1491,15 +1602,15 @@ def fault_obs_phase(dev, smi):
     return n
 
 
-def serve_run(dev, cfg, params, impl, forced=None, gen=None):
-    """One serve_demo run of model ``cfg`` at SERVE's batch and prompt on the
-    card, with its launches and peak memory; the launch counts are set to 0
-    just before it."""
+def serve_run(dev, cfg, params, impl, forced=None, gen=None, spec=SERVE):
+    """One serve_demo run of model ``cfg`` at ``spec``'s batch and prompt on
+    the card, with its launches and peak memory; the launch counts are set
+    to 0 just before it."""
     record = {}
     _release()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    tokens = serve_demo(cfg, SERVE["batch"], SERVE["prompt_len"], gen or SERVE["gen"],
+    tokens = serve_demo(cfg, spec["batch"], spec["prompt_len"], gen or spec["gen"],
                         device=dev,
                         params=params, impl=impl, forced=forced, record=record,
                         log_fn=lambda line: print(f"# {line}", file=sys.stderr))
@@ -1508,11 +1619,13 @@ def serve_run(dev, cfg, params, impl, forced=None, gen=None):
     return record
 
 
-def serve_compare(label, kern, plain, tol):
+def serve_compare(label, kern, plain, tol, spec=SERVE, **fields):
     """Kernel route against plain route, step by step (step 0 is prefill's
-    last position), relative to max|logit| of the plain route."""
+    last position), relative to max|logit| of the plain route, which must
+    not be 0; ``fields`` join the emitted line."""
     lk, lp = kern["logits"], plain["logits"]
     scale = float(np.abs(lp).max())
+    check(scale > 0, f"serve {label}: every logit of the plain route is 0")
     per_step = (np.abs(lk - lp).max(axis=(1, 2)) / scale).tolist()
     finite = bool(np.isfinite(lk).all() and np.isfinite(lp).all())
     res = dict(rel_err_prefill=per_step[0], rel_err_decode_max=max(per_step[1:]),
@@ -1524,18 +1637,19 @@ def serve_compare(label, kern, plain, tol):
                          tokens_per_s=rec["tokens_per_s"],
                          max_memory_allocated=rec["max_memory_allocated"],
                          launches=rec["launches"])
-    emit(f"serve_{label}", arch=SERVE["arch"], batch=SERVE["batch"],
-         prompt_len=SERVE["prompt_len"], gen=SERVE["gen"], max_len=kern["max_len"], **res)
-    check(finite and max(per_step) <= tol, f"serve {label}: rel err {per_step} > {tol}")
+    emit(f"serve_{label}", arch=spec["arch"], batch=spec["batch"],
+         prompt_len=spec["prompt_len"], gen=spec["gen"], max_len=kern["max_len"], **fields,
+         **res)
+    return finite and max(per_step) <= tol
 
 
-def serve_warm_up(dev, cfg):
+def serve_warm_up(dev, cfg, spec=SERVE):
     """Both routes at SERVE_WARM_LAYERS layers and the same shapes, so that
     the timed runs after it find the libraries' kernels for these shapes
     chosen and the allocator's pool grown, whichever route runs first."""
     cfg = dataclasses.replace(cfg, n_layers=SERVE_WARM_LAYERS)
     for impl in ("kernel", "plain"):
-        serve_run(dev, cfg, None, impl)
+        serve_run(dev, cfg, None, impl, spec=spec)
 
 
 def planted_faults(dev, cfg, params, plain):
@@ -1569,7 +1683,8 @@ def serve_phase(dev):
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     kern = serve_run(dev, cfg, params, "kernel")
     plain = serve_run(dev, cfg, params, "plain", forced=kern["tokens"])
-    serve_compare("bf16", kern, plain, SERVE_TOL["bfloat16"])
+    check(serve_compare("bf16", kern, plain, SERVE_TOL["bfloat16"]),
+          "serve bf16: kernel and plain routes part")
     want = {"flash_attention": L * SERVE["gen"], "mamba_scan": L}
     got = {k: kern["launches"][k] for k in want}
     check(got == want, f"serve bf16 kernel launches {got} != {want}")
@@ -1584,7 +1699,8 @@ def serve_phase(dev):
     params = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
     kern = serve_run(dev, cfg32, params, "kernel")
     plain = serve_run(dev, cfg32, params, "plain", forced=kern["tokens"])
-    serve_compare("f32", kern, plain, SERVE_TOL["float32"])
+    check(serve_compare("f32", kern, plain, SERVE_TOL["float32"]),
+          "serve f32: kernel and plain routes part")
     check(np.array_equal(kern["tokens"], plain["tokens"]),
           "serve f32: greedy tokens differ between the routes")
     want = {"flash_attention": cfg32.n_layers * SERVE["gen"], "mamba_scan": cfg32.n_layers}
@@ -1593,6 +1709,93 @@ def serve_phase(dev):
     del params, kern, plain
     _release()
     return main_launches
+
+
+def dense_params(dev, cfg):
+    """Seeded weights on the card.  A layernorm model (nemotron-4-15b) gets
+    every norm's scale set to ones, the layernorm's own init, the same for
+    both routes: under the reference's scheme the final norm's 1-D scale
+    and bias are zero, so every logit would be exactly 0, and each layer's
+    stacked scales are N(0, 1) / sqrt(L), about 0.18, which shrinks every
+    sublayer's input so far that attention hardly reaches the logits (a
+    window of 1024 on every layer moved them by 0.022 of max|logit|, under
+    the rounding limit: NVIDIA H100 80GB HBM3, 700.00 W)."""
+    _release()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    if cfg.norm == "layernorm":
+        for norm in (params["final_norm"], params["layers"]["norm1"],
+                     params["layers"]["norm2"]):
+            norm["scale"] = torch.ones_like(norm["scale"])
+    return params
+
+
+def serve_dense_model(dev, arch):
+    """One dense or VLM decoder as published, bf16: served on the kernel
+    route and on the plain route teacher-forced with the kernel route's
+    tokens (logits within SERVE_TOL, launches exact), a planted fault that
+    the limit must catch (gemma3-4b's local layers without their window;
+    on a model without a window, DENSE_FAULT_WINDOW on every layer), then
+    the f32 leg at full width and SERVE_DENSE_F32's depth (tokens equal).
+    Returns the bf16 kernel run's launches."""
+    cfg = get_config(arch)
+    spec = dict(SERVE_DENSE, arch=arch)
+    L, gen = cfg.n_layers, spec["gen"]
+    serve_warm_up(dev, cfg, spec)
+    params = dense_params(dev, cfg)
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    kern = serve_run(dev, cfg, params, "kernel", spec=spec)
+    plain = serve_run(dev, cfg, params, "plain", forced=kern["tokens"], spec=spec)
+    fault_cfg = (dataclasses.replace(cfg, window=None) if cfg.window is not None else
+                 dataclasses.replace(cfg, window=DENSE_FAULT_WINDOW, local_global_ratio=0))
+    fault = serve_run(dev, fault_cfg, params, "kernel", gen=1, spec=spec)
+    scale = float(np.abs(plain["logits"][0]).max())
+    fault_err = float(np.abs(fault["logits"][0] - plain["logits"][0]).max() / scale)
+    fault_name = "local layers without their window" if cfg.window is not None else \
+        f"window {DENSE_FAULT_WINDOW} on every layer"
+    ok = serve_compare(
+        "dense", kern, plain, SERVE_TOL["bfloat16"], spec, dtype=cfg.dtype, layers=L,
+        d_model=cfg.d_model, head_dim=cfg.resolved_head_dim,
+        rep=cfg.n_heads // cfg.n_kv_heads, params=cfg.param_count(),
+        weight_gb=weight_bytes / 1e9,
+        planted_fault={"fault": fault_name, "rel_err_prefill": fault_err})
+    check(ok, f"serve_dense {arch}: kernel and plain routes part")
+    want = {"flash_attention": L * gen, "mamba_scan": 0}
+    got = {k: kern["launches"][k] for k in want}
+    check(got == want, f"serve_dense {arch} kernel launches {got} != {want}")
+    check(not any(plain["launches"].values()),
+          f"serve_dense {arch} plain route launched kernels: {plain['launches']}")
+    check(fault_err > SERVE_TOL["bfloat16"],
+          f"serve_dense {arch}: the bf16 limit misses the planted fault ({fault_err})")
+    launched = kern["launches"]
+    del params, kern, plain, fault
+
+    cfg32 = dataclasses.replace(cfg, n_layers=SERVE_DENSE_F32["layers"], dtype="float32")
+    spec32 = dict(SERVE_DENSE_F32, arch=arch)
+    params = dense_params(dev, cfg32)
+    kern = serve_run(dev, cfg32, params, "kernel", spec=spec32)
+    plain = serve_run(dev, cfg32, params, "plain", forced=kern["tokens"], spec=spec32)
+    ok = serve_compare("dense_f32", kern, plain, SERVE_TOL["float32"], spec32,
+                       dtype="float32", layers=cfg32.n_layers)
+    check(ok, f"serve_dense f32 {arch}: kernel and plain routes part")
+    check(np.array_equal(kern["tokens"], plain["tokens"]),
+          f"serve_dense f32 {arch}: greedy tokens differ between the routes")
+    want = {"flash_attention": cfg32.n_layers * spec32["gen"], "mamba_scan": 0}
+    check({k: kern["launches"][k] for k in want} == want,
+          f"serve_dense f32 {arch} kernel launches {kern['launches']} != {want}")
+    del params, kern, plain
+    _release()
+    return launched
+
+
+def serve_dense_phase(dev):
+    """The dense and VLM decoders, one model at a time, each freed before the
+    next; returns their bf16 kernel runs' launches, summed."""
+    total = {"flash_attention": 0, "mamba_scan": 0}
+    for arch in SERVE_DENSE["archs"]:
+        launched = serve_dense_model(dev, arch)
+        for k in total:
+            total[k] += launched[k]
+    return total
 
 
 def batched_requests(cfg, spec, seed=0):
@@ -2050,52 +2253,55 @@ def main() -> int:
     matmul_cases, glm_cases = kernel_phase(dev)
     _release()
     flash_cases, scan_cases = serve_kernel_phase(dev)
+    flash_cases += dense_kernel_cases(dev)
     flash_bwd_cases, scan_bwd_cases = train_kernel_phase(dev)
     lap("kernel_cases")
 
-    # the runtime's bitwise contracts at n = 2**16 first: they also warm the
-    # libraries (cuBLAS, cuSOLVER) and the callable cache both backends share
-    contracts(dev)
-    # main path: the Newton loop and the DGEMM, each on the kernels and on
-    # plain torch
-    cuda = newton_run("cuda", dev)
-    plain = newton_run("torch", dev)
-    per_iter = cuda["matmul_dispatches"] // NEWTON["iters"]
-    check(cuda["matmul_launches"] == cuda["matmul_dispatches"] == 96 * NEWTON["iters"],
-          f"matmul launches {cuda['matmul_launches']} vs 2-D matmul dispatches "
-          f"{cuda['matmul_dispatches']}")
-    check(plain["matmul_launches"] == 0, "backend torch launched the matmul kernel")
-    check(cuda["matmul_loaders"]["scalar"] == 0,
-          f"Newton products on the scalar loader: {cuda['matmul_loaders']}")
-    newton_err = {k: _rel(cuda[k], plain[k]) for k in ("beta", "H")}
-    newton_err["g"] = float(np.abs(cuda["g"] - plain["g"]).max() / plain["g_scale"])
-    emit("newton_parity", rel_err=newton_err, rtol=RTOL,
-         g_rel_to_max_g=_rel(cuda["g"], plain["g"]), g_scale=plain["g_scale"],
-         same_schedule=cuda["schedule"] == plain["schedule"],
-         matmul_launches_per_iter=per_iter)
-    check(max(newton_err.values()) <= RTOL, f"Newton parity {newton_err}")
-    check(cuda["schedule"] == plain["schedule"], "Newton schedules differ")
+    # the block phases make their large random blocks once (HostBlocks)
+    with HostBlocks():
+        # the runtime's bitwise contracts at n = 2**16 first: they also warm the
+        # libraries (cuBLAS, cuSOLVER) and the callable cache both backends share
+        contracts(dev)
+        # main path: the Newton loop and the DGEMM, each on the kernels and on
+        # plain torch
+        cuda = newton_run("cuda", dev)
+        plain = newton_run("torch", dev)
+        per_iter = cuda["matmul_dispatches"] // NEWTON["iters"]
+        check(cuda["matmul_launches"] == cuda["matmul_dispatches"] == 96 * NEWTON["iters"],
+              f"matmul launches {cuda['matmul_launches']} vs 2-D matmul dispatches "
+              f"{cuda['matmul_dispatches']}")
+        check(plain["matmul_launches"] == 0, "backend torch launched the matmul kernel")
+        check(cuda["matmul_loaders"]["scalar"] == 0,
+              f"Newton products on the scalar loader: {cuda['matmul_loaders']}")
+        newton_err = {k: _rel(cuda[k], plain[k]) for k in ("beta", "H")}
+        newton_err["g"] = float(np.abs(cuda["g"] - plain["g"]).max() / plain["g_scale"])
+        emit("newton_parity", rel_err=newton_err, rtol=RTOL,
+             g_rel_to_max_g=_rel(cuda["g"], plain["g"]), g_scale=plain["g_scale"],
+             same_schedule=cuda["schedule"] == plain["schedule"],
+             matmul_launches_per_iter=per_iter)
+        check(max(newton_err.values()) <= RTOL, f"Newton parity {newton_err}")
+        check(cuda["schedule"] == plain["schedule"], "Newton schedules differ")
 
-    dg_cuda = dgemm_run("cuda", dev)
-    dg_plain = dgemm_run("torch", dev)
-    dg_err = _rel(dg_cuda["C"], dg_plain["C"])
-    emit("dgemm_parity", rel_err=dg_err, rtol=DGEMM_RTOL,
-         same_schedule=dg_cuda["schedule"] == dg_plain["schedule"])
-    check(dg_err <= DGEMM_RTOL and np.isfinite(dg_cuda["C"]).all(),
-          f"DGEMM rel err {dg_err}")
-    check(dg_cuda["schedule"] == dg_plain["schedule"], "DGEMM schedules differ")
-    check(dg_cuda["launches"]["matmul"] == dg_cuda["matmul_dispatches"] > 0,
-          f"DGEMM launches {dg_cuda['launches']} vs {dg_cuda['matmul_dispatches']}")
-    check(dg_cuda["matmul_loaders"]["scalar"] == 0,
-          f"DGEMM products on the scalar loader: {dg_cuda['matmul_loaders']}")
-    lap("runtime")
-    # the paper's other block workloads (CP-ALS, TSQR, Cholesky, rSVD,
-    # L-BFGS, checkpoints), their products on the kernel on backend cuda
-    block_launches = block_algorithms_phase(dev)
-    lap("block_algorithms")
-    # the block runtime's flight recorder, chaos runtime and calibration
-    fault_obs_launches = fault_obs_phase(dev, smi)
-    lap("fault_obs")
+        dg_cuda = dgemm_run("cuda", dev)
+        dg_plain = dgemm_run("torch", dev)
+        dg_err = _rel(dg_cuda["C"], dg_plain["C"])
+        emit("dgemm_parity", rel_err=dg_err, rtol=DGEMM_RTOL,
+             same_schedule=dg_cuda["schedule"] == dg_plain["schedule"])
+        check(dg_err <= DGEMM_RTOL and np.isfinite(dg_cuda["C"]).all(),
+              f"DGEMM rel err {dg_err}")
+        check(dg_cuda["schedule"] == dg_plain["schedule"], "DGEMM schedules differ")
+        check(dg_cuda["launches"]["matmul"] == dg_cuda["matmul_dispatches"] > 0,
+              f"DGEMM launches {dg_cuda['launches']} vs {dg_cuda['matmul_dispatches']}")
+        check(dg_cuda["matmul_loaders"]["scalar"] == 0,
+              f"DGEMM products on the scalar loader: {dg_cuda['matmul_loaders']}")
+        lap("runtime")
+        # the paper's other block workloads (CP-ALS, TSQR, Cholesky, rSVD,
+        # L-BFGS, checkpoints), their products on the kernel on backend cuda
+        block_launches = block_algorithms_phase(dev)
+        lap("block_algorithms")
+        # the block runtime's flight recorder, chaos runtime and calibration
+        fault_obs_launches = fault_obs_phase(dev, smi)
+        lap("fault_obs")
 
     # main path 2: LM serving, through the attention and scan kernels: one
     # fixed batch, then continuous batching (each slot at its own position)
@@ -2103,6 +2309,10 @@ def main() -> int:
     lap("serve")
     batched_launches = serve_batched_phase(dev)
     lap("serve_batched")
+    # the dense and VLM decoders, through the attention kernel (head dim 256
+    # on gemma3-4b and gemma-7b)
+    dense_launches = serve_dense_phase(dev)
+    lap("serve_dense")
     # main path 3: LM training, through the attention and scan kernels and
     # their backward kernels
     train_launches = train_phase(dev)
@@ -2113,12 +2323,12 @@ def main() -> int:
     # cuda (like the reference's backend, it never routes to glm_fused, held
     # against its plain version above at the main path's shapes), the bf16
     # serve run through the kernels, the bf16 continuous-batching runs of
-    # both models, and the train run
+    # both models, the dense decoders' bf16 runs, and the train run
     main_launches = {k: cuda["launches"][k] + dg_cuda["launches"][k]
                      for k in ("matmul", "glm_fused")}
     main_launches["matmul"] += block_launches + fault_obs_launches
-    main_launches.update({k: serve_launches[k] + batched_launches[k] + train_launches[k]
-                          for k in ("flash_attention", "mamba_scan")})
+    main_launches.update({k: serve_launches[k] + batched_launches[k] + dense_launches[k]
+                          + train_launches[k] for k in ("flash_attention", "mamba_scan")})
     main_launches.update({k: train_launches[k]
                           for k in ("flash_attention_bwd", "mamba_scan_bwd")})
     check(main_launches["matmul"] > 0, f"main-path launches {main_launches}")

@@ -1,6 +1,8 @@
 """Workload configurations: the paper's own GLM workload (``glm_logreg``)
 and the LM zoo's architectures that the port runs so far (``hymba-1.5b``,
-served and trained; ``falcon-mamba-7b``, served).
+served and trained; ``falcon-mamba-7b`` and the dense and VLM decoders
+``gemma3-4b``, ``gemma-7b``, ``nemotron-4-15b``, ``command-r-35b`` and
+``qwen2-vl-7b``, served).
 
 Each module exports ``CONFIG`` (exact published sizes).  ``get_config(id)``
 and ``list_archs()`` are the programmatic API, as in ``repro.configs``; an
@@ -14,16 +16,16 @@ from typing import List
 _PORTED = {
     "hymba-1.5b": "hymba_1p5b",
     "falcon-mamba-7b": "falcon_mamba_7b",
+    "gemma3-4b": "gemma3_4b",
+    "gemma-7b": "gemma_7b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "command-r-35b": "command_r_35b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
     "glm_logreg": "glm_logreg",
 }
 
 #: the reference's other architectures, with the ROADMAP item that ports them
 _LATER = {
-    "gemma-7b": "Queue 1 item 6 (dense configs with head_dim 256)",
-    "gemma3-4b": "Queue 1 item 6 (dense configs with head_dim 256)",
-    "nemotron-4-15b": "Queue 1 item 6 (nemotron-4-15b: layernorm, relu^2)",
-    "command-r-35b": "Queue 1 item 6 (dense configs)",
-    "qwen2-vl-7b": "Queue 1 item 6 (qwen2-vl-7b: mrope)",
     "whisper-small": "Queue 1 item 6 (whisper-small: cross and non-causal attention)",
     "qwen3-moe-235b-a22b": "Queue 1 item 6 (the MoE configs)",
     "phi3.5-moe-42b-a6.6b": "Queue 1 item 6 (the MoE configs)",

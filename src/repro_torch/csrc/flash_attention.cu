@@ -24,10 +24,13 @@
 //   Four warps of 16 rows; a block's 64 rows are rows f = position * rep +
 //   head of its kv head (position-major, as in the dK/dV kernel), so every
 //   row of a tile is used whatever rep is.  Q is staged once; key/value
-//   tiles of 64 keys (32 at hd 128) come by 16-byte cp.async into padded
+//   tiles of 64 keys (32 above hd 64) come by 16-byte cp.async into padded
 //   bf16 shared memory, two tiles in flight.  S = Q K^T runs on mma.sync
-//   m16n8k16 bf16 x bf16 -> f32 (Q's fragments held in registers, K's by
-//   ldmatrix); the online softmax runs on the f32 accumulators in
+//   m16n8k16 bf16 x bf16 -> f32 (K's fragments by ldmatrix; Q's held in
+//   registers up to hd 128, and at hd 256, where they would take 64
+//   registers beside the accumulator's 128, loaded by ldmatrix from the
+//   staged Q at every k-step, as FlashAttention-2 does there); the online
+//   softmax runs on the f32 accumulators in
 //   registers, a row's max and sum shared by the four lanes that hold it;
 //   P is rounded to bf16 only as the A operand of O += P V, taken straight
 //   from the accumulators, with V read by ldmatrix.trans.  A warp skips a
@@ -38,7 +41,10 @@
 //   threads is rows x key groups; each thread keeps its row's output
 //   accumulator in registers (and its query there too up to hd 64, in
 //   shared memory above); with few rows the groups split each key tile and
-//   are merged through shared memory at the end.
+//   are merged through shared memory at the end.  At hd 256 a row's
+//   accumulator would not fit one thread's registers: flash_fwd_wide_kernel
+//   splits the head dim over a group of four threads (64 dims each), which
+//   reduce each q.k product with two __shfl_xor steps.
 // - Decode (split-KV): when the grid, B * KV * query tiles, is too small to
 //   fill the card, the wrapper asks for `splits` > 1.  Each block then
 //   covers one of `splits` contiguous ranges of whole key tiles of its
@@ -341,6 +347,165 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// f32 at hd 256: a row's head dim split over a group of threads
+// ---------------------------------------------------------------------------
+
+constexpr int TPR = 4;               // threads per row
+constexpr int WIDE_ROWS = NT / TPR;  // rows per block, rep x positions
+constexpr int WIDE_BC = 32;          // keys per tile
+constexpr int WIDE_CH = 8;           // keys per softmax update
+
+template <int HD>
+constexpr size_t wide_smem_floats() {  // two key/value tiles and the query rows
+  return static_cast<size_t>(2 * WIDE_BC + WIDE_ROWS) * (HD + 4);
+}
+
+// Thread t of a row's group owns the float4 chunks t, t + TPR, ... of the
+// head dim (neighbouring threads on neighbouring chunks): HD / TPR values of
+// the accumulator, and the same share of each q.k product, which two
+// __shfl_xor steps sum (in the same order on all four lanes, so they agree
+// bitwise).  Every lane runs every product, masked rows too, so the
+// shuffles always find the whole warp; a row's m and l are kept by all four.
+template <int HD>
+__global__ void __launch_bounds__(NT) flash_fwd_wide_kernel(const FlashArgs a) {
+  constexpr int LD = HD + 4;          // padded row, in floats (16-byte aligned)
+  constexpr int NV = HD / (4 * TPR);  // float4 chunks per thread
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Ks = smem;
+  float* Vs = smem + WIDE_BC * LD;
+  float* Qs = smem + 2 * WIDE_BC * LD;  // the block's query rows, scaled
+
+  const int tid = threadIdx.x;
+  const int r = tid / TPR, t = tid % TPR;  // this thread's row and its place in the group
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int split = blockIdx.x % a.splits;
+  const int q0 = blockIdx.x / a.splits * a.bq;
+  const int pos_l = r / a.rep;
+  const int qpos = q0 + pos_l;
+  const bool row_ok = r < a.rows && pos_l < a.bq && qpos < a.Sq;
+  const int h = kvh * a.rep + r % a.rep;
+  const int q_offset = row_offset(a, b);
+  const int qabs = qpos + q_offset;
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb;
+  for (int i = tid; i < WIDE_ROWS * HD; i += NT) {
+    const int rr = i / HD, d = i % HD;
+    const int pl = rr / a.rep, qp = q0 + pl;
+    const bool ok = rr < a.rows && pl < a.bq && qp < a.Sq;
+    const int hh = kvh * a.rep + rr % a.rep;
+    Qs[rr * LD + d] =
+        ok ? qb[hh * a.q_sh + static_cast<int64_t>(qp) * a.q_ss + d] * a.scale : 0.0f;
+  }
+
+  // keys any row of this block may see, in tiles; this split's share
+  const int q_last = min(q0 + a.bq, a.Sq) - 1 + q_offset;
+  int k_end = a.Skv;
+  if (a.causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (a.window > 0) k_begin = max(0, q0 + q_offset - a.window + 1);
+  k_begin = (k_begin / WIDE_BC) * WIDE_BC;
+  int t_lo, t_hi;
+  split_tiles(k_end > k_begin ? (k_end - k_begin + WIDE_BC - 1) / WIDE_BC : 0, split,
+              a.splits, t_lo, t_hi);
+
+  // this row's visible keys: [lo, hi), empty for a row past the last
+  int hi = row_ok ? a.Skv : 0;
+  if (a.causal) hi = min(hi, qabs + 1);
+  const int lo = a.window > 0 ? qabs - a.window + 1 : 0;
+
+  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const float4* qv = reinterpret_cast<const float4*>(Qs + r * LD);
+
+  float m = -INFINITY, l = 0.0f;
+  float acc[4 * NV];
+#pragma unroll
+  for (int i = 0; i < 4 * NV; ++i) acc[i] = 0.0f;
+
+  for (int k0 = k_begin + t_lo * WIDE_BC; k0 < k_begin + t_hi * WIDE_BC; k0 += WIDE_BC) {
+    __syncthreads();  // the previous tile is consumed (and the query rows stored)
+    for (int i = tid; i < WIDE_BC * HD; i += NT) {
+      const int j = i / HD, d = i % HD;
+      const int kj = k0 + j;
+      float kv = 0.0f, vv = 0.0f;
+      if (kj < a.Skv) {
+        kv = kb[static_cast<int64_t>(kj) * a.k_ss + d];
+        vv = vb[static_cast<int64_t>(kj) * a.v_ss + d];
+      }
+      Ks[j * LD + d] = kv;
+      Vs[j * LD + d] = vv;
+    }
+    __syncthreads();
+    for (int j0 = 0; j0 < WIDE_BC; j0 += WIDE_CH) {
+      float s[WIDE_CH];
+      float mc = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < WIDE_CH; ++c) {
+        const int j = j0 + c;
+        const float4* kr = reinterpret_cast<const float4*>(Ks + j * LD);
+        float dot = 0.0f;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          const float4 kk = kr[t + TPR * i];
+          const float4 qq = qv[t + TPR * i];
+          dot = fmaf(qq.x, kk.x, dot);
+          dot = fmaf(qq.y, kk.y, dot);
+          dot = fmaf(qq.z, kk.z, dot);
+          dot = fmaf(qq.w, kk.w, dot);
+        }
+        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+        const int kj = k0 + j;
+        s[c] = kj >= lo && kj < hi ? dot : -INFINITY;
+        mc = fmaxf(mc, s[c]);
+      }
+      if (mc == -INFINITY) continue;  // no visible key in this chunk (no shuffle follows)
+      const float m_new = fmaxf(m, mc);
+      const float alpha = expf(m - m_new);  // 0 while m is -inf
+      l *= alpha;
+#pragma unroll
+      for (int i = 0; i < 4 * NV; ++i) acc[i] *= alpha;
+#pragma unroll
+      for (int c = 0; c < WIDE_CH; ++c) {
+        if (s[c] == -INFINITY) continue;
+        const float p = expf(s[c] - m_new);
+        l += p;
+        const float4* vr = reinterpret_cast<const float4*>(Vs + (j0 + c) * LD);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          const float4 vv = vr[t + TPR * i];
+          acc[4 * i] = fmaf(p, vv.x, acc[4 * i]);
+          acc[4 * i + 1] = fmaf(p, vv.y, acc[4 * i + 1]);
+          acc[4 * i + 2] = fmaf(p, vv.z, acc[4 * i + 2]);
+          acc[4 * i + 3] = fmaf(p, vv.w, acc[4 * i + 3]);
+        }
+      }
+      m = m_new;
+    }
+  }
+
+  if (!row_ok) return;
+  const int64_t row = (static_cast<int64_t>(b) * a.KV * a.rep + h) * a.Sq + qpos;
+  const bool part = a.splits > 1;
+  const float inv = part ? 1.0f : (l > 0.0f ? 1.0f / l : 0.0f);  // no key seen: 0
+  float* dst = part ? ws_acc(a, split, row, HD)
+                    : static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh +
+                          static_cast<int64_t>(qpos) * a.o_ss;
+#pragma unroll
+  for (int i = 0; i < NV; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[4 * (t + TPR * i) + e] = acc[4 * i + e] * inv;
+  if (t != 0) return;
+  if (part) {  // this split's partial: (m, l, unnormalised O)
+    *ws_m(a, split, row, HD) = m;
+    *ws_l(a, split, row, HD) = l;
+  } else if (a.lse != nullptr) {
+    a.lse[row] = row_lse(m, l);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
@@ -354,6 +519,9 @@ struct FwdTiles {
   static constexpr int CH = HD / 8;               // 16-byte chunks per row
   static constexpr int STAGES = 2;                // key/value tiles in flight
   static constexpr int SMEM = (ROWS + STAGES * 2 * BKV) * LDS * 2;
+  // a warp keeps its Q fragments in registers for the whole key loop up to
+  // hd 128; at hd 256 they stay in shared memory (see the note at the top)
+  static constexpr bool Q_IN_REGS = HD <= 128;
 };
 
 template <int HD>
@@ -440,7 +608,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(const FlashArgs a) {
   for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-  uint32_t qf[HD / 16][4];  // Q's A fragments, loaded with the first tile
+  uint32_t qf[TL::Q_IN_REGS ? HD / 16 : 1][4];  // Q's A fragments, loaded with the first tile
 
   for (int t = 0; t < n_tiles; ++t) {
     tc::cp_async_wait<ST - 2>();
@@ -448,9 +616,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(const FlashArgs a) {
     if (t + ST - 1 < n_tiles) load_keys(t + ST - 1, (t + ST - 1) % ST);  // t - 1's stage
     tc::cp_async_commit();
     const int stage = t % ST;
-    if (t == 0) {
+    if constexpr (TL::Q_IN_REGS) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) tc::load_a<LDS>(qf[kk], Qs + warp * 16 * LDS, kk, lane);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          tc::load_a<LDS>(qf[kk], Qs + warp * 16 * LDS, kk, lane);
+      }
     }
 
     const int kt0 = kt_first + t * BKV;
@@ -465,8 +636,12 @@ __global__ void __launch_bounds__(NT) flash_fwd_mma_kernel(const FlashArgs a) {
     for (int n = 0; n < BKV / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+    if constexpr (TL::Q_IN_REGS) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) tc::qk_step<LDS, BKV / 8>(s, qf[kk], Kt, kk, lane);
+      for (int kk = 0; kk < HD / 16; ++kk) tc::qk_step<LDS, BKV / 8>(s, qf[kk], Kt, kk, lane);
+    } else {
+      tc::qk_product<HD, LDS, BKV / 8>(s, Qs + warp * 16 * LDS, Kt, lane);
+    }
 
     // a tile whose every key this warp's rows see whole needs no mask
     const bool full = r_first + 15 < rows_ok && kt0 + BKV <= a.Skv &&
@@ -599,12 +774,21 @@ int set_smem(const void* kernel, size_t bytes) {
 
 template <int HD>
 int launch_f32(const FlashArgs& a, int B, cudaStream_t stream) {
-  const size_t bytes = smem_floats<HD>() * sizeof(float);
-  const int e = set_smem(reinterpret_cast<const void*>(flash_fwd_kernel<HD>), bytes);
-  if (e != 0) return e;
   const int64_t blocks = static_cast<int64_t>((a.Sq + a.bq - 1) / a.bq) * a.splits;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  flash_fwd_kernel<HD><<<dim3(static_cast<unsigned>(blocks), a.KV, B), NT, bytes, stream>>>(a);
+  const dim3 grid(static_cast<unsigned>(blocks), a.KV, B);
+  if constexpr (HD > 128) {  // the head dim split over a group of threads
+    if (a.rows > WIDE_ROWS) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t bytes = wide_smem_floats<HD>() * sizeof(float);
+    const int e = set_smem(reinterpret_cast<const void*>(flash_fwd_wide_kernel<HD>), bytes);
+    if (e != 0) return e;
+    flash_fwd_wide_kernel<HD><<<grid, NT, bytes, stream>>>(a);
+  } else {
+    const size_t bytes = smem_floats<HD>() * sizeof(float);
+    const int e = set_smem(reinterpret_cast<const void*>(flash_fwd_kernel<HD>), bytes);
+    if (e != 0) return e;
+    flash_fwd_kernel<HD><<<grid, NT, bytes, stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -640,6 +824,8 @@ int launch_combine(const FlashArgs& a, int B, int hd, cudaStream_t s) {
 
 // Launches the forward kernel and, when splits > 1, the combine kernel after
 // it on the same stream; ws then holds splits * B * H * Sq * (hd + 2) floats.
+// `rows` (f32 only: rows per block, a power of two, at least rep) is at
+// most NT, and at most WIDE_ROWS at hd 256.
 // q_offsets, when not null, is a device array of B int32 offsets >= 0, one
 // per batch row, read in place of q_offset; the host chose `splits` from the
 // largest of them.
@@ -663,6 +849,7 @@ extern "C" int repro_flash_attention(
     case 32: e = launch_hd<32>(dtype, a, B, s); break;
     case 64: e = launch_hd<64>(dtype, a, B, s); break;
     case 128: e = launch_hd<128>(dtype, a, B, s); break;
+    case 256: e = launch_hd<256>(dtype, a, B, s); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e != 0 || splits == 1) return e;

@@ -751,10 +751,11 @@ extern "C" int repro_flash_attention_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e = dtype == REPRO_BF16 ? launch_delta<bf16>(hd, a, s) : launch_delta<float>(hd, a, s);
   if (e != 0) return e;
-  switch (hd) {
+  switch (hd) {  // a head dim without a template is refused, never run as another
     case 16: return launch_grads<16>(dtype, a, s);
     case 32: return launch_grads<32>(dtype, a, s);
     case 64: return launch_grads<64>(dtype, a, s);
-    default: return launch_grads<128>(dtype, a, s);
+    case 128: return launch_grads<128>(dtype, a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -15,7 +15,8 @@ also return each row's log-sum-exp of scaled scores, lse (B, H, Sq) f32
 (-inf for a row that sees no key), which the backward
 (``flash_attention_bwd``) recomputes the probabilities from.
 
-On the card, bf16 runs a tensor-core kernel and f32 a scalar one.  When
+On the card, bf16 runs a tensor-core kernel and f32 a scalar one (at head
+dim 256 one that splits a row's head dim over four threads).  When
 their grid (B * KV * query tiles) is too small to fill the card, as at every
 decode step, the keys are split into ``kv_splits`` contiguous ranges: one
 launch then runs two device kernels, the partials per range and their
@@ -37,9 +38,12 @@ from . import build
 #: dtype codes of csrc/common.cuh that the kernel takes
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 #: head dims the kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 #: threads per block; keep in step with csrc/flash_attention.cu
 THREADS = 128
+#: rows of an f32 block at hd 256, where four threads share a row's head dim
+#: (WIDE_ROWS in csrc/flash_attention.cu); so the most query heads per kv head
+WIDE_ROWS = 32
 #: rows of a bf16 block: four warps of 16 (tensor-core tiles)
 BF16_ROWS = 64
 #: streaming multiprocessors of the H100: a grid of fewer blocks splits the keys
@@ -97,10 +101,12 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse.reshape(B, H, Sq)
 
 
-def block_rows(rep: int, Sq: int) -> Tuple[int, int]:
+def block_rows(rep: int, Sq: int, hd: int = 64) -> Tuple[int, int]:
     """(rows, bq): rows per f32 block — the rep query heads of one kv head at
-    bq positions — a power of two of at most THREADS."""
-    rows = min(THREADS, 1 << max(0, rep * Sq - 1).bit_length())
+    bq positions — a power of two of at most THREADS (WIDE_ROWS at hd 256,
+    where a row takes four threads)."""
+    cap = WIDE_ROWS if hd > 128 else THREADS
+    rows = min(cap, 1 << max(0, rep * Sq - 1).bit_length())
     return rows, rows // rep
 
 
@@ -109,12 +115,12 @@ def key_tile(hd: int) -> int:
     return 64 if hd <= 64 else 32
 
 
-def query_tiles(dtype: torch.dtype, rep: int, Sq: int) -> int:
+def query_tiles(dtype: torch.dtype, rep: int, Sq: int, hd: int = 64) -> int:
     """Query tiles per (batch, kv head): bf16 blocks take BF16_ROWS of the
     Sq * rep rows (position-major), f32 blocks bq whole positions."""
     if dtype == torch.bfloat16:
         return -(-Sq * rep // BF16_ROWS)
-    return -(-Sq // block_rows(rep, Sq)[1])
+    return -(-Sq // block_rows(rep, Sq, hd)[1])
 
 
 def key_range(Sq: int, Skv: int, causal: bool, window: Optional[int], q_offset: int,
@@ -144,7 +150,7 @@ def kv_splits(dtype: torch.dtype, B: int, KV: int, rep: int, Sq: int, Skv: int, 
     """Key ranges per query tile: 1 when B * KV * query tiles fills the
     card's SMS multiprocessors, else enough for about two blocks per
     multiprocessor, at most one per key tile of the visible range."""
-    blocks = B * KV * query_tiles(dtype, rep, Sq)
+    blocks = B * KV * query_tiles(dtype, rep, Sq, hd)
     if blocks >= SMS:
         return 1
     _, n_tiles = key_tiles(Sq, Skv, causal, window, q_offset, key_tile(hd))
@@ -258,7 +264,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype == torch.bfloat16:  # a view at an odd offset: copy it aligned
         q, k, v = (t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
                    for t in (q, k, v))
-    rows, _ = block_rows(rep, Sq)
+    # rows per block are the f32 kernels'; the bf16 kernel only checks rows >= rep
+    rows, _ = block_rows(rep, Sq, hd if q.dtype == torch.float32 else 64)
     splits = kv_splits(q.dtype, B, KV, rep, Sq, Skv, hd, causal, window, q_offset)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse

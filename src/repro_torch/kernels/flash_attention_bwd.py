@@ -32,6 +32,9 @@ from .flash_attention import DTYPE_CODES, rows_aligned, visible
 THREADS = 128
 #: rows of a bf16 dQ block: four warps of 16 (tensor-core tiles)
 BF16_ROWS = 64
+#: head dims the backward kernels are instantiated for (the forward also
+#: takes 256)
+HEAD_DIMS = (16, 32, 64, 128)
 
 _fn = None
 
@@ -47,9 +50,15 @@ def dq_rows(hd: int, dtype: torch.dtype = torch.float32) -> int:
 
 def check_launch(q: torch.Tensor, k: torch.Tensor) -> None:
     """Raise where the kernels cannot take q (B, H, Sq, hd) over k (B, KV,
-    Skv, hd): more query heads per kv head than a dQ block has rows, or a
-    kv head's Sq x rep query rows past the int32 range."""
+    Skv, hd): a head dim without a kernel (``NotImplementedError``: hd 256,
+    whose dK/dV accumulators do not fit registers as the kernels hold them),
+    more query heads per kv head than a dQ block has rows, or a kv head's
+    Sq x rep query rows past the int32 range."""
     rep, hd = q.shape[1] // k.shape[1], q.shape[3]
+    if hd not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: no kernel at head dim {hd} on the card yet: ROADMAP "
+            "Queue 1 item 6 (train the dense configs: the attention backward at hd 256)")
     rows = dq_rows(hd, q.dtype)
     if rep > rows:
         raise ValueError(f"flash_attention_bwd: {rep} query heads per kv head; the "

@@ -2,6 +2,7 @@
 batch of prompts, then greedy-decode.
 
     python -m repro_torch.launch.serve --device cpu           # reduced hymba-1.5b
+    python -m repro_torch.launch.serve --arch gemma3-4b --device cpu
     python -m repro_torch.launch.serve --full --batch 8 --prompt-len 2048 --gen 32
 
 The model runs on the card unless ``--device cpu`` is given.  Attention and
@@ -9,7 +10,10 @@ the prefill scan go through the hand-written kernels (their plain versions
 on the CPU).  ``--full`` serves the published configuration; without it the
 reduced one (``cfg.reduced()``).  Weights are random, from a seeded
 ``torch.Generator`` on the device; prompts come from numpy with the same
-seed, as in the reference driver.
+seed, as in the reference's ``launch/serve.py``: token ids, or for a model
+that takes embeddings (``cfg.embed_inputs``, qwen2-vl-7b's stub vision
+frontend) standard-normal (batch, prompt_len, d_model) embeddings.
+Decoding feeds token ids either way.
 """
 from __future__ import annotations
 
@@ -27,10 +31,15 @@ from repro_torch.models.transformer import _leaves
 from repro_torch.train import make_prefill
 
 
-def make_prompts(cfg, batch: int, prompt_len: int, seed: int = 0) -> np.ndarray:
-    """(batch, prompt_len) token ids from numpy, as the reference draws them."""
+def make_prompts(cfg, batch: int, prompt_len: int, seed: int = 0) -> Dict[str, np.ndarray]:
+    """The prefill batch from numpy, as the reference's ``launch/serve.py``
+    draws it: ``{"embeds": (batch, prompt_len, d_model) float64}`` standard
+    normal for a model that takes embeddings, else ``{"tokens": (batch,
+    prompt_len)}`` ids."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int64)
+    if cfg.embed_inputs:
+        return {"embeds": rng.standard_normal((batch, prompt_len, cfg.d_model))}
+    return {"tokens": rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int64)}
 
 
 def _sync(dev: torch.device) -> None:
@@ -66,13 +75,15 @@ def serve_demo(cfg: ModelConfig, batch: int = 4, prompt_len: int = 16, gen: int 
                          f"(batch, gen) = {(batch, gen)}")
     max_len = prompt_len + gen + 1
     prefill_fn = make_prefill(cfg, max_len=max_len, impl=impl)
-    tokens = torch.from_numpy(make_prompts(cfg, batch, prompt_len, seed)).to(dev)
+    prompts = {k: torch.from_numpy(v).to(dev, getattr(torch, cfg.dtype) if k == "embeds"
+                                         else torch.int64)
+               for k, v in make_prompts(cfg, batch, prompt_len, seed).items()}
     forced_t = None if forced is None else torch.from_numpy(
         np.asarray(forced, np.int64)).to(dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill_fn(params, {"tokens": tokens})
+    logits, cache = prefill_fn(params, prompts)
     steps = [logits[:, -1]]
     _sync(dev)
     t1 = time.perf_counter()

@@ -1,6 +1,6 @@
 """Transformer building blocks (counterpart of ``repro.models.layers``):
-norms, RoPE, GQA attention (causal and sliding-window), MLP variants, logit
-soft-capping.
+norms, RoPE and M-RoPE, GQA attention (causal and sliding-window), MLP
+variants, logit soft-capping.
 
 All functions are pure apart from the KV-cache update, which writes the new
 keys and values into the cache tensors in place (the reference returns an
@@ -85,15 +85,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def apply_mrope(x, positions, theta, sections):
-    raise NotImplementedError("M-RoPE (qwen2-vl-7b) is not ported yet: ROADMAP "
-                              "Queue 1 item 6 (qwen2-vl-7b: mrope)")
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): positions (3, B, S), the temporal, height
+    and width streams, each rotating its own band of ``sections`` of the
+    hd/2 frequencies (in that order); half-split rotation as in
+    ``apply_rope``."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to head_dim/2 = {half}")
+    freqs = _rope_freqs(hd, theta, x.device)                  # (half,)
+    band = torch.repeat_interleave(torch.arange(len(sections), device=x.device),
+                                   torch.tensor(sections, device=x.device))
+    pos = positions.float()[band]                             # (half, B, S)
+    ang = pos.permute(1, 2, 0) * freqs                        # (B, S, half)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
 
 
 def position_embed(x, positions, cfg):
+    """RoPE or M-RoPE by ``cfg.rope``.  M-RoPE takes (3, B, S) positions, or
+    (B, S) ones (text, or one decode step's (B, 1) per-row positions),
+    which it gives all three streams."""
     if cfg.rope == "none" or positions is None:
         return x
     if cfg.rope == "mrope":
+        if positions.ndim == 2:
+            positions = positions[None].expand((3,) + tuple(positions.shape))
         return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 
@@ -200,8 +221,8 @@ def attention_scores(
         raise ValueError(f"attention_scores: impl must be one of {IMPLS}, got {impl!r}")
     if softcap is not None:
         raise NotImplementedError("attention logit soft-capping is not in the "
-                                  "flash-attention kernel yet: ROADMAP Queue 1 item 6 "
-                                  "(dense configs with head_dim 256)")
+                                  "flash-attention kernel (nor in the reference's): ROADMAP "
+                                  "Queue 1 item 6 (attention logit soft-capping)")
     if not isinstance(mask, CausalMask):
         raise NotImplementedError(
             "the flash-attention kernel takes causal masks (CausalMask); cross-attention "

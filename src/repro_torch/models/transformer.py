@@ -167,18 +167,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters on the generator's device, by the reference's
     scheme: 1-D leaves zero, every other leaf N(0, 1) / sqrt(shape[-2]) drawn
     in f32 (stacked layer leaves included, so stacked norm scales are
-    random); SSM A_log = log(1..N), D = 1, dt_bias = -4.6.  The numbers
-    differ from the reference's (another generator); carry the reference's
-    weights with ``interop.params_from_jax`` to compare like with like."""
+    random); SSM A_log = log(1..N), D = 1, dt_bias = -4.6.  A stacked layer
+    leaf (L, ...) is drawn one layer's slice at a time, so the f32 draw
+    never holds more than one layer of it (command-r-35b's (40, 8192, 22528)
+    MLP leaves would take 29.5 GB each whole).  The numbers differ from the
+    reference's (another generator); carry the reference's weights with
+    ``interop.params_from_jax`` to compare like with like."""
     dt = getattr(torch, dtype or cfg.dtype)
     dev = generator.device
+
+    def draw(shape, fan_in):
+        return (torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
+                / math.sqrt(fan_in)).to(dt)
+
     params: Dict[str, Any] = {}
     for path, shape in _leaves(param_shapes(cfg)):
         if len(shape) == 1:
             leaf = torch.zeros(shape, dtype=dt, device=dev)
+        elif "layers" in path:
+            leaf = torch.empty(shape, dtype=dt, device=dev)
+            for i in range(shape[0]):
+                leaf[i] = draw(shape[1:], shape[-2])
         else:
-            leaf = (torch.randn(shape, generator=generator, dtype=torch.float32, device=dev)
-                    / math.sqrt(shape[-2])).to(dt)
+            leaf = draw(shape, shape[-2])
         node = params
         for k in path[:-1]:
             node = node.setdefault(k, {})

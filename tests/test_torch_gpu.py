@@ -798,3 +798,125 @@ def test_continuous_batcher_on_card_equals_standalone_decode(cuda_device):
         want = torch.stack(rows).cpu().numpy()
         assert out[rid] == want.argmax(-1).tolist(), rid
         assert np.abs(record["logits"][rid] - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# head dim 256 (gemma3-4b, gemma-7b) and the dense decoders' rep 6/7/8
+# ---------------------------------------------------------------------------
+
+HD256_CASES = [  # B, H, KV, Sq, Skv, hd, window, q_offset
+    (2, 8, 4, 300, 333, 256, None, 0),      # gemma3-4b heads (rep 2), ragged cache
+    (2, 8, 4, 300, 333, 256, 100, 0),       # ... a local layer
+    (2, 4, 4, 64, 64, 256, None, 0),        # gemma-7b's rep 1
+    (1, 12, 2, 77, 120, 256, None, 43),     # rep 6, queries at an offset
+    (1, 14, 2, 50, 50, 256, 16, 0),         # rep 7, a window
+    (2, 16, 2, 40, 100, 256, None, 60),     # rep 8
+    (3, 8, 4, 1, 2065, 256, None, 2048),    # decode: split-KV
+    (3, 8, 4, 1, 2065, 256, 1024, 2048),    # decode, local
+    (2, 16, 2, 1, 500, 256, None, 499),     # decode, rep 8
+    (2, 64, 8, 1, 2065, 128, None, 2048),   # command-r-35b's decode (rep 8, hd 128)
+    (1, 28, 4, 70, 100, 128, None, 30),     # qwen2-vl-7b's rep 7 at hd 128
+    (1, 48, 8, 33, 33, 128, None, 0),       # nemotron-4-15b's rep 6 at hd 128
+]
+
+
+@pytest.mark.parametrize("case", HD256_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_dense_decoder_shapes_vs_plain(cuda_device, case, dtype):
+    """Output and lse against the plain one-pass and split versions; two
+    launches give the same bits."""
+    B, H, KV, Sq, Skv, hd, window, pos = case
+    q = _uniform(51, (B, H, Sq, hd), cuda_device, dtype)
+    k = _uniform(52, (B, KV, Skv, hd), cuda_device, dtype)
+    v = _uniform(53, (B, KV, Skv, hd), cuda_device, dtype)
+    kw = dict(causal=True, window=window, q_offset=pos)
+    reset_launches()
+    got, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    again, lse2 = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == 2
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    assert got.dtype == dtype and got.shape == q.shape
+    if Sq == 1:
+        assert kv_splits(dtype, B, KV, H // KV, Sq, Skv, hd, True, window, pos) > 1
+    for plain in (flash_attention_ref, flash_attention_split_ref):
+        ref, lse_ref = plain(q, k, v, True, window, pos, return_lse=True)
+        assert _rel_err(got, ref) <= FLASH_TOL[dtype], _rel_err(got, ref)
+        assert (lse - lse_ref).abs().max().item() <= 1e-5 * lse_ref.abs().max().item()
+
+
+@pytest.mark.parametrize("window", [None, 100], ids=["global", "local"])
+@pytest.mark.parametrize("sq,offsets", [(1, (0, 100, 700, 1023)), (70, (0, 100, 263, 900))],
+                         ids=["decode", "prefill"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_hd256_per_row_offsets_vs_plain(cuda_device, dtype, sq, offsets,
+                                                        window):
+    B, H, KV, hd, Skv = 4, 8, 4, 256, 1024
+    q = _uniform(54, (B, H, sq, hd), cuda_device, dtype)
+    k = _uniform(55, (B, KV, Skv, hd), cuda_device, dtype)
+    v = _uniform(56, (B, KV, Skv, hd), cuda_device, dtype)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=True, window=window, q_offset=off)
+    got, lse = ops.flash_attention(q, k, v, max_offset=max(offsets), return_lse=True, **kw)
+    torch.cuda.synchronize()
+    for plain in (flash_attention_ref, flash_attention_split_ref):
+        ref, lse_ref = plain(q, k, v, return_lse=True, **kw)
+        assert _rel_err(got, ref) <= FLASH_TOL[dtype]
+        finite = torch.isfinite(lse_ref)
+        assert torch.equal(finite, torch.isfinite(lse))
+        assert (lse - lse_ref)[finite].abs().max().item() <= \
+            1e-5 * lse_ref[finite].abs().max().item()
+
+
+def test_flash_attention_hd256_f32_refuses_more_heads_than_a_block_has_rows(cuda_device):
+    q = torch.zeros(1, 33, 4, 256, device=cuda_device)
+    k = torch.zeros(1, 1, 4, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="at most 32"):
+        ops.flash_attention(q, k, k)
+    got = ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())  # bf16 takes it
+    torch.cuda.synchronize()
+    assert not got.float().abs().any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_backward_at_hd256_raises_on_the_card(cuda_device, dtype):
+    """The backward kernels have no hd-256 template: the wrapper and the
+    autograd Function raise instead of running another head dim's kernel;
+    the plain backward on the CPU still runs."""
+    q = _uniform(57, (1, 4, 40, 256), cuda_device, dtype)
+    k = _uniform(58, (1, 2, 40, 256), cuda_device, dtype)
+    out, lse = ops.flash_attention(q, k, k, return_lse=True)
+    with pytest.raises(NotImplementedError, match="attention backward at hd 256"):
+        ops.flash_attention_bwd(q, k, k, out, lse, out)
+    qg, kg = q.clone().requires_grad_(), k.clone().requires_grad_()
+    fwd = ops.flash_attention(qg, kg, kg)
+    with pytest.raises(NotImplementedError, match="attention backward at hd 256"):
+        fwd.float().sum().backward()
+    cpu = [t.detach().cpu() for t in (q, k, out, lse)]
+    dq, dk, dv = ops.flash_attention_bwd(cpu[0], cpu[1], cpu[1], cpu[2], cpu[3], cpu[2])
+    assert dq.shape == cpu[0].shape and torch.isfinite(dk.float()).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_serve_at_hd256_on_card_kernel_route_matches_plain(cuda_device, dtype):
+    """Reduced gemma3-4b with head dim 256 and 6 layers (layer 5 global),
+    prompt longer than its window: every layer's attention launched the
+    kernel, and the plain route, teacher-forced with the kernel route's
+    tokens, gives the same logits (1e-4 of max|logit| at f32, 0.1 at bf16,
+    chip_smoke.py's serve tolerances)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_demo
+
+    cfg = dataclasses.replace(get_config("gemma3-4b").reduced(), n_layers=6, head_dim=256,
+                              dtype=dtype)
+    rec_k, rec_p = {}, {}
+    reset_launches()
+    toks = serve_demo(cfg, 2, 40, 6, device="cuda", record=rec_k, log_fn=lambda *a: None)
+    assert launches["flash_attention"] == 6 * 6 and launches["mamba_scan"] == 0
+    reset_launches()
+    serve_demo(cfg, 2, 40, 6, device="cuda", impl="plain", forced=toks, record=rec_p,
+               log_fn=lambda *a: None)
+    assert launches["flash_attention"] == 0
+    lk, lp = rec_k["logits"], rec_p["logits"]
+    tol = 1e-4 if dtype == "float32" else 0.1
+    assert np.isfinite(lk).all() and np.abs(lk - lp).max() <= tol * np.abs(lp).max()

@@ -160,9 +160,10 @@ def _lm_feature(name):
     if name == "moe":
         cfg, params = _hymba(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
         return forward(params, tokens, cfg)
-    if name == "mrope":
-        cfg, params = _hymba(rope="mrope", mrope_sections=(2, 3, 3))
-        return forward(params, tokens, cfg)
+    if name == "cross-attention":
+        cfg, params = _hymba()
+        h = torch.zeros(1, 4, cfg.d_model)
+        return layers.attention_block(params["layers"]["attn"], h, cfg, None, None, kv_x=h)
     if name == "encdec":
         cfg, params = _hymba()
         return forward(params, tokens, dataclasses.replace(cfg, encdec=True))
@@ -197,10 +198,10 @@ def _lm_feature(name):
 
 
 @pytest.mark.parametrize("feature", [
-    ("lm", "moe"), ("lm", "mrope"), ("lm", "encdec"), ("lm", "softcap"),
+    ("lm", "moe"), ("lm", "cross-attention"), ("lm", "encdec"), ("lm", "softcap"),
     ("lm", "non-causal mask"), ("lm", "Rules"),
     ("lm", "sharded steps"), ("lm", "sharded train step"), ("lm", "activation_rules"),
-    ("lm", "gemma3-4b"), ("lm", "whisper-small"),
+    ("lm", "phi3.5-moe-42b-a6.6b"), ("lm", "whisper-small"),
     ("lm", "qwen3-moe-235b-a22b"),
 ], ids=lambda f: f[1])
 def test_features_of_later_slices_raise(feature):

@@ -3,9 +3,11 @@ the reference (``repro.serve``), and the per-row query offsets it rests on.
 
 Models: hymba-1.5b reduced to 8 layers (layer 7 is its first global layer,
 so the reference sizes its caches at max_len rather than at the window of
-16, ROADMAP Queue 3 (f)) and falcon-mamba-7b reduced, both f32, with the
-reference's own weights (``repro.models.init_params(cfg, PRNGKey(0))``)
-carried across with ``params_from_jax``.  The port's ``ContinuousBatcher``
+16, ROADMAP Queue 3 (f)), gemma3-4b reduced to 6 layers (layer 5 global;
+sliding-window and global attention, no SSM), falcon-mamba-7b and
+qwen2-vl-7b (M-RoPE) reduced, all f32, with the reference's own weights
+(``repro.models.init_params(cfg, PRNGKey(0))``) carried across with
+``params_from_jax``.  The port's ``ContinuousBatcher``
 must return exactly the reference batcher's token lists and each request's
 own standalone decode (the reference's ``tests/test_serving.py`` cases,
 ported); per-row attention agrees with the reference's oracle row by row
@@ -38,9 +40,10 @@ from repro_torch.serve import ContinuousBatcher
 ATTN_TOL = 2e-5
 LOGIT_TOL = 1e-4
 MAX_LEN = 64
-#: (prompt lengths, new tokens, slots) per model: hymba's cross its window
-#: of 16, as the reference's own gemma3 case crosses gemma3's
-CASES = {"hymba-1.5b": ((5, 21, 13, 30), 6, 2), "falcon-mamba-7b": ((4, 6, 5), 4, 2)}
+#: (prompt lengths, new tokens, slots) per model: hymba's and gemma3's cross
+#: their window of 16, as the reference's own gemma3 case crosses gemma3's
+CASES = {"hymba-1.5b": ((5, 21, 13, 30), 6, 2), "falcon-mamba-7b": ((4, 6, 5), 4, 2),
+         "gemma3-4b": ((5, 21, 13, 30), 6, 2), "qwen2-vl-7b": ((4, 9, 6), 4, 2)}
 
 
 def _model(arch, n_layers=None):
@@ -56,7 +59,8 @@ def _model(arch, n_layers=None):
 
 @pytest.fixture(scope="module")
 def models():
-    return {"hymba-1.5b": _model("hymba-1.5b", 8), "falcon-mamba-7b": _model("falcon-mamba-7b")}
+    return {"hymba-1.5b": _model("hymba-1.5b", 8), "falcon-mamba-7b": _model("falcon-mamba-7b"),
+            "gemma3-4b": _model("gemma3-4b", 6), "qwen2-vl-7b": _model("qwen2-vl-7b")}
 
 
 def _prompts(cfg, lengths, seed):
