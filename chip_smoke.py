@@ -70,6 +70,16 @@ both (CUDA events), then drives the main paths at full width:
   window of 1024 on every layer; gemma3-4b's local layers unwindowed)
   shown to exceed it, launch counts exact, and an f32 leg at full width
   and 4 layers with the same tokens;
+- the encoder-decoder: whisper-small as published (12 encoder + 12
+  decoder layers, d 768, bf16, seeded weights) serves 8 requests of 1500
+  frames (30 s of audio; the stub frontend's frames drawn by numpy) with a
+  4-token prompt and 64 generated tokens through ``make_prefill`` and
+  ``make_serve_step``: the encoder's attention and every decoder layer's
+  cross-attention on the flash-attention kernel without a mask (split-KV
+  at decode), self-attention causal, launches exact; the plain route
+  teacher-forced within the bf16 serve tolerance, a planted fault (the
+  encoder's attention made causal) beyond it, an f32 leg at 2 + 2 layers
+  with the same tokens;
 - LM training: hymba-1.5b at its published configuration (1.66 B
   parameters, f32 master weights and AdamW state, bf16 compute, full remat)
   trains on batches of 4 x 2048 tokens through ``train_loop`` (1 warm-up
@@ -80,7 +90,12 @@ both (CUDA events), then drives the main paths at full width:
   (the window dropped in the backward kernel only) exceeds, and in f32 at
   8 layers to 1e-4; two backward runs give the same bits.  The first two
   of those steps run again on the plain route (the same schedule), and
-  both loss curves are printed.
+  both loss curves are printed.  Then gemma3-4b at its published width
+  (d 2560, head dim 256, 262144-token vocabulary) cut to 12 layers (two
+  5:1 groups; at full depth its f32 masters and AdamW state alone take 62
+  GB) trains the same way (``train_dense``: 1 + 3 steps, launches exact),
+  its gradients held to the plain route at 12 layers (a planted fault
+  caught) and in f32 at 6 layers, bitwise across two runs.
 
 Each phase prints one JSON line (a matmul case also names the loader it
 took, vector or scalar; an attention-backward case the device time of each
@@ -92,7 +107,9 @@ Newton or DGEMM product on the scalar loader.  The attention forward is timed
 at prefill and at decode, where it splits the keys (two device kernels per
 call, whose device times a decode case also reports), also with one offset
 per row (``decode-ragged``: 8 slots at their own positions), and at the
-dense decoders' shapes (head dim 256, 6 to 8 query heads per kv head); the
+dense decoders' shapes (head dim 256, 6 to 8 query heads per kv head) and
+whisper-small's with no mask (the encoder, cross prefill and decode); the
+attention backward at hymba-1.5b's and gemma3-4b's train shapes; the
 scan forward with its checkpoints written, and the scan backward on both
 its routes (from the forward's checkpoints, the one training takes, and
 without them), which must give the same bits.  The block phases make each
@@ -145,7 +162,8 @@ from repro_torch.obs import analyze, drift_report, run_calibration  # noqa: E402
 from repro_torch.obs.calibrate import fastest_retires  # noqa: E402
 from repro_torch.serve import ContinuousBatcher  # noqa: E402
 from repro_torch.sharding.plans import SINGLE_CARD  # noqa: E402
-from repro_torch.train import DataConfig, TokenPipeline, make_grad_fn  # noqa: E402
+from repro_torch.train import (DataConfig, TokenPipeline, make_grad_fn,  # noqa: E402
+                               make_prefill, make_serve_step)
 from repro_torch.models.transformer import _leaves  # noqa: E402
 
 #: published peaks of one H100 SXM (dense, at the full 700 W limit)
@@ -291,6 +309,22 @@ TRAIN_PLAIN_LAYERS = 32
 TRAIN_PLAIN_STEPS = 2
 #: the f32 gradient check: full width, 8 layers (layer 7 global), batch 1
 TRAIN_F32 = dict(layers=8, batch=1)
+#: the dense train path (train_dense): gemma3-4b at its published width, cut
+#: to 12 layers (two whole 5:1 groups: 10 local, 2 global), because at full
+#: depth 3.88 B parameters x 16 bytes of f32 masters, gradients and AdamW
+#: moments (62 GB) and the bf16 copy and the 262144-wide logits pass the
+#: card's 80 GB; otherwise as TRAIN but for the peak lr, 1e-3 (at TRAIN's
+#: 1e-2 the loss rose from 11.6 to 31.5 at step 4 on an NVIDIA H100 80GB
+#: HBM3 at 700.00 W)
+TRAIN_DENSE = dict(arch="gemma3-4b", layers=12, batch=4, seq=2048, warm=1, steps=3, lr=1e-3)
+#: its f32 gradient check: full width, 6 layers (layer 5 global), batch 1
+TRAIN_DENSE_F32 = dict(layers=6, batch=1)
+#: the encoder-decoder serve path (serve_whisper): whisper-small as published
+#: (12 + 12 layers), bf16, seeded weights; 8 requests of 30 s of audio (1500
+#: frames at 20 ms: the enc_max_len users feed), a 4-token prompt, 64 tokens
+SERVE_WHISPER = dict(arch="whisper-small", batch=8, frames=1500, prompt_len=4, gen=64)
+#: its f32 leg: full width, 2 + 2 layers, the same requests
+SERVE_WHISPER_F32 = dict(layers=2, enc_layers=2)
 #: train path, kernel route against plain route on the same weights and
 #: batch: loss and every gradient leaf, relative to the leaf's max|g|.  bf16:
 #: the plain route is the reference's model attention, which rounds scores
@@ -546,10 +580,11 @@ def serve_shapes():
                 DI=cfg.ssm.d_inner(cfg.d_model), N=cfg.ssm.d_state)
 
 
-def flash_case(name, q, k, v, window, q_offset):
+def flash_case(name, q, k, v, window, q_offset, causal=True):
     """One attention case; ``q_offset`` an int, or a tuple of per-row offsets
     (handed to the kernel as a (B,) int32 tensor on the card with its host
-    max, as continuous batching hands them)."""
+    max, as continuous batching hands them); ``causal`` False sees every
+    key (whisper's encoder and cross-attention)."""
     dtype = q.dtype
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
@@ -558,16 +593,16 @@ def flash_case(name, q, k, v, window, q_offset):
     if per_row:
         offset = torch.tensor(q_offset, dtype=torch.int32, device=q.device)
         host_max = max(q_offset)
-    kw = dict(causal=True, window=window, q_offset=offset,
+    kw = dict(causal=causal, window=window, q_offset=offset,
               max_offset=host_max if per_row else None)
     got = ops.flash_attention(q, k, v, **kw)
     again = ops.flash_attention(q, k, v, **kw)
-    ref = flash_attention_ref(q, k, v, True, window, offset)
+    ref = flash_attention_ref(q, k, v, causal, window, offset)
     sync()
     check(torch.equal(got, again), f"flash_attention {name}: two launches differ")
     err = (got.float() - ref.float()).abs().max().item()
     rel = err / ref.float().abs().max().item()
-    mask = visible(Sq, Skv, True, window, offset, q.device)  # (B,) Sq, Skv
+    mask = visible(Sq, Skv, causal, window, offset, q.device)  # (B,) Sq, Skv
     rows = mask if per_row else mask.expand(B, Sq, Skv)
     pairs = int(rows.sum().item())               # (query, key) pairs this run needs
     keys = int(rows.any(dim=1).sum().item())     # keys any query of each row sees
@@ -578,14 +613,14 @@ def flash_case(name, q, k, v, window, q_offset):
                                * q.element_size(), dtype)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=sdpa_mask, enable_gqa=True)
-    splits = kv_splits(dtype, B, KV, H // KV, Sq, Skv, hd, True, window, host_max)
+    splits = kv_splits(dtype, B, KV, H // KV, Sq, Skv, hd, causal, window, host_max)
     case = dict(case=name, dtype=str(dtype).replace("torch.", ""),
-                q=list(q.shape), kv=list(k.shape), window=window,
+                q=list(q.shape), kv=list(k.shape), causal=causal, window=window,
                 q_offset=list(q_offset) if per_row else q_offset,
                 splits=splits, blocks=B * KV * query_tiles(dtype, H // KV, Sq, hd) * splits,
                 max_abs_err=err, rel_err=rel, tol=FLASH_TOL[dtype],
                 ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
-                plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, True, window,
+                plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal, window,
                                                              offset)),
                 library_ms=time_ms(library), library="scaled_dot_product_attention",
                 bound_ms=bound_ms, bound_by=bound_by, peak=PEAK_NAME[dtype])
@@ -727,6 +762,34 @@ def dense_kernel_cases(dev):
     return cases
 
 
+def whisper_kernel_cases(dev):
+    """The attention kernel at serve_whisper's shapes, no mask (whisper-small:
+    12 heads, rep 1, hd 64): the encoder over SERVE_WHISPER's frames (1500,
+    a ragged length), cross-attention at prefill (the prompt's queries over
+    the frames) and at a decode step (one query: split-KV), bf16; and the
+    encoder in f32 (batch 1)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    cfg = get_config(SERVE_WHISPER["arch"])
+    B, T, P = SERVE_WHISPER["batch"], SERVE_WHISPER["frames"], SERVE_WHISPER["prompt_len"]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def u(*shape, dtype=torch.bfloat16):
+        return (torch.rand(shape, device=dev, generator=g) * 2 - 1).to(dtype)
+
+    q, k, v = u(B, H, T, hd), u(B, KV, T, hd), u(B, KV, T, hd)
+    cases = [flash_case("whisper-small encoder bf16", q, k, v, None, 0, causal=False),
+             flash_case("whisper-small cross-prefill bf16", q[:, :, :P].contiguous(), k, v,
+                        None, 0, causal=False),
+             flash_case("whisper-small cross-decode bf16", q[:, :, :1].contiguous(), k, v,
+                        None, 0, causal=False)]
+    q32, k32, v32 = (t[:1].float() for t in (q, k, v))
+    cases.append(flash_case("whisper-small encoder f32 (batch 1)", q32, k32, v32, None, 0,
+                            causal=False))
+    del q, k, v, q32, k32, v32
+    _release()
+    return cases
+
+
 def train_shapes():
     """The train path's attention and scan shapes: hymba-1.5b's heads, state
     and window at TRAIN's batch and sequence."""
@@ -821,9 +884,9 @@ def scan_bwd_case(name, dA, dBx, C, dy):
 
 
 def train_kernel_phase(dev):
-    """Both backward kernels at the train path's shapes: attention of the
-    global and the local layers (bf16) and of a global layer in f32, and
-    the scan's backward."""
+    """Both backward kernels at the train paths' shapes: attention of
+    hymba-1.5b's global and local layers (bf16) and of a global layer in
+    f32, gemma3-4b's (head dim 256) likewise, and the scan's backward."""
     g = torch.Generator(device=dev).manual_seed(2)
     sh = train_shapes()
     B, S, H, KV, hd = sh["B"], sh["S"], sh["H"], sh["KV"], sh["hd"]
@@ -841,6 +904,17 @@ def train_kernel_phase(dev):
             flash.append(flash_bwd_case("train-local bf16", q, k, v, sh["window"]))
         del q, k, v
         _release()
+    # gemma3-4b at train_dense's shapes: head dim 256, rep 2
+    cfg = get_config(TRAIN_DENSE["arch"])
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    Bd, Sd = TRAIN_DENSE["batch"], TRAIN_DENSE["seq"]
+    q, k, v = (u(Bd, n, Sd, hd, dtype=torch.bfloat16) for n in (H, KV, KV))
+    flash.append(flash_bwd_case("gemma3-4b train-global bf16", q, k, v, None))
+    flash.append(flash_bwd_case("gemma3-4b train-local bf16", q, k, v, cfg.window))
+    q, k, v = (t[:1].float() for t in (q, k, v))
+    flash.append(flash_bwd_case("gemma3-4b train-global f32 (batch 1)", q, k, v, None))
+    del q, k, v
+    _release()
     N, DI = sh["N"], sh["DI"]
     dA = torch.rand(B, S, DI, N, device=dev, generator=g) * 0.49 + 0.5
     dBx = torch.rand(B, S, DI, N, device=dev, generator=g) * 2 - 1
@@ -1712,9 +1786,10 @@ def serve_phase(dev):
 
 
 def dense_params(dev, cfg):
-    """Seeded weights on the card.  A layernorm model (nemotron-4-15b) gets
-    every norm's scale set to ones, the layernorm's own init, the same for
-    both routes: under the reference's scheme the final norm's 1-D scale
+    """Seeded weights on the card.  A layernorm model (nemotron-4-15b,
+    whisper-small: its encoder's norms and cross norms too) gets every
+    norm's scale set to ones, the layernorm's own init, the same for both
+    routes: under the reference's scheme the final norm's 1-D scale
     and bias are zero, so every logit would be exactly 0, and each layer's
     stacked scales are N(0, 1) / sqrt(L), about 0.18, which shrinks every
     sublayer's input so far that attention hardly reaches the logits (a
@@ -1723,9 +1798,10 @@ def dense_params(dev, cfg):
     _release()
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
     if cfg.norm == "layernorm":
-        for norm in (params["final_norm"], params["layers"]["norm1"],
-                     params["layers"]["norm2"]):
-            norm["scale"] = torch.ones_like(norm["scale"])
+        for tree in [params] + ([params["encoder"]] if cfg.encdec else []):
+            for norm in [tree["final_norm"]] + [g for name, g in tree["layers"].items()
+                                                if name.startswith("norm")]:
+                norm["scale"] = torch.ones_like(norm["scale"])
     return params
 
 
@@ -1796,6 +1872,141 @@ def serve_dense_phase(dev):
         for k in total:
             total[k] += launched[k]
     return total
+
+
+def whisper_inputs(dev, cfg, spec, seed=0):
+    """SERVE_WHISPER's requests from numpy, as the reference driver draws an
+    encoder-decoder's (frames first, then prompt tokens), at its frames."""
+    rng = np.random.default_rng(seed)
+    frames = rng.standard_normal((spec["batch"], spec["frames"], cfg.d_model))
+    tokens = rng.integers(0, cfg.vocab, (spec["batch"], spec["prompt_len"]))
+    return {"frames": torch.from_numpy(frames).to(dev, getattr(torch, cfg.dtype)),
+            "tokens": torch.from_numpy(tokens).to(dev)}
+
+
+def whisper_serve(dev, cfg, params, inputs, impl, gen):
+    """Prefill and ``gen - 1`` greedy decode steps through the serving entry
+    points (``make_prefill``, ``make_serve_step``): tokens, times, launches
+    (prefill's, and the decode steps' together) and peak memory, in the
+    fields ``serve_compare`` reads; the launch counts are set to 0 just
+    before the run."""
+    max_len = SERVE_WHISPER["prompt_len"] + gen + 1
+    prefill_fn = make_prefill(cfg, max_len=max_len, impl=impl)
+    step_fn = make_serve_step(cfg, impl=impl)
+    _release()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill_fn(params, inputs)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    sync()
+    t1 = time.perf_counter()
+    prefill_launches = launches["flash_attention"]
+    toks = [tok]
+    for _ in range(gen - 1):
+        tok, cache = step_fn(params, tok, cache)
+        toks.append(tok)
+    tokens = torch.cat(toks, dim=1).cpu().numpy()
+    t2 = time.perf_counter()
+    return dict(tokens=tokens, prefill_s=t1 - t0, decode_s_per_token=(t2 - t1) / (gen - 1),
+                tokens_per_s=tokens.size / (t2 - t0), max_len=max_len,
+                launches={"prefill": prefill_launches,
+                          "decode": launches["flash_attention"] - prefill_launches},
+                max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+
+
+def whisper_logits(cfg, params, inputs, impl, forced):
+    """Every step's logits (f32 on the host) of prefill and the decode steps
+    teacher-forced with ``forced`` (B, n) tokens: n + 1 steps, or prefill's
+    alone when ``forced`` has no column."""
+    logits, cache = make_prefill(cfg, max_len=SERVE_WHISPER["prompt_len"] + forced.shape[1] + 1,
+                                 impl=impl)(params, inputs)
+    steps = [logits[:, -1].float()]
+    for i in range(forced.shape[1]):
+        logits, cache = decode_step(params, forced[:, i:i + 1], cache, cfg, impl=impl)
+        steps.append(logits[:, -1].float())
+    return torch.stack(steps).cpu().numpy()
+
+
+def whisper_routes(dev, cfg, params, inputs):
+    """Both routes served (``whisper_serve``), then both teacher-forced with
+    the kernel route's tokens for every step's logits."""
+    runs = [whisper_serve(dev, cfg, params, inputs, impl, SERVE_WHISPER["gen"])
+            for impl in ("kernel", "plain")]
+    forced = torch.from_numpy(runs[0]["tokens"][:, :-1]).to(dev)
+    for rec, impl in zip(runs, ("kernel", "plain")):
+        rec["logits"] = whisper_logits(cfg, params, inputs, impl, forced)
+    return runs
+
+
+def serve_whisper_phase(dev):
+    """whisper-small as published (bf16), SERVE_WHISPER's requests: the
+    encoder, every decoder layer's self- and cross-attention on the
+    attention kernel (no mask for the encoder and cross), served through
+    make_prefill / make_serve_step with launches exact (per prefill 12
+    encoder + 12 self + 12 cross, per decode step 12 + 12); the plain route
+    teacher-forced with those tokens within SERVE_TOL of max|logit|; a
+    planted fault (the encoder's attention made causal) beyond it; an f32
+    leg at full width and 2 + 2 layers with equal tokens.  Returns the
+    bf16 kernel run's launches."""
+    spec = SERVE_WHISPER
+    cfg = get_config(spec["arch"])
+    inputs = whisper_inputs(dev, cfg, spec)
+    warm = dataclasses.replace(cfg, n_layers=SERVE_WARM_LAYERS, n_enc_layers=SERVE_WARM_LAYERS)
+    warm_params = dense_params(dev, warm)
+    for impl in ("kernel", "plain"):
+        whisper_serve(dev, warm, warm_params, inputs, impl, 2)
+    del warm_params
+    params = dense_params(dev, cfg)
+    kern, plain = whisper_routes(dev, cfg, params, inputs)
+
+    # planted fault: the encoder's attention (its only Sq == Skv no-mask call) causal
+    real = ops.flash_attention
+
+    def causal_encoder(q, k, v, **kw):
+        if not kw.get("causal", True) and q.shape[2] == k.shape[2]:
+            kw["causal"] = True
+        return real(q, k, v, **kw)
+
+    ops.flash_attention = causal_encoder
+    try:
+        fault = whisper_logits(cfg, params, inputs, "kernel", torch.zeros(
+            (spec["batch"], 0), dtype=torch.long, device=dev))
+    finally:
+        ops.flash_attention = real
+    fault_err = float(np.abs(fault[0] - plain["logits"][0]).max()
+                      / np.abs(plain["logits"][0]).max())
+    L, Le, gen = cfg.n_layers, cfg.n_enc_layers, spec["gen"]
+    ok = serve_compare("whisper", kern, plain, SERVE_TOL["bfloat16"], spec, dtype=cfg.dtype,
+                       frames=spec["frames"], layers=[Le, L], params=cfg.param_count(),
+                       planted_fault={"fault": "the encoder's attention causal",
+                                      "rel_err_prefill": fault_err})
+    check(ok, "serve_whisper: kernel and plain routes part")
+    want = {"prefill": Le + 2 * L, "decode": 2 * L * (gen - 1)}
+    check(kern["launches"] == want, f"serve_whisper launches {kern['launches']} != {want}")
+    check(plain["launches"] == {"prefill": 0, "decode": 0},
+          f"serve_whisper plain route launched kernels: {plain['launches']}")
+    check(fault_err > SERVE_TOL["bfloat16"],
+          f"serve_whisper: the bf16 limit misses the planted fault ({fault_err})")
+    launched = {"flash_attention": sum(kern["launches"].values())}
+    del params, kern, plain
+
+    cfg32 = dataclasses.replace(cfg, n_layers=SERVE_WHISPER_F32["layers"],
+                                n_enc_layers=SERVE_WHISPER_F32["enc_layers"], dtype="float32")
+    inputs = whisper_inputs(dev, cfg32, spec)
+    params = dense_params(dev, cfg32)
+    kern, plain = whisper_routes(dev, cfg32, params, inputs)
+    ok = serve_compare("whisper_f32", kern, plain, SERVE_TOL["float32"], spec,
+                       dtype="float32", layers=[cfg32.n_enc_layers, cfg32.n_layers])
+    check(ok and np.array_equal(kern["tokens"], plain["tokens"]),
+          "serve_whisper f32: the routes part or their greedy tokens differ")
+    want = {"prefill": cfg32.n_enc_layers + 2 * cfg32.n_layers,
+            "decode": 2 * cfg32.n_layers * (gen - 1)}
+    check(kern["launches"] == want, f"serve_whisper f32 launches {kern['launches']} != {want}")
+    del params, inputs, kern, plain
+    _release()
+    return launched
 
 
 def batched_requests(cfg, spec, seed=0):
@@ -1981,12 +2192,21 @@ def serve_batched_phase(dev):
 TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd")
 
 
-def train_run(dev):
-    """hymba-1.5b trained through ``train_loop`` on the kernel route: one
-    warm-up step, TRAIN["steps"] timed ones, then one under torch.profiler.
-    The launch counts are set to 0 just before the run and read (and set to
-    0 again) after every step.  Returns the launches of the whole run."""
-    cfg = get_config(TRAIN["arch"])
+def train_launches_per_step(cfg):
+    """Kernel launches of one train step under full remat: each layer's
+    attention and scan forward twice (forward and recompute), backward once."""
+    L, scan = cfg.n_layers, cfg.ssm is not None
+    return {"flash_attention": 2 * L, "flash_attention_bwd": L,
+            "mamba_scan": 2 * L if scan else 0, "mamba_scan_bwd": L if scan else 0}
+
+
+def train_run(dev, cfg, spec, tag, n_leaves):
+    """Model ``cfg`` trained through ``train_loop`` on the kernel route at
+    ``spec``'s batch, sequence and lr: one warm-up step, spec["steps"] timed
+    ones, then one under torch.profiler.  The launch counts are set to 0
+    just before the run and read (and set to 0 again) after every step.
+    Emits ``train_{tag}kernel`` and ``train_{tag}profile``; returns the
+    launches of the whole run and the steps."""
     L = cfg.n_layers
     steps = []
 
@@ -1997,7 +2217,7 @@ def train_run(dev):
 
     profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                   torch.profiler.ProfilerActivity.CUDA])
-    last_timed = TRAIN["warm"] + TRAIN["steps"] - 1
+    last_timed = spec["warm"] + spec["steps"] - 1
 
     def on_step_profiled(step, metrics):
         on_step(step, metrics)
@@ -2009,34 +2229,34 @@ def train_run(dev):
     _release()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
-    state, history = train_loop(TRAIN["arch"], steps=last_timed + 2,
-                                batch=TRAIN["batch"], seq=TRAIN["seq"], reduced=False,
-                                lr=TRAIN["lr"], log_every=1, device=dev,
+    state, history = train_loop(cfg, steps=last_timed + 2,
+                                batch=spec["batch"], seq=spec["seq"], reduced=False,
+                                lr=spec["lr"], log_every=1, device=dev,
                                 on_step=on_step_profiled,
                                 log_fn=lambda line: print(f"# {line}", file=sys.stderr))
     n_params = sum(t.numel() for _, t in _leaves(state["params"]))
-    n_leaves = len(list(_leaves(state["params"])))
+    got_leaves = len(list(_leaves(state["params"])))
     del state
     _release()
-    timed = steps[TRAIN["warm"]:last_timed + 1]
+    timed = steps[spec["warm"]:last_timed + 1]
     s_per_step = sum(st["s"] for st in timed) / len(timed)
     profile = train_profile(profiler, steps[-1]["s"])
-    want = {"flash_attention": 2 * L, "flash_attention_bwd": L, "mamba_scan": 2 * L,
-            "mamba_scan_bwd": L}
-    emit("train_kernel", arch=TRAIN["arch"], n_layers=L, d_model=cfg.d_model,
-         params=n_params, leaves=n_leaves, batch=TRAIN["batch"], seq=TRAIN["seq"],
+    want = train_launches_per_step(cfg)
+    emit(f"train_{tag}kernel", arch=spec["arch"], n_layers=L, d_model=cfg.d_model,
+         params=n_params, leaves=got_leaves, batch=spec["batch"], seq=spec["seq"],
          dtype=cfg.dtype, master="float32", remat=SINGLE_CARD.remat,
-         s_per_step=s_per_step, tokens_per_s=TRAIN["batch"] * TRAIN["seq"] / s_per_step,
+         s_per_step=s_per_step, tokens_per_s=spec["batch"] * spec["seq"] / s_per_step,
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
          steps=[{k: st[k] for k in ("step", "s", "loss", "grad_norm", "lr", "launches",
                                     "max_memory_allocated")} for st in steps],
          launches_per_step_expected=want)
-    emit("train_profile", **profile)
+    emit(f"train_{tag}profile", **profile)
     check(all(np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"]) for st in steps),
-          f"train: non-finite loss or grad norm {history}")
-    check(n_leaves == 21, f"train: {n_leaves} parameter leaves, not 21")
+          f"train {spec['arch']}: non-finite loss or grad norm {history}")
+    check(got_leaves == n_leaves,
+          f"train {spec['arch']}: {got_leaves} parameter leaves, not {n_leaves}")
     for st in steps:
-        check(st["launches"] == want, f"train step {st['step']} launches "
+        check(st["launches"] == want, f"train {spec['arch']} step {st['step']} launches "
                                       f"{st['launches']} != {want}")
     return {k: sum(st["launches"][k] for st in steps) for k in TRAIN_KERNELS}, steps
 
@@ -2051,8 +2271,9 @@ def train_plain_curve(dev, kernel_steps):
     steps = []
     _release()
     reset_launches()
-    state, _ = train_loop(TRAIN["arch"], steps=TRAIN_PLAIN_STEPS, batch=TRAIN["batch"],
-                          seq=TRAIN["seq"], reduced=False, lr=TRAIN["lr"], log_every=1,
+    state, _ = train_loop(get_config(TRAIN["arch"]), steps=TRAIN_PLAIN_STEPS,
+                          batch=TRAIN["batch"], seq=TRAIN["seq"], reduced=False,
+                          lr=TRAIN["lr"], log_every=1,
                           schedule_steps=len(kernel_steps), device=dev, impl="plain",
                           on_step=lambda step, metrics: steps.append(dict(metrics, step=step)),
                           log_fn=lambda line: print(f"# {line}", file=sys.stderr))
@@ -2132,41 +2353,39 @@ def train_compare(label, kern, plain, tol):
     return per_leaf
 
 
-def train_phase(dev):
-    """Training hymba-1.5b through the kernels (``train_run``) and the same
-    steps on the plain route (``train_plain_curve``), then the gradients of
-    one step on the same weights and first batch: two kernel
-    runs bitwise equal, the kernel route against the plain route (bf16, at
-    TRAIN_PLAIN_LAYERS), a planted fault caught, and f32 at 8 layers.
-    Returns the launches of the train run (the main path's)."""
-    main_launches, kernel_steps = train_run(dev)
-    train_plain_curve(dev, kernel_steps)
-    cfg = get_config(TRAIN["arch"])
+def grad_checks(dev, cfg, spec, tag, plain_layers, f32):
+    """The gradients of one step of ``cfg`` (full remat, bf16 compute on f32
+    masters) on train_loop's first batch and weights: two kernel runs
+    bitwise equal, the kernel route against the plain route at
+    ``plain_layers`` (TRAIN_TOL), a planted fault that the limit must catch
+    (the local layers' window dropped in the backward kernel only), then
+    f32 at full width and ``f32["layers"]`` (1e-4, launches exact).
+    Emitted as ``train_{tag}...``."""
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype="float32")
-    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=TRAIN["seq"],
-                                    global_batch=TRAIN["batch"]))
+    pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=spec["seq"],
+                                    global_batch=spec["batch"]))
     batch = batch_to(next(pipe), dev)  # train_loop's first batch, on its weights
 
-    # determinism: the same backward twice at the published depth
+    # determinism: the same backward twice at the train run's depth
     first = _grads(cfg, params, batch, "kernel", "bfloat16")
     second = _grads(cfg, params, batch, "kernel", "bfloat16")
     same = (torch.equal(first[0], second[0])
             and all(torch.equal(a, b) for (_, a), (_, b) in zip(first[1], second[1])))
-    emit("train_determinism", n_layers=cfg.n_layers, bitwise_equal=same,
+    emit(f"train_{tag}determinism", n_layers=cfg.n_layers, bitwise_equal=same,
          kernel_s=[first[2], second[2]])
-    check(same, "train: two backward runs on the card differ")
+    check(same, f"train {spec['arch']}: two backward runs on the card differ")
     del second
 
-    cut = dataclasses.replace(cfg, n_layers=TRAIN_PLAIN_LAYERS)
-    cparams = _cut(params, TRAIN_PLAIN_LAYERS)
-    kern = first if TRAIN_PLAIN_LAYERS == cfg.n_layers else _grads(cut, cparams, batch,
-                                                                   "kernel", "bfloat16")
+    cut = dataclasses.replace(cfg, n_layers=plain_layers)
+    cparams = _cut(params, plain_layers)
+    kern = first if plain_layers == cfg.n_layers else _grads(cut, cparams, batch, "kernel",
+                                                             "bfloat16")
     del first
     reset_launches()
     plain = _grads(cut, cparams, batch, "plain", "bfloat16")
     check(all(launches[k] == 0 for k in TRAIN_KERNELS),
           f"train plain route launched kernels: {dict(launches)}")
-    train_compare("bf16", kern, plain, TRAIN_TOL["bfloat16"])
+    train_compare(f"{tag}bf16", kern, plain, TRAIN_TOL["bfloat16"])
     del kern
 
     # planted fault: the local layers' window dropped in the backward kernel only
@@ -2178,27 +2397,49 @@ def train_phase(dev):
         ops.flash_attention_bwd = real_bwd
     per_leaf = _leaf_errs(fault[1], plain[1])
     worst = max(per_leaf, key=per_leaf.get)
-    emit("train_bf16_planted_fault", fault="window dropped in the backward kernel",
+    emit(f"train_{tag}bf16_planted_fault", fault="window dropped in the backward kernel",
          worst_leaf=worst, worst_rel_err=per_leaf[worst], tol=TRAIN_TOL["bfloat16"])
     check(per_leaf[worst] > TRAIN_TOL["bfloat16"],
           f"the bf16 train limit misses a planted fault: {worst} {per_leaf[worst]}")
     del fault, plain, cparams, params
     _release()
 
-    # f32: full width, 8 layers, batch 1
-    cfg32 = dataclasses.replace(cfg, n_layers=TRAIN_F32["layers"], dtype="float32")
+    # f32: full width, f32["layers"] layers, f32["batch"] rows
+    cfg32 = dataclasses.replace(cfg, n_layers=f32["layers"], dtype="float32")
     params = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
-    batch = {k: v[:TRAIN_F32["batch"]] for k, v in batch.items()}
+    batch = {k: v[:f32["batch"]] for k, v in batch.items()}
     reset_launches()
     kern = _grads(cfg32, params, batch, "kernel", "float32")
-    want = {"flash_attention": 2 * cfg32.n_layers, "flash_attention_bwd": cfg32.n_layers,
-            "mamba_scan": 2 * cfg32.n_layers, "mamba_scan_bwd": cfg32.n_layers}
+    want = train_launches_per_step(cfg32)
     got = {k: launches[k] for k in TRAIN_KERNELS}
-    check(got == want, f"train f32 kernel launches {got} != {want}")
+    check(got == want, f"train {spec['arch']} f32 kernel launches {got} != {want}")
     plain = _grads(cfg32, params, batch, "plain", "float32")
-    train_compare("f32", kern, plain, TRAIN_TOL["float32"])
+    train_compare(f"{tag}f32", kern, plain, TRAIN_TOL["float32"])
     del kern, plain, params
     _release()
+
+
+def train_phase(dev):
+    """Training hymba-1.5b through the kernels (``train_run``) and the same
+    steps on the plain route (``train_plain_curve``), then the gradient
+    checks (``grad_checks``: bitwise at the published depth, the plain route
+    at TRAIN_PLAIN_LAYERS, a planted fault, f32 at 8 layers).  Returns the
+    launches of the train run (the main path's)."""
+    cfg = get_config(TRAIN["arch"])
+    main_launches, kernel_steps = train_run(dev, cfg, TRAIN, "", 21)
+    train_plain_curve(dev, kernel_steps)
+    grad_checks(dev, cfg, TRAIN, "", TRAIN_PLAIN_LAYERS, TRAIN_F32)
+    return main_launches
+
+
+def train_dense_phase(dev):
+    """Training gemma3-4b at its published width and TRAIN_DENSE's depth
+    through the kernels (``train_run``: every layer's attention forward and
+    backward on its kernels, head dim 256), then ``grad_checks`` at the same
+    depth (f32 at TRAIN_DENSE_F32).  Returns the train run's launches."""
+    cfg = dataclasses.replace(get_config(TRAIN_DENSE["arch"]), n_layers=TRAIN_DENSE["layers"])
+    main_launches, _ = train_run(dev, cfg, TRAIN_DENSE, "dense_", 13)
+    grad_checks(dev, cfg, TRAIN_DENSE, "dense_", cfg.n_layers, TRAIN_DENSE_F32)
     return main_launches
 
 
@@ -2254,6 +2495,7 @@ def main() -> int:
     _release()
     flash_cases, scan_cases = serve_kernel_phase(dev)
     flash_cases += dense_kernel_cases(dev)
+    flash_cases += whisper_kernel_cases(dev)
     flash_bwd_cases, scan_bwd_cases = train_kernel_phase(dev)
     lap("kernel_cases")
 
@@ -2313,24 +2555,36 @@ def main() -> int:
     # on gemma3-4b and gemma-7b)
     dense_launches = serve_dense_phase(dev)
     lap("serve_dense")
+    # the encoder-decoder: whisper-small's encoder, self- and cross-attention
+    # through the attention kernel (no mask on the encoder and cross)
+    whisper_launches = serve_whisper_phase(dev)
+    lap("serve_whisper")
     # main path 3: LM training, through the attention and scan kernels and
-    # their backward kernels
+    # their backward kernels; then gemma3-4b (head dim 256) at 12 layers
     train_launches = train_phase(dev)
     lap("train")
+    dense_train_launches = train_dense_phase(dev)
+    lap("train_dense")
     emit("timing", phase_s=phase_s, total_s=time.perf_counter() - t0)
 
     # launches of the main paths' own runs: the block runtime on backend
     # cuda (like the reference's backend, it never routes to glm_fused, held
     # against its plain version above at the main path's shapes), the bf16
     # serve run through the kernels, the bf16 continuous-batching runs of
-    # both models, the dense decoders' bf16 runs, and the train run
+    # both models, the dense decoders' bf16 runs, whisper-small's bf16 run,
+    # and the two train runs
     main_launches = {k: cuda["launches"][k] + dg_cuda["launches"][k]
                      for k in ("matmul", "glm_fused")}
     main_launches["matmul"] += block_launches + fault_obs_launches
     main_launches.update({k: serve_launches[k] + batched_launches[k] + dense_launches[k]
-                          + train_launches[k] for k in ("flash_attention", "mamba_scan")})
-    main_launches.update({k: train_launches[k]
+                          + train_launches[k] + dense_train_launches[k]
+                          for k in ("flash_attention", "mamba_scan")})
+    main_launches["flash_attention"] += whisper_launches["flash_attention"]
+    main_launches.update({k: train_launches[k] + dense_train_launches[k]
                           for k in ("flash_attention_bwd", "mamba_scan_bwd")})
+    check(all(dense_train_launches[k] > 0 and whisper_launches["flash_attention"] > 0
+              for k in ("flash_attention", "flash_attention_bwd")),
+          f"the new paths' launches: {dense_train_launches}, {whisper_launches}")
     check(main_launches["matmul"] > 0, f"main-path launches {main_launches}")
     print(json.dumps({"kernels": [
         kernel_entry("matmul", MATMUL_SRC, matmul_cases, "X^T(w*X) f64",

@@ -1,8 +1,8 @@
 """Workload configurations: the paper's own GLM workload (``glm_logreg``)
-and the LM zoo's architectures that the port runs so far (``hymba-1.5b``,
-served and trained; ``falcon-mamba-7b`` and the dense and VLM decoders
-``gemma3-4b``, ``gemma-7b``, ``nemotron-4-15b``, ``command-r-35b`` and
-``qwen2-vl-7b``, served).
+and the LM zoo's architectures that the port runs so far (``hymba-1.5b``
+and ``gemma3-4b``, served and trained; ``falcon-mamba-7b``, the dense and
+VLM decoders ``gemma-7b``, ``nemotron-4-15b``, ``command-r-35b`` and
+``qwen2-vl-7b``, and the encoder-decoder ``whisper-small``, served).
 
 Each module exports ``CONFIG`` (exact published sizes).  ``get_config(id)``
 and ``list_archs()`` are the programmatic API, as in ``repro.configs``; an
@@ -21,12 +21,12 @@ _PORTED = {
     "nemotron-4-15b": "nemotron_4_15b",
     "command-r-35b": "command_r_35b",
     "qwen2-vl-7b": "qwen2_vl_7b",
+    "whisper-small": "whisper_small",
     "glm_logreg": "glm_logreg",
 }
 
 #: the reference's other architectures, with the ROADMAP item that ports them
 _LATER = {
-    "whisper-small": "Queue 1 item 6 (whisper-small: cross and non-causal attention)",
     "qwen3-moe-235b-a22b": "Queue 1 item 6 (the MoE configs)",
     "phi3.5-moe-42b-a6.6b": "Queue 1 item 6 (the MoE configs)",
 }

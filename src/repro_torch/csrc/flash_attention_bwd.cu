@@ -47,11 +47,24 @@
 //   faster on the H100: the kernels are not waiting on these copies).  A
 //   warp skips a tile that none of its 16 keys or rows can see, and drops
 //   the mask on a tile that all of them see whole.
+//   Head dim 256: a warp's dK and dV fragments for 16 keys would be 256 f32
+//   registers a thread before S and dP.  So the dK/dV block takes 32 keys,
+//   and its four warps pair up: both warps of a pair compute S^T and dP^T
+//   for the pair's 16 keys over the whole head dim, and each owns one half
+//   of the head dim of dK and dV (128 registers, as the forward's
+//   accumulator at hd 256).  The cost is S and dP computed twice: 12 * hd
+//   flops of products per visible pair and head in this kernel instead of
+//   8 * hd.  Still no atomics, so the bits do not depend on the schedule.
+//   Shared memory 102,144 B a block (K, V of 32 keys, two stages of 32
+//   query rows), 2 blocks per SM.  The dQ kernel keeps its layout (16 rows
+//   a warp, dQ's 128 registers, Q and dO fragments by ldmatrix each k-step)
+//   with key tiles of 16: 101,376 B a block, 2 blocks per SM.
 // - f32 (dkv_kernel, dq_kernel): scalar IEEE f32 FMA (the tensor cores
 //   would take f32 only through TF32, which the port never uses).  A
 //   thread owns a 32-wide slice of the head dim of one key (dK/dV) or row
 //   (dQ) in registers; the other operand is staged as f32 tiles in shared
-//   memory and read by all threads at once.
+//   memory and read by all threads at once (16-row tiles at hd 256, so the
+//   two stay within the 48 KB of static shared memory).
 //
 // Operands are read through strides (batch, head, position; the head
 // dimension is contiguous), so the model's (B, S, H, hd) activations are
@@ -100,7 +113,7 @@ struct BwdArgs {
 __host__ __device__ constexpr int slice_width(int hd) { return hd < 32 ? hd : 32; }
 __host__ __device__ constexpr int slice_count(int hd) { return hd / slice_width(hd); }
 // staged query rows (dkv) and staged keys (dq) per tile
-__host__ __device__ constexpr int tile_rows(int hd) { return hd <= 64 ? 64 : 32; }
+__host__ __device__ constexpr int tile_rows(int hd) { return hd <= 64 ? 64 : hd <= 128 ? 32 : 16; }
 
 __device__ __forceinline__ bool visible(const BwdArgs& a, int qabs, int kj) {
   return kj < a.Skv && (!a.causal || kj <= qabs) && (a.window <= 0 || kj > qabs - a.window);
@@ -367,10 +380,11 @@ constexpr float LOG2E = 1.4426950408889634f;
 // tile sizes of the bf16 kernels at head dim HD
 template <int HD>
 struct Tiles {
-  static constexpr int BKV = 64;                  // keys per dK/dV block: 4 warps x 16
-  static constexpr int BQ = HD <= 64 ? 64 : 32;   // query rows per dK/dV step
-  static constexpr int ROWS = 64;                 // rows per dQ block: 4 warps x 16
-  static constexpr int BKQ = HD <= 64 ? 64 : 32;  // keys per dQ step
+  static constexpr int DSPLIT = HD > 128 ? 2 : 1;  // warps sharing 16 keys, each a part of hd
+  static constexpr int BKV = 64 / DSPLIT;          // keys per dK/dV block: 4 warps x 16 / DSPLIT
+  static constexpr int BQ = HD <= 64 ? 64 : 32;    // query rows per dK/dV step
+  static constexpr int ROWS = 64;                  // rows per dQ block: 4 warps x 16
+  static constexpr int BKQ = HD <= 64 ? 64 : HD <= 128 ? 32 : 16;  // keys per dQ step
   static constexpr int LDS = HD + 8;              // shared row, in bf16: 16 bytes of padding
   static constexpr int CH = HD / 8;               // 16-byte chunks per row
   static constexpr int STAGES = 2;                // query (dK/dV) or key (dQ) tiles in flight
@@ -382,6 +396,7 @@ template <int HD>
 __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
   using TL = Tiles<HD>;
   constexpr int BKV = TL::BKV, BQ = TL::BQ, LDS = TL::LDS, CH = TL::CH, ST = TL::STAGES;
+  constexpr int DS = TL::DSPLIT, HDW = HD / DS;  // head dims of dK and dV a warp owns
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + BKV * LDS;
@@ -451,12 +466,13 @@ __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
   }
 
   const int g = lane / 4, tq = lane % 4;
-  const int key_lo = k0 + warp * 16;               // this warp's 16 keys
+  const int grp = warp / DS, dpart = warp % DS;    // key group, part of the head dim
+  const int key_lo = k0 + grp * 16;                // this warp's 16 keys
   const int key_hi = min(key_lo + 15, a.Skv - 1);
   const float scale_log2 = a.scale * LOG2E;
-  float dk[HD / 8][4], dv[HD / 8][4];
+  float dk[HDW / 8][4], dv[HDW / 8][4];
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
+  for (int n = 0; n < HDW / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
 
@@ -483,8 +499,8 @@ __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
       // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns query rows
-      qk_product<HD, LDS, BQ / 8>(s, Ks + warp * 16 * LDS, Qt, lane);
-      qk_product<HD, LDS, BQ / 8>(dp, Vs + warp * 16 * LDS, dOt, lane);
+      qk_product<HD, LDS, BQ / 8>(s, Ks + grp * 16 * LDS, Qt, lane);
+      qk_product<HD, LDS, BQ / 8>(dp, Vs + grp * 16 * LDS, dOt, lane);
       // a tile every key of this warp sees whole needs no mask
       const bool full = key_lo + 15 < a.Skv && f0 + BQ <= f_end &&
                         (!a.causal || key_lo + 15 <= p_first) &&
@@ -506,8 +522,9 @@ __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
           dp[n][e] = p * (dp[n][e] - (e & 1 ? d2.y : d2.x));  // dS / scale
         }
       }
-      pv_product<HD, LDS, BQ / 16>(dv, s, dOt, lane);   // dV += P^T dO
-      pv_product<HD, LDS, BQ / 16>(dk, dp, Qt, lane);   // dK += dS^T Q
+      // dV += P^T dO and dK += dS^T Q over this warp's part of the head dim
+      pv_product<HDW, LDS, BQ / 16>(dv, s, dOt + dpart * HDW, lane);
+      pv_product<HDW, LDS, BQ / 16>(dk, dp, Qt + dpart * HDW, lane);
     }
   }
 
@@ -518,8 +535,8 @@ __global__ void __launch_bounds__(NT) dkv_mma_kernel(const BwdArgs a) {
     const int kj = key_lo + g + half * 8;
     if (kj >= a.Skv) continue;
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const int d = n * 8 + 2 * tq;
+    for (int n = 0; n < HDW / 8; ++n) {
+      const int d = dpart * HDW + n * 8 + 2 * tq;
       *reinterpret_cast<__nv_bfloat162*>(dkp + static_cast<int64_t>(kj) * a.dk_ss + d) =
           __floats2bfloat162_rn(dk[n][2 * half] * a.scale, dk[n][2 * half + 1] * a.scale);
       *reinterpret_cast<__nv_bfloat162*>(dvp + static_cast<int64_t>(kj) * a.dv_ss + d) =
@@ -737,7 +754,8 @@ extern "C" int repro_flash_attention_bwd(
     int64_t dq_ss, int64_t dk_sb, int64_t dk_sh, int64_t dk_ss, int64_t dv_sb,
     int64_t dv_sh, int64_t dv_ss, int B, int KV, int Sq, int Skv, int rep, int causal,
     int window, int q_offset, float scale, void* stream) {
-  if (hd != 16 && hd != 32 && hd != 64 && hd != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd != 16 && hd != 32 && hd != 64 && hd != 128 && hd != 256)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != REPRO_F32 && dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = dq_block_rows(dtype, hd);
   if (rep < 1 || rep > rows) return static_cast<int>(cudaErrorInvalidValue);
@@ -756,6 +774,7 @@ extern "C" int repro_flash_attention_bwd(
     case 32: return launch_grads<32>(dtype, a, s);
     case 64: return launch_grads<64>(dtype, a, s);
     case 128: return launch_grads<128>(dtype, a, s);
+    case 256: return launch_grads<256>(dtype, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

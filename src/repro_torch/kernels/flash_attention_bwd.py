@@ -26,23 +26,21 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from .flash_attention import DTYPE_CODES, rows_aligned, visible
+from .flash_attention import DTYPE_CODES, HEAD_DIMS, rows_aligned, visible
 
 #: threads per block; keep in step with csrc/flash_attention_bwd.cu
 THREADS = 128
 #: rows of a bf16 dQ block: four warps of 16 (tensor-core tiles)
 BF16_ROWS = 64
-#: head dims the backward kernels are instantiated for (the forward also
-#: takes 256)
-HEAD_DIMS = (16, 32, 64, 128)
 
 _fn = None
 
 
 def dq_rows(hd: int, dtype: torch.dtype = torch.float32) -> int:
     """Rows of a dQ block (rep query heads x positions), so the most query
-    heads a kv head may have: bf16, four warps of 16 rows; f32, one thread
-    per 32-wide slice of the head dim, THREADS threads."""
+    heads a kv head may have: bf16, four warps of 16 rows at every head dim;
+    f32, one thread per 32-wide slice of the head dim, THREADS threads (16
+    rows at head dim 256)."""
     if dtype == torch.bfloat16:
         return BF16_ROWS
     return THREADS // max(1, hd // 32)
@@ -50,15 +48,12 @@ def dq_rows(hd: int, dtype: torch.dtype = torch.float32) -> int:
 
 def check_launch(q: torch.Tensor, k: torch.Tensor) -> None:
     """Raise where the kernels cannot take q (B, H, Sq, hd) over k (B, KV,
-    Skv, hd): a head dim without a kernel (``NotImplementedError``: hd 256,
-    whose dK/dV accumulators do not fit registers as the kernels hold them),
-    more query heads per kv head than a dQ block has rows, or a kv head's
-    Sq x rep query rows past the int32 range."""
+    Skv, hd): a head dim without a kernel (the forward's ``HEAD_DIMS``), more
+    query heads per kv head than a dQ block has rows, or a kv head's Sq x
+    rep query rows past the int32 range."""
     rep, hd = q.shape[1] // k.shape[1], q.shape[3]
     if hd not in HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_bwd: no kernel at head dim {hd} on the card yet: ROADMAP "
-            "Queue 1 item 6 (train the dense configs: the attention backward at hd 256)")
+        raise ValueError(f"flash_attention_bwd: head dim {hd} not in {HEAD_DIMS}")
     rows = dq_rows(hd, q.dtype)
     if rep > rows:
         raise ValueError(f"flash_attention_bwd: {rep} query heads per kv head; the "

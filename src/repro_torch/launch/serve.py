@@ -12,8 +12,10 @@ reduced one (``cfg.reduced()``).  Weights are random, from a seeded
 ``torch.Generator`` on the device; prompts come from numpy with the same
 seed, as in the reference's ``launch/serve.py``: token ids, or for a model
 that takes embeddings (``cfg.embed_inputs``, qwen2-vl-7b's stub vision
-frontend) standard-normal (batch, prompt_len, d_model) embeddings.
-Decoding feeds token ids either way.
+frontend) standard-normal (batch, prompt_len, d_model) embeddings, or for
+an encoder-decoder (whisper-small) standard-normal (batch, 16, d_model)
+frames for its stub audio frontend, then token ids.  Decoding feeds token
+ids either way.
 """
 from __future__ import annotations
 
@@ -30,13 +32,22 @@ from repro_torch.models import ModelConfig, decode_step, init_params, param_shap
 from repro_torch.models.transformer import _leaves
 from repro_torch.train import make_prefill
 
+#: frames an encoder-decoder's prompts carry (the reference driver's)
+ENC_FRAMES = 16
+
 
 def make_prompts(cfg, batch: int, prompt_len: int, seed: int = 0) -> Dict[str, np.ndarray]:
     """The prefill batch from numpy, as the reference's ``launch/serve.py``
-    draws it: ``{"embeds": (batch, prompt_len, d_model) float64}`` standard
-    normal for a model that takes embeddings, else ``{"tokens": (batch,
-    prompt_len)}`` ids."""
+    draws it: for an encoder-decoder, ``{"frames": (batch, 16, d_model)
+    float64}`` standard normal and then ``{"tokens": (batch, prompt_len)}``
+    ids from the same generator; ``{"embeds": (batch, prompt_len, d_model)
+    float64}`` standard normal for a model that takes embeddings; else the
+    ids alone."""
     rng = np.random.default_rng(seed)
+    if cfg.encdec:
+        frames = rng.standard_normal((batch, ENC_FRAMES, cfg.d_model))
+        return {"frames": frames,
+                "tokens": rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int64)}
     if cfg.embed_inputs:
         return {"embeds": rng.standard_normal((batch, prompt_len, cfg.d_model))}
     return {"tokens": rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int64)}
@@ -75,8 +86,8 @@ def serve_demo(cfg: ModelConfig, batch: int = 4, prompt_len: int = 16, gen: int 
                          f"(batch, gen) = {(batch, gen)}")
     max_len = prompt_len + gen + 1
     prefill_fn = make_prefill(cfg, max_len=max_len, impl=impl)
-    prompts = {k: torch.from_numpy(v).to(dev, getattr(torch, cfg.dtype) if k == "embeds"
-                                         else torch.int64)
+    prompts = {k: torch.from_numpy(v).to(dev, torch.int64 if k == "tokens"
+                                         else getattr(torch, cfg.dtype))
                for k, v in make_prompts(cfg, batch, prompt_len, seed).items()}
     forced_t = None if forced is None else torch.from_numpy(
         np.asarray(forced, np.int64)).to(dev)

@@ -3,6 +3,10 @@
     python -m repro_torch.launch.train --arch hymba-1.5b --device cpu --steps 20
     python -m repro_torch.launch.train --arch hymba-1.5b --full --batch 4 --seq 2048
 
+``train_loop`` also takes a ``ModelConfig`` in place of an architecture's
+name, e.g. ``dataclasses.replace(get_config("gemma3-4b"), n_layers=12)``
+with ``reduced=False``: the published width at a cut depth.
+
 The model trains on the card unless ``--device cpu`` is given; without
 ``--full`` it is the reduced configuration (``cfg.reduced()``).  Deterministic
 data pipeline (``TokenPipeline``), AdamW with warmup-cosine, f32 master
@@ -17,7 +21,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -25,6 +29,7 @@ import torch
 from repro_torch.backend.torch_backend import resolve_device
 from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.configs import get_config
+from repro_torch.models import ModelConfig
 from repro_torch.models.transformer import _tree_map
 from repro_torch.sharding.plans import SINGLE_CARD, Plan
 from repro_torch.train import (AdamConfig, DataConfig, TokenPipeline, init_train_state,
@@ -38,7 +43,7 @@ def batch_to(batch_np, device) -> dict:
 
 
 def train_loop(
-    arch: str,
+    arch: Union[str, ModelConfig],
     steps: int = 100,
     batch: int = 8,
     seq: int = 64,
@@ -57,7 +62,8 @@ def train_loop(
     impl: str = "kernel",
     on_step: Optional[Callable[[int, dict], None]] = None,
 ):
-    """Train ``arch`` for ``steps`` steps; returns (state, loss history).
+    """Train ``arch`` (a name, or a ``ModelConfig``) for ``steps`` steps;
+    returns (state, loss history).  ``reduced`` trains ``cfg.reduced()``.
 
     ``device`` None means the card (and raises where there is none).
     ``impl`` is the route of attention and the scan ("kernel" or "plain").
@@ -65,7 +71,7 @@ def train_loop(
     reached the host, with float metrics (loss, grad_norm, lr) and the
     step's wall seconds."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = cfg.reduced()
     plan = plan or SINGLE_CARD
@@ -105,7 +111,7 @@ def train_loop(
                    f"lr={float(metrics['lr']):.2e} tok/s={tok_s:,.0f}")
         if ckpt_dir and ((step + 1) % ckpt_every == 0 or step == steps - 1):
             save(ckpt_dir, step + 1, state, meta={"data": pipe.state(),
-                                                  "arch": arch, "loss": loss})
+                                                  "arch": cfg.name, "loss": loss})
     return state, history
 
 

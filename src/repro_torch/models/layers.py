@@ -1,6 +1,7 @@
 """Transformer building blocks (counterpart of ``repro.models.layers``):
-norms, RoPE and M-RoPE, GQA attention (causal and sliding-window), MLP
-variants, logit soft-capping.
+norms, RoPE and M-RoPE, GQA attention (causal, sliding-window, and
+unmasked: the encoder's and cross-attention's), MLP variants, logit
+soft-capping.
 
 All functions are pure apart from the KV-cache update, which writes the new
 keys and values into the cache tensors in place (the reference returns an
@@ -14,9 +15,10 @@ regardless of the compute dtype.
 Attention has two routes, chosen by ``impl``: ``"kernel"`` (the default)
 goes through ``kernels.ops.flash_attention`` — the hand-written kernel on a
 CUDA tensor, its plain version on a CPU tensor — and takes the masks of the
-form that kernel takes (:class:`CausalMask`); ``"plain"`` is the reference's
-dense einsum path, ported, for any mask.  Nothing picks ``"plain"`` by
-itself: it is there to hold the kernel route against it.
+forms that kernel takes (a :class:`CausalMask`, or None: every key
+visible); ``"plain"`` is the reference's dense einsum path, ported, for any
+mask.  Nothing picks ``"plain"`` by itself: it is there to hold the kernel
+route against it.
 """
 from __future__ import annotations
 
@@ -211,8 +213,9 @@ def attention_scores(
     impl: str = "kernel",
 ) -> torch.Tensor:
     """Grouped-query attention, (B, Sq, H, hd) out.  ``mask`` is a
-    :class:`CausalMask` or, on the plain route, any boolean tensor
-    broadcastable to (B, H, Sq, Skv)."""
+    :class:`CausalMask`, None (every key visible to every query: the
+    encoder's self-attention and cross-attention) or, on the plain route,
+    any boolean tensor broadcastable to (B, H, Sq, Skv)."""
     if impl == "plain":
         if isinstance(mask, CausalMask):
             mask = mask.dense(q.device)
@@ -223,10 +226,13 @@ def attention_scores(
         raise NotImplementedError("attention logit soft-capping is not in the "
                                   "flash-attention kernel (nor in the reference's): ROADMAP "
                                   "Queue 1 item 6 (attention logit soft-capping)")
+    if mask is None:
+        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                  causal=False)
+        return out.transpose(1, 2)
     if not isinstance(mask, CausalMask):
-        raise NotImplementedError(
-            "the flash-attention kernel takes causal masks (CausalMask); cross-attention "
-            "and non-causal masks wait for ROADMAP Queue 1 item 6 (whisper-small)")
+        raise ValueError("attention_scores: the kernel route takes a CausalMask or None; "
+                         "a boolean mask tensor is for impl='plain'")
     if (mask.q_len, mask.kv_len) != (q.shape[1], k.shape[1]):
         raise ValueError(f"attention_scores: mask is ({mask.q_len}, {mask.kv_len}) for "
                          f"{q.shape[1]} queries and {k.shape[1]} keys")
@@ -254,15 +260,26 @@ def attention_block(
     positions pos .. pos + S - 1 (in place) and attends over the whole
     cache.  With one ``pos`` per row (a tuple of host ints), row b's keys
     and values go to its own positions, ``positions[b]`` on the device, in
-    one indexed write."""
-    if cross or kv_x is not None:
-        raise NotImplementedError("cross-attention (whisper-small) is not ported yet: "
-                                  "ROADMAP Queue 1 item 6 (whisper-small)")
+    one indexed write.
+
+    ``cross``: cross-attention, without rotary embedding, of x's queries
+    over keys and values projected from ``kv_x`` (the encoder's output), or,
+    with ``kv_x`` None, over the static ``cache["k"]``, ``cache["v"]`` that
+    prefill projected from it (decode)."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     q = (x @ params["wq"]).reshape(B, S, H, hd)
-    k = (x @ params["wk"]).reshape(B, S, KV, hd)
-    v = (x @ params["wv"]).reshape(B, S, KV, hd)
+    if cross and kv_x is None:
+        if cfg.attn_bias:
+            q = q + params["bq"].reshape(1, 1, H, hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
+        out = attention_scores(q, cache["k"], cache["v"], mask, cfg.logit_softcap, impl)
+        out = out.reshape(B, S, H * hd) @ params["wo"]
+        return constrain(out, "batch", "seq", "embed"), None
+    src = x if kv_x is None else kv_x
+    k = (src @ params["wk"]).reshape(B, src.shape[1], KV, hd)
+    v = (src @ params["wv"]).reshape(B, src.shape[1], KV, hd)
     if cfg.attn_bias:
         q = q + params["bq"].reshape(1, 1, H, hd)
         k = k + params["bk"].reshape(1, 1, KV, hd)
@@ -270,12 +287,13 @@ def attention_block(
     if cfg.qk_norm:
         q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, params["k_norm"], cfg.norm_eps)
-    q = position_embed(q, positions, cfg)
-    k = position_embed(k, positions, cfg)
+    if not cross:
+        q = position_embed(q, positions, cfg)
+        k = position_embed(k, positions, cfg)
     q = constrain(q, "batch", "seq", "heads", None)
     k = constrain(k, "batch", "seq", "kv_heads", None)
     new_cache = None
-    if cache is not None:
+    if cache is not None and not cross:
         pos = cache["pos"]
         ck, cv = cache["k"], cache["v"]
         last = max(pos) if isinstance(pos, tuple) else pos

@@ -1,5 +1,6 @@
 """The LM of the zoo (counterpart of ``repro.models.transformer``):
-decoder-only dense and hybrid stacks, for training and serving.
+decoder-only dense and hybrid stacks, and the encoder-decoder
+(whisper-small), for training and serving.
 
 Parameters are a nested dict of tensors in the reference's layout: layer
 leaves are stacked with a leading L dimension, and the stack is a Python
@@ -18,9 +19,13 @@ differentiable, with the reference's remat policies per layer; ``prefill``
 and ``decode_step`` run without autograd.  Decoding updates the cache
 tensors in place and returns the cache with its position advanced; the
 position is a host int that the whole batch shares, or a tuple of host ints,
-one per row (``serve.ContinuousBatcher``'s slots).  MoE and
-encoder-decoder wait for later slices and raise ``NotImplementedError``
-naming their ROADMAP items.
+one per row (``serve.ContinuousBatcher``'s slots).  An encoder-decoder
+model takes ``batch["frames"]`` (B, T, D), the stub frontend's frames, runs
+the encoder over them (attention with no mask) and gives every decoder
+layer a cross-attention sublayer over the encoder's output; prefill
+projects each layer's cross keys and values once into the cache (``ck``,
+``cv``), which decoding reads.  MoE waits for a later slice and raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -38,8 +43,6 @@ from .partitioning import constrain
 from .ssm import ssm_block
 
 _MOE = "MoE layers are not ported yet: ROADMAP Queue 1 item 6 (the MoE configs)"
-_ENCDEC = ("encoder-decoder models are not ported yet: ROADMAP Queue 1 item 6 "
-           "(whisper-small)")
 REMATS = ("none", "dots", "full")
 
 # ---------------------------------------------------------------------------
@@ -246,10 +249,20 @@ def _channel(cfg, lp, x):
     return x
 
 
-def decoder_layer(cfg, lp, x, positions, mask, cache, cache_pos, impl="kernel"):
-    if cfg.encdec:
-        raise NotImplementedError(_ENCDEC)
+def decoder_layer(cfg, lp, x, positions, mask, cache, cache_pos, impl="kernel",
+                  enc_out=None):
+    """Self-attention and/or SSM, then (encoder-decoder) cross-attention over
+    ``enc_out``, or at decode (``enc_out`` None) over the cache's static
+    ``ck``, ``cv``, then the MLP."""
     x, new_cache = _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl)
+    if cfg.encdec:
+        h = apply_norm(x, lp["norm_cross"], cfg.norm, cfg.norm_eps)
+        c_cache = None
+        if cache is not None and enc_out is None:
+            c_cache = {"k": cache["ck"], "v": cache["cv"]}
+        c_out, _ = attention_block(lp["cross"], h, cfg, None, None, c_cache, kv_x=enc_out,
+                                   cross=True, impl=impl)
+        x = x + c_out
     return _channel(cfg, lp, x), new_cache
 
 
@@ -272,13 +285,14 @@ def _dots_saveable():
 
 
 def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
-                  cache_pos, impl="kernel", remat: str = "none"):
+                  cache_pos, impl="kernel", remat: str = "none", enc_out=None):
     """Apply every layer in turn.  ``mask`` is the global layers' mask; a
     local layer takes it with ``cfg.window``.  Each layer's new cache state
     is written into the stacked ``caches`` in place.  ``remat`` ("none",
     "dots", "full") checkpoints each layer for the backward, as the
     reference's ``jax.checkpoint`` of its scan body does; it needs
-    ``caches`` None.
+    ``caches`` None.  ``enc_out`` is the encoder's output that every layer's
+    cross-attention reads (encoder-decoder, training and prefill).
 
     The stacked (L, ...) leaves are split once with ``unbind``: indexing
     ``t[i]`` per layer would make every layer's backward allocate a zero
@@ -296,21 +310,72 @@ def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
         if mask is not None and cfg.is_local_layer(i):
             layer_mask = dataclasses.replace(mask, window=cfg.window)
         if remat != "none":
-            def run(x_in, lp_in, layer_mask=layer_mask):
+            def run(x_in, lp_in, enc_in, layer_mask=layer_mask):
                 return decoder_layer(cfg, lp_in, x_in, positions, layer_mask, None, None,
-                                     impl)[0]
+                                     impl, enc_in)[0]
 
             kw = {} if context_fn is None else {"context_fn": context_fn}
-            x = torch_checkpoint.checkpoint(run, x, lp, use_reentrant=False, **kw)
+            x = torch_checkpoint.checkpoint(run, x, lp, enc_out, use_reentrant=False, **kw)
             continue
         cache_l = None if caches is None else {k: t[i] for k, t in caches.items()}
         x, new_cache = decoder_layer(cfg, lp, x, positions, layer_mask, cache_l,
-                                     cache_pos, impl)
+                                     cache_pos, impl, enc_out)
         if caches is not None:
             for k in ("conv", "ssm"):  # k and v were written in place
                 if k in new_cache:
                     caches[k][i].copy_(new_cache[k])
     return x, caches
+
+
+def encoder_stack(cfg, enc_params, frames, remat: str = "none", impl: str = "kernel"):
+    """Whisper-style encoder over the stub frontend's frames (B, T, D):
+    sinusoidal positions, pre-norm blocks of attention with no mask and an
+    MLP, and the final norm.  ``remat`` other than "none" checkpoints each
+    block whole (the reference's ``jax.checkpoint`` of its scan body)."""
+    if remat not in REMATS:
+        raise ValueError(f"encoder_stack: remat must be one of {REMATS}, got {remat!r}")
+    x = frames
+    T = x.shape[1]
+    pos = torch.arange(T, dtype=torch.float32, device=x.device)
+    half = cfg.d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    ang = pos[:, None] * freqs[None]
+    x = x + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None].to(x.dtype)
+
+    def block(xc, lp):
+        h = apply_norm(xc, lp["norm1"], cfg.norm, cfg.norm_eps)
+        xc = xc + attention_block(lp["attn"], h, cfg, None, None, impl=impl)[0]
+        h = apply_norm(xc, lp["norm2"], cfg.norm, cfg.norm_eps)
+        return xc + mlp_block(lp["mlp"], h, cfg)
+
+    per_layer = _tree_map(lambda t: t.unbind(0), enc_params["layers"])
+    for i in range(cfg.n_enc_layers):
+        lp = _tree_map(lambda parts: parts[i], per_layer)
+        if remat != "none":
+            x = torch_checkpoint.checkpoint(block, x, lp, use_reentrant=False)
+        else:
+            x = block(x, lp)
+    return apply_norm(x, enc_params["final_norm"], cfg.norm, cfg.norm_eps)
+
+
+def _cross_kv(cfg, layers, enc_out):
+    """Every decoder layer's cross-attention keys and values over the
+    encoder's output, (L, B, T, KV, hd) each, computed once at prefill as
+    the reference's ``prefill`` does (with the biases, no norm)."""
+    B, T = enc_out.shape[0], enc_out.shape[1]
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    cross = layers["cross"]
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        k = (enc_out @ cross["wk"][i]).reshape(B, T, KV, hd)
+        v = (enc_out @ cross["wv"][i]).reshape(B, T, KV, hd)
+        if cfg.attn_bias:
+            k = k + cross["bk"][i].reshape(1, 1, KV, hd)
+            v = v + cross["bv"][i].reshape(1, 1, KV, hd)
+        ks.append(k)
+        vs.append(v)
+    return torch.stack(ks), torch.stack(vs)
 
 
 # ---------------------------------------------------------------------------
@@ -368,33 +433,38 @@ def forward(params, batch, cfg: ModelConfig, remat: str = "none", impl: str = "k
     """Training forward: full-sequence logits (+ the MoE aux loss, 0 here).
     Differentiable; ``remat`` checkpoints each layer (see
     ``decoder_stack``)."""
-    if cfg.encdec:
-        raise NotImplementedError(_ENCDEC)
     x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None and cfg.rope != "none":
         positions = _positions(B, S, 0, x.device)
+    enc_out = None
+    if cfg.encdec:
+        enc_out = encoder_stack(cfg, params["encoder"], batch["frames"], remat, impl)
     x, _ = decoder_stack(cfg, params["layers"], x, positions, CausalMask(S, S), None,
-                         None, impl, remat)
+                         None, impl, remat, enc_out)
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     return _lm_logits(cfg, params, x), torch.zeros((), device=x.device)
 
 
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig, max_len: int, impl: str = "kernel"):
-    """Process the prompt, returning last-position logits + serving cache."""
-    if cfg.encdec:
-        raise NotImplementedError(_ENCDEC)
+    """Process the prompt, returning last-position logits + serving cache
+    (with an encoder-decoder model, the encoder's output's cross keys and
+    values too)."""
     x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None and cfg.rope != "none":
         positions = _positions(B, S, 0, x.device)
     caches = _make_caches(cfg, B, max_len, getattr(torch, cfg.dtype), x.device)
+    enc_out = None
+    if cfg.encdec:
+        enc_out = encoder_stack(cfg, params["encoder"], batch["frames"], impl=impl)
+        caches["ck"], caches["cv"] = _cross_kv(cfg, params["layers"], enc_out)
     S_kv = caches["k"].shape[2] if "k" in caches else S
     x, caches = decoder_stack(cfg, params["layers"], x, positions, CausalMask(S, S_kv),
-                              caches, 0, impl)
+                              caches, 0, impl, enc_out=enc_out)
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = _lm_logits(cfg, params, x[:, -1:])
     return logits, {"layers": caches, "pos": S}
@@ -408,8 +478,6 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, impl: str = "kernel"):
     the position embedding, the cache write and the causal mask.  The
     per-row positions go to the device once, as one (B,) int32 tensor that
     every layer shares."""
-    if cfg.encdec:
-        raise NotImplementedError(_ENCDEC)
     pos = cache["pos"]
     B = tokens.shape[0]
     dev = params["embed"].device

@@ -5,7 +5,8 @@
 its plain forward and backward versions on CPU tensors.  Its gradients are
 held against ``jax.grad`` through the reference's custom_vjp
 ``flash_attention_vjp`` with the Pallas kernels in interpret mode, on the
-four shapes of ``tests/test_kernels.py`` (TestFlashAttentionBackward), at the
+four shapes of ``tests/test_kernels.py`` (TestFlashAttentionBackward) and at
+head dim 256 (rep 1, 2 and 8, a window, a query offset), at the
 reference's atol 2e-5; against torch autograd of the plain forward
 ``flash_attention_ref`` on ragged lengths, which the Pallas wrapper does not
 take (it needs Sq % bq == 0 and Skv % bk == 0; ROADMAP Queue 3 (a)); and the
@@ -60,6 +61,35 @@ def test_grads_match_the_pallas_vjp_in_interpret_mode(h, kv, sq, skv, window):
     _, got = torch_grads(lambda q, k, v: ops.flash_attention(q, k, v, causal=True,
                                                              window=window), q, k, v)
     assert launches["flash_attention"] == launches["flash_attention_bwd"] == 0  # CPU
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=TOL)
+
+
+HD256 = [  # h, kv, sq, skv, window, q_offset: the dense decoders' head dim
+    (2, 2, 64, 64, None, 0),     # rep 1 (gemma-7b)
+    (4, 2, 64, 64, None, 0),     # rep 2 (gemma3-4b)
+    (8, 1, 32, 32, None, 0),     # rep 8
+    (4, 2, 96, 96, 24, 0),       # a local layer's window
+    (4, 2, 32, 64, None, 32),    # queries at an offset behind 64 keys
+    (4, 2, 32, 64, 16, 32),      # window and offset
+]
+
+
+@pytest.mark.parametrize("h,kv,sq,skv,window,q_offset", HD256, ids=str)
+def test_hd256_grads_match_the_pallas_vjp_in_interpret_mode(h, kv, sq, skv, window, q_offset):
+    """Head dim 256 (gemma3-4b, gemma-7b): the kernels' hd-256 layout (dK and
+    dV split over two warps a key group in bf16, 16-row tiles in f32) has the
+    same plain version, held here to the reference's vjp."""
+    q, k, v = arr((1, h, sq, 256)), arr((1, kv, skv, 256)), arr((1, kv, skv, 256))
+
+    def ref_loss(q, k, v):
+        return jnp.sum(jnp.sin(flash_attention_vjp(q, k, v, True, window, q_offset, 32, 32,
+                                                   True)))
+
+    want = jax.grad(ref_loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    _, got = torch_grads(lambda q, k, v: ops.flash_attention(q, k, v, causal=True,
+                                                             window=window,
+                                                             q_offset=q_offset), q, k, v)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=TOL)
 
@@ -163,11 +193,15 @@ def test_backward_wrapper_rejects_what_it_does_not_take(bad, match):
     (torch.float32, 64, 65, False),
     (torch.float32, 128, 33, False),
     (torch.float32, 16, 128, True),
+    (torch.bfloat16, 256, 64, True),    # head dim 256: the same 64 rows
+    (torch.bfloat16, 256, 65, False),
+    (torch.float32, 256, 16, True),     # 128 threads, 8 per row
+    (torch.float32, 256, 17, False),
 ], ids=str)
 def test_backward_kernel_limits_raise_with_their_message(dtype, hd, rep, ok):
     """The launch check behind ``ops.flash_attention_bwd`` on a CUDA tensor:
     rep query heads per kv head up to a dQ block's rows (bf16: 64 at every
-    head dim; f32: 128 threads over hd / 32 slices a row)."""
+    head dim, 256 included; f32: 128 threads over hd / 32 slices a row)."""
     q = torch.zeros(1, rep, 4, hd, dtype=dtype)
     k = torch.zeros(1, 1, 4, hd, dtype=dtype)
     assert dq_rows(hd, dtype) == (64 if dtype == torch.bfloat16 else 128 // max(1, hd // 32))

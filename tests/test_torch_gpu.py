@@ -878,23 +878,126 @@ def test_flash_attention_hd256_f32_refuses_more_heads_than_a_block_has_rows(cuda
     assert not got.float().abs().any()
 
 
+BWD_HD256_CASES = [  # B, H, KV, Sq, Skv, causal, window, q_offset at head dim 256
+    (2, 8, 4, 512, 512, True, None, 0),        # gemma3-4b global (rep 2)
+    (1, 8, 4, 1300, 1300, True, 1024, 0),      # gemma3-4b local (window 1024)
+    (1, 16, 16, 300, 300, True, None, 0),      # gemma-7b (rep 1)
+    (1, 8, 4, 130, 201, True, None, 71),       # queries at an offset, ragged
+    (1, 4, 2, 45, 70, False, None, 0),         # non-causal, ragged
+]
+
+
+@pytest.mark.parametrize("case", BWD_HD256_CASES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-def test_flash_attention_backward_at_hd256_raises_on_the_card(cuda_device, dtype):
-    """The backward kernels have no hd-256 template: the wrapper and the
-    autograd Function raise instead of running another head dim's kernel;
-    the plain backward on the CPU still runs."""
-    q = _uniform(57, (1, 4, 40, 256), cuda_device, dtype)
-    k = _uniform(58, (1, 2, 40, 256), cuda_device, dtype)
-    out, lse = ops.flash_attention(q, k, k, return_lse=True)
-    with pytest.raises(NotImplementedError, match="attention backward at hd 256"):
-        ops.flash_attention_bwd(q, k, k, out, lse, out)
-    qg, kg = q.clone().requires_grad_(), k.clone().requires_grad_()
-    fwd = ops.flash_attention(qg, kg, kg)
-    with pytest.raises(NotImplementedError, match="attention backward at hd 256"):
-        fwd.float().sum().backward()
-    cpu = [t.detach().cpu() for t in (q, k, out, lse)]
-    dq, dk, dv = ops.flash_attention_bwd(cpu[0], cpu[1], cpu[1], cpu[2], cpu[3], cpu[2])
-    assert dq.shape == cpu[0].shape and torch.isfinite(dk.float()).all()
+def test_flash_attention_backward_at_hd256_on_the_card_vs_plain(cuda_device, case, dtype):
+    """The hd-256 backward kernels (bf16: dK and dV split over two warps a
+    key group; f32: 16-row tiles) against the plain backward on the
+    forward kernel's own O and lse; two launches give the same bits."""
+    B, H, KV, Sq, Skv, causal, window, q_offset = case
+    q = _uniform(57, (B, H, Sq, 256), cuda_device, dtype)
+    k = _uniform(58, (B, KV, Skv, 256), cuda_device, dtype)
+    v = _uniform(59, (B, KV, Skv, 256), cuda_device, dtype)
+    do = _uniform(60, (B, H, Sq, 256), cuda_device, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_attention_bwd"] == 2
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, q_offset)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a) and g.dtype == dtype and g.shape == r.shape
+        assert _rel_err(g, r) <= FLASH_TOL[dtype], _rel_err(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_autograd_at_hd256_on_the_card(cuda_device, dtype):
+    """Through the model's layout at head dim 256 with a window: the
+    Function's backward launches the kernel and matches torch autograd of
+    the plain forward."""
+    qm = _uniform(61, (2, 200, 8, 256), cuda_device, dtype).requires_grad_()
+    km = _uniform(62, (2, 200, 4, 256), cuda_device, dtype).requires_grad_()
+    vm = _uniform(63, (2, 200, 4, 256), cuda_device, dtype).requires_grad_()
+    w = _uniform(64, (2, 8, 200, 256), cuda_device, torch.float32)
+    reset_launches()
+    out = ops.flash_attention(qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2),
+                              window=64)
+    got = torch.autograd.grad((out.float() * w).sum(), (qm, km, vm))
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == launches["flash_attention_bwd"] == 1
+    ref_out = flash_attention_ref(qm.transpose(1, 2).float(), km.transpose(1, 2).float(),
+                                  vm.transpose(1, 2).float(), True, 64, 0)
+    want = torch.autograd.grad((ref_out * w).sum(), (qm, km, vm))
+    for g, r in zip(got, want):
+        assert g.dtype == dtype and _rel_err(g, r) <= FLASH_TOL[dtype], _rel_err(g, r)
+
+
+WHISPER_CASES = [  # B, H, Sq, Skv: whisper-small's heads (12, rep 1, hd 64), no mask
+    (2, 12, 1500, 1500),   # the encoder over 30 s of frames (1500 % 64 != 0)
+    (8, 12, 4, 1500),      # cross-attention at prefill (a 4-token prompt)
+    (8, 12, 1, 1500),      # cross-attention at decode: split-KV
+]
+
+
+@pytest.mark.parametrize("case", WHISPER_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_non_causal_whisper_shapes_vs_plain(cuda_device, case, dtype):
+    B, H, Sq, Skv = case
+    q = _uniform(65, (B, H, Sq, 64), cuda_device, dtype)
+    k = _uniform(66, (B, H, Skv, 64), cuda_device, dtype)
+    v = _uniform(67, (B, H, Skv, 64), cuda_device, dtype)
+    reset_launches()
+    got, lse = ops.flash_attention(q, k, v, causal=False, return_lse=True)
+    again = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == 2 and torch.equal(got, again)
+    if Sq == 1:
+        assert kv_splits(dtype, B, H, 1, Sq, Skv, 64, False, None, 0) > 1
+    for plain in (flash_attention_ref, flash_attention_split_ref):
+        ref, lse_ref = plain(q, k, v, False, None, 0, return_lse=True)
+        assert _rel_err(got, ref) <= FLASH_TOL[dtype], _rel_err(got, ref)
+        assert (lse - lse_ref).abs().max().item() <= 1e-5 * lse_ref.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_serve_on_card_kernel_route_matches_plain(cuda_device, dtype):
+    """Reduced whisper-small (2 + 2 layers) with 200 frames through prefill
+    and decode steps: per prefill 2 encoder + 2 self + 2 cross launches, per
+    decode step 2 self + 2 cross; the plain route, teacher-forced, gives the
+    same logits (1e-4 of max|logit| at f32, 0.1 at bf16)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = dataclasses.replace(get_config("whisper-small").reduced(), dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=cuda_device).manual_seed(0))
+    for tree in (params, params["encoder"]):
+        tree["final_norm"]["scale"] = torch.ones_like(tree["final_norm"]["scale"])
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(rng.standard_normal((2, 200, cfg.d_model))).to(
+        cuda_device, getattr(torch, dtype))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 4))).to(cuda_device)
+    runs, forced = {}, None
+    for impl in ("kernel", "plain"):
+        reset_launches()
+        logits, cache = prefill(params, {"frames": frames, "tokens": tokens}, cfg, 12,
+                                impl=impl)
+        steps, counts = [logits[:, -1].float()], [launches["flash_attention"]]
+        for i in range(5):
+            tok = forced[:, i:i + 1] if forced is not None else \
+                torch.argmax(steps[-1], -1)[:, None]
+            reset_launches()
+            logits, cache = decode_step(params, tok, cache, cfg, impl=impl)
+            steps.append(logits[:, -1].float())
+            counts.append(launches["flash_attention"])
+        torch.cuda.synchronize()
+        runs[impl] = (torch.stack(steps), counts)
+        if forced is None:
+            forced = torch.stack([torch.argmax(s, -1) for s in steps[:-1]], 1)
+    assert runs["kernel"][1] == [6] + [4] * 5 and runs["plain"][1] == [0] * 6
+    lk, lp = runs["kernel"][0], runs["plain"][0]
+    tol = 1e-4 if dtype == "float32" else 0.1
+    assert torch.isfinite(lk).all() and (lk - lp).abs().max() <= tol * lp.abs().max()
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
