@@ -20,8 +20,8 @@ both (CUDA events), then drives the main paths at full width:
   moved elements than the naive reshard, counted on the sim backend; the fit
   improves), indirect TSQR of the Newton loop's X, a 16384^2 Cholesky and
   its solve, a randomized SVD at rank 32 + 8 of a 2**22 x 256 matrix, L-BFGS
-  logistic regression on the paper's data at the Newton loop's size (cuda
-  and torch agree, the loss falls), and lineage checkpoints of the Newton
+  logistic regression on the paper's data at 2**20 rows in the Newton
+  loop's blocks (cuda and torch agree, the loss falls), and lineage checkpoints of the Newton
   loop (a node dies after the checkpoint and recovery reads the archive; a
   fresh context restores the same bits); each comm ratio equals the sim
   backend's on the same graph;
@@ -70,6 +70,14 @@ both (CUDA events), then drives the main paths at full width:
   window of 1024 on every layer; gemma3-4b's local layers unwindowed)
   shown to exceed it, launch counts exact, and an f32 leg at full width
   and 4 layers with the same tokens;
+- the MoE decoders: qwen3-moe-235b-a22b (128 experts, top 8, 64 query
+  heads over 4 kv heads) and phi3.5-moe-42b-a6.6b (16 experts, top 2,
+  layernorm) at their published width, cut in depth to 11 of 94 and 22 of
+  32 layers (57.2 and 57.7 GB of bf16 weights), serve 4 prompts of 2048
+  tokens and generate 16 through ``serve_demo`` with the "einsum" dispatch,
+  as ``serve_dense`` runs its models (routes, planted fault, launches, the
+  share of tokens each layer's prefill routed to other experts on the two
+  routes), and an f32 leg at 2 layers where "gather" agrees with "einsum";
 - the encoder-decoder: whisper-small as published (12 encoder + 12
   decoder layers, d 768, bf16, seeded weights) serves 8 requests of 1500
   frames (30 s of audio; the stub frontend's frames drawn by numpy) with a
@@ -88,14 +96,20 @@ both (CUDA events), then drives the main paths at full width:
   step; one step's loss and every gradient leaf agree with the plain route
   on the same weights and batch to a bf16 tolerance that a planted fault
   (the window dropped in the backward kernel only) exceeds, and in f32 at
-  8 layers to 1e-4; two backward runs give the same bits.  The first two
-  of those steps run again on the plain route (the same schedule), and
-  both loss curves are printed.  Then gemma3-4b at its published width
+  8 layers to 1e-4; two backward runs give the same bits.  Both routes
+  then run the schedule's first two steps at 8 layers, and both loss
+  curves are printed.  Then gemma3-4b at its published width
   (d 2560, head dim 256, 262144-token vocabulary) cut to 12 layers (two
   5:1 groups; at full depth its f32 masters and AdamW state alone take 62
   GB) trains the same way (``train_dense``: 1 + 3 steps, launches exact),
   its gradients held to the plain route at 12 layers (a planted fault
-  caught) and in f32 at 6 layers, bitwise across two runs.
+  caught) and in f32 at 6 layers, bitwise across two runs.  Then
+  whisper-small as published (``train_whisper``) trains on 8 requests of
+  1500 frames and 448 target tokens through ``make_train_step`` (1 + 3
+  steps and one profiled, launches exact: every encoder, decoder-self and
+  cross-attention call forward twice and backward once), its gradients
+  held to the plain route (a planted fault, cross-attention made causal,
+  caught) and in f32 at 2 + 2 layers, bitwise across two runs.
 
 Each phase prints one JSON line (a matmul case also names the loader it
 took, vector or scalar; an attention-backward case the device time of each
@@ -108,8 +122,9 @@ at prefill and at decode, where it splits the keys (two device kernels per
 call, whose device times a decode case also reports), also with one offset
 per row (``decode-ragged``: 8 slots at their own positions), and at the
 dense decoders' shapes (head dim 256, 6 to 8 query heads per kv head) and
-whisper-small's with no mask (the encoder, cross prefill and decode); the
-attention backward at hymba-1.5b's and gemma3-4b's train shapes; the
+whisper-small's with no mask (the encoder, cross prefill and decode) and
+the MoE decoders' (rep 16 and 4 at head dim 128); the attention backward at
+hymba-1.5b's, gemma3-4b's and whisper-small's train shapes; the
 scan forward with its checkpoints written, and the scan backward on both
 its routes (from the forward's checkpoints, the one training takes, and
 without them), which must give the same bits.  The block phases make each
@@ -121,6 +136,7 @@ is none, or where ``src/repro_torch`` is not beside this script.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -162,8 +178,10 @@ from repro_torch.obs import analyze, drift_report, run_calibration  # noqa: E402
 from repro_torch.obs.calibrate import fastest_retires  # noqa: E402
 from repro_torch.serve import ContinuousBatcher  # noqa: E402
 from repro_torch.sharding.plans import SINGLE_CARD  # noqa: E402
-from repro_torch.train import (DataConfig, TokenPipeline, make_grad_fn,  # noqa: E402
-                               make_prefill, make_serve_step)
+from repro_torch.train import (AdamConfig, DataConfig, TokenPipeline,  # noqa: E402
+                               init_opt_state, make_grad_fn, make_prefill,
+                               make_serve_step, make_train_step)
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.transformer import _leaves  # noqa: E402
 
 #: published peaks of one H100 SXM (dense, at the full 700 W limit)
@@ -200,14 +218,16 @@ DGEMM = dict(dim=16384, g=4)
 #: (g, g) grid; a randomized SVD (its sample has rank + oversample columns,
 #: and the matrix has exactly that rank, which tsqr_indirect's Q = Y R^-1
 #: needs: at rank 32 alone the sketch's last 8 columns are rank-deficient);
-#: L-BFGS on the paper's data at the Newton loop's size, with the ridge of
-#: the reference's own paper-data test (tests/test_glm.py): the data are
-#: separable, and without a ridge the first step takes the loss to exactly 0
-#: and the fit stops after 2 iterations
+#: L-BFGS on the paper's data at 2**20 rows in 8 blocks (the Newton loop's
+#: block shape, 131072 x 256; at the Newton loop's 2**22 rows numpy took
+#: about 60 s to make the data), with the ridge of the reference's own
+#: paper-data test (tests/test_glm.py): the data are separable, and without
+#: a ridge the first step takes the loss to exactly 0 and the fit stops
+#: after 2 iterations
 CPALS = dict(dim=1024, rank=8, q=4, sweeps=3)
 CHOL = dict(n=16384, g=4)
 RSVD = dict(rank=32, oversample=8)
-LBFGS = dict(iters=10, reg=1e-2)
+LBFGS = dict(n=1 << 20, q=8, iters=10, reg=1e-2)
 #: CP-ALS and L-BFGS, backend cuda against torch: relative to max|factor| /
 #: max|beta| (another summation order); TSQR, Cholesky and the rSVD: the
 #: reference's own limits at f64 (tests/test_linalg_ca.py), Frobenius norms
@@ -303,10 +323,12 @@ KERNEL_GROUPS = (
 )
 #: depth of the plain route's gradient step held against the kernel route
 TRAIN_PLAIN_LAYERS = 32
-#: steps of the train run repeated on the plain route (about 35 s each at
-#: full depth): enough to show both curves agree at step 0 and part by
-#: rounding at step 1
+#: the loss curves of both routes: TRAIN's first steps under its lr schedule
+#: at TRAIN_PLAIN_CURVE_LAYERS layers (the plain route takes about 35 s a
+#: step at the published 32): enough to show both curves agree at step 0 and
+#: part by rounding at step 1
 TRAIN_PLAIN_STEPS = 2
+TRAIN_PLAIN_CURVE_LAYERS = 8
 #: the f32 gradient check: full width, 8 layers (layer 7 global), batch 1
 TRAIN_F32 = dict(layers=8, batch=1)
 #: the dense train path (train_dense): gemma3-4b at its published width, cut
@@ -325,6 +347,28 @@ TRAIN_DENSE_F32 = dict(layers=6, batch=1)
 SERVE_WHISPER = dict(arch="whisper-small", batch=8, frames=1500, prompt_len=4, gen=64)
 #: its f32 leg: full width, 2 + 2 layers, the same requests
 SERVE_WHISPER_F32 = dict(layers=2, enc_layers=2)
+#: the MoE decoders (serve_moe): each at its published width (every expert,
+#: the router, top-k, d_model, heads, vocabulary) cut in depth so that its
+#: bf16 weights stay near command-r-35b's 60.6 GB beside the plain route's
+#: work: qwen3-moe-235b-a22b at 11 of 94 layers (57.2 GB: 2.488 B
+#: parameters a layer, 1.245 B in the embedding and head) and
+#: phi3.5-moe-42b-a6.6b at 22 of 32 (57.7 GB: 1.300 B a layer); bf16,
+#: seeded weights, served a batch of prompts through serve_demo
+SERVE_MOE = dict(layers={"qwen3-moe-235b-a22b": 11, "phi3.5-moe-42b-a6.6b": 22}, batch=4,
+                 prompt_len=2048, gen=16, dispatch_mode="einsum")
+#: each one's f32 leg: full width, 2 layers; there "gather" must agree with
+#: "einsum" to MOE_MODES_TOL of max|logit| (another summation order) with
+#: the same tokens
+SERVE_MOE_F32 = dict(layers=2, batch=2, prompt_len=512, gen=8)
+MOE_MODES_TOL = 1e-5
+#: the encoder-decoder train path (train_whisper): whisper-small as published
+#: (12 + 12 layers), f32 masters and AdamW, bf16 compute, full remat; 8
+#: requests of 1500 frames and 448 target tokens (whisper's text context);
+#: 1 warm-up step, 3 timed, 1 under torch.profiler
+TRAIN_WHISPER = dict(arch="whisper-small", batch=8, frames=1500, seq=448, warm=1, steps=3,
+                     lr=1e-3)
+#: its f32 gradient check: full width, 2 + 2 layers, batch 1
+TRAIN_WHISPER_F32 = dict(layers=2, enc_layers=2, batch=1)
 #: train path, kernel route against plain route on the same weights and
 #: batch: loss and every gradient leaf, relative to the leaf's max|g|.  bf16:
 #: the plain route is the reference's model attention, which rounds scores
@@ -790,6 +834,58 @@ def whisper_kernel_cases(dev):
     return cases
 
 
+def moe_kernel_cases(dev):
+    """The attention kernel at serve_moe's shapes, bf16 (head dim 128):
+    qwen3-moe-235b-a22b's prefill and decode step (64 query heads over 4
+    kv heads: rep 16) and phi3.5-moe-42b-a6.6b's prefill (rep 4)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    B, S = SERVE_MOE["batch"], SERVE_MOE["prompt_len"]
+    max_len = S + SERVE_MOE["gen"] + 1
+
+    def u(*shape):
+        return (torch.rand(shape, device=dev, generator=g) * 2 - 1).bfloat16()
+
+    cases = []
+    for arch, decode in (("qwen3-moe-235b-a22b", True), ("phi3.5-moe-42b-a6.6b", False)):
+        cfg = get_config(arch)
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        q, k, v = u(B, H, S, hd), u(B, KV, max_len, hd), u(B, KV, max_len, hd)
+        cases.append(flash_case(f"{arch} prefill-global bf16", q, k, v, None, 0))
+        if decode:
+            cases.append(flash_case(f"{arch} decode bf16", q[:, :, :1].contiguous(), k, v,
+                                    None, S))
+        del q, k, v
+        _release()
+    return cases
+
+
+def whisper_bwd_cases(dev):
+    """The backward kernels at train_whisper's shapes (12 heads, rep 1, hd
+    64): the encoder over its 1500 frames (no mask, ragged against the key
+    tile), cross-attention (448 target positions over the 1500 frames, no
+    mask) and the decoder's self-attention (448, causal), bf16; the encoder
+    in f32 at batch 1."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    cfg = get_config(TRAIN_WHISPER["arch"])
+    B, T, S = TRAIN_WHISPER["batch"], TRAIN_WHISPER["frames"], TRAIN_WHISPER["seq"]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def u(*shape):
+        return (torch.rand(shape, device=dev, generator=g) * 2 - 1).bfloat16()
+
+    q, k, v = u(B, H, T, hd), u(B, KV, T, hd), u(B, KV, T, hd)
+    qs, ks, vs = u(B, H, S, hd), u(B, KV, S, hd), u(B, KV, S, hd)
+    cases = [flash_bwd_case("whisper-small encoder bf16", q, k, v, None, causal=False),
+             flash_bwd_case("whisper-small cross bf16", qs, k, v, None, causal=False),
+             flash_bwd_case("whisper-small decoder-self bf16", qs, ks, vs, None)]
+    q32, k32, v32 = (t[:1].float() for t in (q, k, v))
+    cases.append(flash_bwd_case("whisper-small encoder f32 (batch 1)", q32, k32, v32, None,
+                                causal=False))
+    del q, k, v, qs, ks, vs, q32, k32, v32
+    _release()
+    return cases
+
+
 def train_shapes():
     """The train path's attention and scan shapes: hymba-1.5b's heads, state
     and window at TRAIN's batch and sequence."""
@@ -799,17 +895,18 @@ def train_shapes():
                 DI=cfg.ssm.d_inner(cfg.d_model), N=cfg.ssm.d_state)
 
 
-def flash_bwd_case(name, q, k, v, window):
+def flash_bwd_case(name, q, k, v, window, causal=True):
     """The backward kernels (dK/dV and dQ) on the forward kernel's own output
-    and lse, against the plain backward on the same inputs."""
+    and lse, against the plain backward on the same inputs; ``causal`` False
+    sees every key (whisper's encoder and cross-attention)."""
     dtype = q.dtype
-    kw = dict(causal=True, window=window, q_offset=0)
+    kw = dict(causal=causal, window=window, q_offset=0)
     out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
     do = (torch.rand(out.shape, device=q.device, generator=torch.Generator(
         device=q.device).manual_seed(7)) * 2 - 1).to(dtype)
     got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
     again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
-    ref = flash_attention_bwd_ref(q, k, v, out, lse, do, True, window, 0)
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, do, causal, window, 0)
     sync()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"flash_attention_bwd {name}: two launches differ")
@@ -818,7 +915,7 @@ def flash_bwd_case(name, q, k, v, window):
     del got, again, ref
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    mask = visible(Sq, Skv, True, window, 0, q.device)
+    mask = visible(Sq, Skv, causal, window, 0, q.device)
     pairs = int(mask.sum().item())
     # the five products S, dP, dV, dK, dQ: 2 flops each per (pair, head, dim);
     # q, o, do, dq and k, v, dk, dv once each, lse in f32
@@ -826,17 +923,18 @@ def flash_bwd_case(name, q, k, v, window):
                                (4 * B * H * Sq * hd + 4 * B * KV * Skv * hd)
                                * q.element_size() + 4 * B * H * Sq, dtype)
     qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
-    o_lib = torch.nn.functional.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
-                                                             enable_gqa=True)
+    every_key = not causal and window is None  # no mask: SDPA may take its flash backend
+    o_lib = torch.nn.functional.scaled_dot_product_attention(
+        qr, kr, vr, attn_mask=None if every_key else mask, enable_gqa=True)
     library = lambda: torch.autograd.grad(o_lib, (qr, kr, vr), do,  # noqa: E731
                                           retain_graph=True)
     case = dict(case=name, dtype=str(dtype).replace("torch.", ""), q=list(q.shape),
-                kv=list(k.shape), window=window, max_abs_err=max(errs),
+                kv=list(k.shape), causal=causal, window=window, max_abs_err=max(errs),
                 rel_err={"dq": rels[0], "dk": rels[1], "dv": rels[2]},
                 tol=FLASH_TOL[dtype],
                 ms=time_ms(lambda: ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)),
                 plain_ms=time_ms(lambda: flash_attention_bwd_ref(q, k, v, out, lse, do,
-                                                                 True, window, 0),
+                                                                 causal, window, 0),
                                  max_reps=10),
                 library_ms=time_ms(library),
                 library="scaled_dot_product_attention backward",
@@ -1280,15 +1378,15 @@ def rsvd_phase(dev):
 
 
 def lbfgs_phase(dev):
-    """LogisticRegression(solver="lbfgs") on the paper's data at the Newton
-    loop's size, on backends cuda and torch; the fit is timed without the
-    data's creation."""
-    X, y = paper_bimodal(NEWTON["n"], NEWTON["d"], seed=0)
+    """LogisticRegression(solver="lbfgs") on the paper's data at LBFGS's
+    size, on backends cuda and torch; the fit is timed without the data's
+    creation."""
+    X, y = paper_bimodal(LBFGS["n"], NEWTON["d"], seed=0)
     runs = {}
     for backend in ("cuda", "torch"):
         ctx = _block_ctx(backend, dev)
-        Xg = ctx.from_numpy(X, grid=(NEWTON["q"], 1))
-        yg = ctx.from_numpy(y, grid=(NEWTON["q"], 1))
+        Xg = ctx.from_numpy(X, grid=(LBFGS["q"], 1))
+        yg = ctx.from_numpy(y, grid=(LBFGS["q"], 1))
         ctx.flush()
         model = LogisticRegression(ctx, solver="lbfgs", max_iter=LBFGS["iters"],
                                    reg=LBFGS["reg"])
@@ -1297,7 +1395,7 @@ def lbfgs_phase(dev):
         res = model.result
         runs[backend] = dict(beta=model.beta, objectives=res.objectives,
                              launches=_kernel_launch_check(ctx, "L-BFGS", backend))
-        emit(f"lbfgs_{backend}", n=NEWTON["n"], d=NEWTON["d"], q=NEWTON["q"],
+        emit(f"lbfgs_{backend}", n=LBFGS["n"], d=NEWTON["d"], q=LBFGS["q"],
              reg=LBFGS["reg"], iterations=res.iterations, fit_s=fit_s, s_per_iter=fit_s / res.iterations,
              objectives=res.objectives, grad_norms=res.grad_norms,
              matmul_launches=runs[backend]["launches"])
@@ -1676,7 +1774,8 @@ def fault_obs_phase(dev, smi):
     return n
 
 
-def serve_run(dev, cfg, params, impl, forced=None, gen=None, spec=SERVE):
+def serve_run(dev, cfg, params, impl, forced=None, gen=None, spec=SERVE,
+              dispatch_mode="einsum"):
     """One serve_demo run of model ``cfg`` at ``spec``'s batch and prompt on
     the card, with its launches and peak memory; the launch counts are set
     to 0 just before it."""
@@ -1685,8 +1784,8 @@ def serve_run(dev, cfg, params, impl, forced=None, gen=None, spec=SERVE):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
     tokens = serve_demo(cfg, spec["batch"], spec["prompt_len"], gen or spec["gen"],
-                        device=dev,
-                        params=params, impl=impl, forced=forced, record=record,
+                        device=dev, params=params, impl=impl, forced=forced, record=record,
+                        dispatch_mode=dispatch_mode,
                         log_fn=lambda line: print(f"# {line}", file=sys.stderr))
     record.update(tokens=tokens, launches=dict(launches),
                   max_memory_allocated=torch.cuda.max_memory_allocated(dev))
@@ -1874,6 +1973,158 @@ def serve_dense_phase(dev):
     return total
 
 
+class RoutingTap:
+    """Over ``moe._top_k`` (the router's top-k inside ``moe_block``) while
+    installed: records every call's expert choices in order (on the card,
+    no sync) or, given ``replay`` (another run's records), makes each call
+    choose those experts, its gates still taken from its own router
+    probabilities.  The MoE routing is then teacher-forced, as ``forced``
+    tokens teacher-force the greedy picks: a near-tie between two experts'
+    router logits, which bf16 rounding on either route tips, no longer
+    sends a token through other experts."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+
+    def __enter__(self):
+        self.picks = []
+        real = self.real = moe._top_k
+
+        def tap(probs, k):
+            if self.replay is None:
+                vals, idx = real(probs, k)
+            else:
+                idx = self.replay[len(self.picks)]
+                check(idx.shape == probs.shape[:-1] + (k,),
+                      f"routing replay: call {len(self.picks)} is {tuple(probs.shape)}")
+                vals = torch.gather(probs, -1, idx)
+            self.picks.append(idx)
+            return vals, idx
+
+        moe._top_k = tap
+        return self
+
+    def __exit__(self, *exc):
+        moe._top_k = self.real
+
+
+def routing_parts(kern, plain, layers):
+    """Per layer, the share of prefill tokens (the first ``layers`` calls)
+    whose set of experts differs between two runs' ``RoutingTap.picks``,
+    and the first layer where any does."""
+    shares = [float((a.sort(-1).values != b.sort(-1).values).any(-1).float().mean())
+              for a, b in zip(kern[:layers], plain[:layers])]
+    first = next((i for i, sh in enumerate(shares) if sh > 0), None)
+    return dict(tokens_rerouted_share=shares, first_layer_rerouted=first)
+
+
+def serve_moe_model(dev, arch):
+    """One MoE decoder at its published width and SERVE_MOE's depth, bf16,
+    dispatch "einsum": served on the kernel route, then on the plain route
+    teacher-forced with the kernel route's tokens twice: with its own
+    routing (read only: where and how far the routes part) and with the
+    kernel route's routing (``RoutingTap``), which must agree within
+    SERVE_TOL, launches exact; a planted fault (DENSE_FAULT_WINDOW on every
+    layer, the kernel route's routing) that the limit must catch.  Then the
+    f32 leg at full width and SERVE_MOE_F32's depth, the same way: both
+    routes' tokens equal, and "gather" against "einsum" within MOE_MODES_TOL
+    with equal tokens.  Returns the bf16 kernel run's launches."""
+    L = SERVE_MOE["layers"][arch]
+    cfg = dataclasses.replace(get_config(arch), n_layers=L)
+    spec = dict(SERVE_MOE, arch=arch)
+    gen, mode = spec["gen"], spec["dispatch_mode"]
+    serve_warm_up(dev, cfg, spec)
+    params = dense_params(dev, cfg)
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    with RoutingTap() as kern_tap:
+        kern = serve_run(dev, cfg, params, "kernel", spec=spec, dispatch_mode=mode)
+    with RoutingTap() as free_tap:
+        free = serve_run(dev, cfg, params, "plain", forced=kern["tokens"], spec=spec,
+                         dispatch_mode=mode)
+    with RoutingTap(replay=kern_tap.picks):
+        plain = serve_run(dev, cfg, params, "plain", forced=kern["tokens"], spec=spec,
+                          dispatch_mode=mode)
+    fault_cfg = dataclasses.replace(cfg, window=DENSE_FAULT_WINDOW, local_global_ratio=0)
+    with RoutingTap(replay=kern_tap.picks):
+        fault = serve_run(dev, fault_cfg, params, "kernel", gen=1, spec=spec,
+                          dispatch_mode=mode)
+    scale = float(np.abs(plain["logits"][0]).max())
+    fault_err = float(np.abs(fault["logits"][0] - plain["logits"][0]).max() / scale)
+    free_scale = float(np.abs(free["logits"]).max())
+    own_routing = dict(routing_parts(kern_tap.picks, free_tap.picks, L),
+                       rel_err_per_step=(np.abs(kern["logits"] - free["logits"]).max(axis=(1, 2))
+                                         / free_scale).tolist(),
+                       greedy_agree=float((kern["tokens"] == free["tokens"]).mean()))
+    e = cfg.moe
+    ok = serve_compare(
+        "moe", kern, plain, SERVE_TOL["bfloat16"], spec, dtype=cfg.dtype, layers=L,
+        published_layers=get_config(arch).n_layers, d_model=cfg.d_model,
+        head_dim=cfg.resolved_head_dim, rep=cfg.n_heads // cfg.n_kv_heads,
+        experts=e.num_experts, top_k=e.top_k, d_ff_expert=e.d_ff_expert,
+        dispatch_mode=mode, params=cfg.param_count(),
+        active_params=cfg.active_param_count(), weight_gb=weight_bytes / 1e9,
+        routing="the kernel route's, on both", plain_own_routing=own_routing,
+        planted_fault={"fault": f"window {DENSE_FAULT_WINDOW} on every layer",
+                       "rel_err_prefill": fault_err})
+    check(ok, f"serve_moe {arch}: kernel and plain routes part")
+    want = {"flash_attention": L * gen, "mamba_scan": 0}
+    got = {k: kern["launches"][k] for k in want}
+    check(got == want, f"serve_moe {arch} kernel launches {got} != {want}")
+    check(not any(plain["launches"].values()) and not any(free["launches"].values()),
+          f"serve_moe {arch} plain route launched kernels: {plain['launches']}")
+    check(fault_err > SERVE_TOL["bfloat16"],
+          f"serve_moe {arch}: the bf16 limit misses the planted fault ({fault_err})")
+    launched = kern["launches"]
+    del params, kern, free, plain, fault, kern_tap, free_tap
+
+    cfg32 = dataclasses.replace(cfg, n_layers=SERVE_MOE_F32["layers"], dtype="float32")
+    spec32 = dict(SERVE_MOE_F32, arch=arch)
+    params = dense_params(dev, cfg32)
+    with RoutingTap() as kern_tap:
+        kern = serve_run(dev, cfg32, params, "kernel", spec=spec32)
+    with RoutingTap() as free_tap:
+        free = serve_run(dev, cfg32, params, "plain", forced=kern["tokens"], spec=spec32)
+    with RoutingTap(replay=kern_tap.picks):
+        plain = serve_run(dev, cfg32, params, "plain", forced=kern["tokens"], spec=spec32)
+    with RoutingTap(replay=kern_tap.picks):
+        gather = serve_run(dev, cfg32, params, "kernel", spec=spec32, dispatch_mode="gather")
+    modes_err = float(np.abs(gather["logits"] - kern["logits"]).max()
+                      / np.abs(kern["logits"]).max())
+    modes_same = bool(np.array_equal(gather["tokens"], kern["tokens"]))
+    own_routing = dict(routing_parts(kern_tap.picks, free_tap.picks, cfg32.n_layers),
+                       rel_err_max=float(np.abs(kern["logits"] - free["logits"]).max()
+                                         / np.abs(free["logits"]).max()),
+                       tokens_equal=bool(np.array_equal(kern["tokens"], free["tokens"])))
+    ok = serve_compare("moe_f32", kern, plain, SERVE_TOL["float32"], spec32, dtype="float32",
+                       layers=cfg32.n_layers, routing="the kernel route's, on both",
+                       plain_own_routing=own_routing,
+                       gather_vs_einsum={"rel_err": modes_err, "tol": MOE_MODES_TOL,
+                                         "tokens_equal": modes_same,
+                                         "launches": gather["launches"]})
+    check(ok and np.array_equal(kern["tokens"], plain["tokens"]),
+          f"serve_moe f32 {arch}: the routes part or their greedy tokens differ")
+    check(modes_err <= MOE_MODES_TOL and modes_same,
+          f"serve_moe f32 {arch}: gather against einsum {modes_err}, tokens equal {modes_same}")
+    want = {"flash_attention": cfg32.n_layers * spec32["gen"], "mamba_scan": 0}
+    for rec in (kern, gather):
+        check({k: rec["launches"][k] for k in want} == want,
+              f"serve_moe f32 {arch} kernel launches {rec['launches']} != {want}")
+    del params, kern, free, plain, gather, kern_tap, free_tap
+    _release()
+    return launched
+
+
+def serve_moe_phase(dev):
+    """The MoE decoders, one model at a time, each freed before the next;
+    returns their bf16 kernel runs' launches, summed."""
+    total = {"flash_attention": 0, "mamba_scan": 0}
+    for arch in SERVE_MOE["layers"]:
+        launched = serve_moe_model(dev, arch)
+        for k in total:
+            total[k] += launched[k]
+    return total
+
+
 def whisper_inputs(dev, cfg, spec, seed=0):
     """SERVE_WHISPER's requests from numpy, as the reference driver draws an
     encoder-decoder's (frames first, then prompt tokens), at its frames."""
@@ -1962,19 +2213,17 @@ def serve_whisper_phase(dev):
     kern, plain = whisper_routes(dev, cfg, params, inputs)
 
     # planted fault: the encoder's attention (its only Sq == Skv no-mask call) causal
-    real = ops.flash_attention
+    def causal_encoder(real):
+        def attention(q, k, v, **kw):
+            if not kw.get("causal", True) and q.shape[2] == k.shape[2]:
+                kw["causal"] = True
+            return real(q, k, v, **kw)
 
-    def causal_encoder(q, k, v, **kw):
-        if not kw.get("causal", True) and q.shape[2] == k.shape[2]:
-            kw["causal"] = True
-        return real(q, k, v, **kw)
+        return attention
 
-    ops.flash_attention = causal_encoder
-    try:
+    with patched(ops, "flash_attention", causal_encoder):
         fault = whisper_logits(cfg, params, inputs, "kernel", torch.zeros(
             (spec["batch"], 0), dtype=torch.long, device=dev))
-    finally:
-        ops.flash_attention = real
     fault_err = float(np.abs(fault[0] - plain["logits"][0]).max()
                       / np.abs(plain["logits"][0]).max())
     L, Le, gen = cfg.n_layers, cfg.n_enc_layers, spec["gen"]
@@ -2193,11 +2442,33 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_
 
 
 def train_launches_per_step(cfg):
-    """Kernel launches of one train step under full remat: each layer's
-    attention and scan forward twice (forward and recompute), backward once."""
+    """Kernel launches of one train step under full remat: each attention
+    call (a decoder layer's; an encoder-decoder's encoder layers' and cross-
+    attention too) and each layer's scan forward twice (forward and
+    recompute), backward once."""
     L, scan = cfg.n_layers, cfg.ssm is not None
-    return {"flash_attention": 2 * L, "flash_attention_bwd": L,
+    calls = L + (cfg.n_enc_layers + L if cfg.encdec else 0)
+    return {"flash_attention": 2 * calls, "flash_attention_bwd": calls,
             "mamba_scan": 2 * L if scan else 0, "mamba_scan_bwd": L if scan else 0}
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrap):
+    """``owner.name`` replaced by ``wrap(owner.name)`` inside the block: a
+    planted fault."""
+    real = getattr(owner, name)
+    setattr(owner, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+#: the planted fault of the hymba and gemma train checks: the local layers'
+#: window dropped in the backward kernel only
+WINDOW_DROPPED = ("window dropped in the backward kernel",
+                  lambda: patched(ops, "flash_attention_bwd",
+                                  lambda real: lambda *a, **kw: real(*a, **dict(kw, window=None))))
 
 
 def train_run(dev, cfg, spec, tag, n_leaves):
@@ -2261,33 +2532,42 @@ def train_run(dev, cfg, spec, tag, n_leaves):
     return {k: sum(st["launches"][k] for st in steps) for k in TRAIN_KERNELS}, steps
 
 
-def train_plain_curve(dev, kernel_steps):
-    """The train run's first TRAIN_PLAIN_STEPS steps again, from the same
-    seed, batches and lr schedule, on the plain route (``impl="plain"``):
-    both loss curves and gradient norms.  The curves agree at step 0 and
-    part by bf16 rounding from step 1; the losses must agree to TRAIN_TOL
-    over these steps.  (Later steps diverge chaotically under the schedule's
-    lr 1e-2 warm-up on either route: PERF.md, Queue 3 (g).)"""
-    steps = []
-    _release()
-    reset_launches()
-    state, _ = train_loop(get_config(TRAIN["arch"]), steps=TRAIN_PLAIN_STEPS,
-                          batch=TRAIN["batch"], seq=TRAIN["seq"], reduced=False,
-                          lr=TRAIN["lr"], log_every=1,
-                          schedule_steps=len(kernel_steps), device=dev, impl="plain",
-                          on_step=lambda step, metrics: steps.append(dict(metrics, step=step)),
-                          log_fn=lambda line: print(f"# {line}", file=sys.stderr))
-    del state
-    _release()
-    check(all(launches[k] == 0 for k in TRAIN_KERNELS),
-          f"train plain route launched kernels: {dict(launches)}")
+def train_plain_curve(dev, schedule_steps):
+    """TRAIN's first TRAIN_PLAIN_STEPS steps at TRAIN_PLAIN_CURVE_LAYERS
+    layers on both routes (``impl="kernel"`` and ``"plain"``), from the same
+    seed and batches under the train run's lr schedule (``schedule_steps``):
+    both loss curves and gradient norms, launches exact on the kernel route
+    and none on the plain one.  The curves agree at step 0 and part by bf16
+    rounding from step 1; the losses must agree to TRAIN_TOL over these
+    steps.  (Later steps diverge chaotically under the schedule's lr 1e-2
+    warm-up on either route: PERF.md, Queue 3 (g).)"""
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]), n_layers=TRAIN_PLAIN_CURVE_LAYERS)
+    runs = {}
+    for impl in ("kernel", "plain"):
+        steps = []
+        _release()
+        reset_launches()
+        state, _ = train_loop(cfg, steps=TRAIN_PLAIN_STEPS, batch=TRAIN["batch"],
+                              seq=TRAIN["seq"], reduced=False, lr=TRAIN["lr"], log_every=1,
+                              schedule_steps=schedule_steps, device=dev, impl=impl,
+                              on_step=lambda step, metrics: steps.append(dict(metrics,
+                                                                              step=step)),
+                              log_fn=lambda line: print(f"# {line}", file=sys.stderr))
+        del state
+        _release()
+        runs[impl] = steps
+        got = {k: launches[k] for k in TRAIN_KERNELS}
+        want = {k: n * TRAIN_PLAIN_STEPS if impl == "kernel" else 0
+                for k, n in train_launches_per_step(cfg).items()}
+        check(got == want, f"train curve {impl} route launches {got} != {want}")
     curves = {name: {k: [st[k] for st in run] for k in ("loss", "grad_norm", "lr", "s")}
-              for name, run in (("kernel", kernel_steps), ("plain", steps))}
+              for name, run in runs.items()}
     diff = [abs(a - b) / abs(b) for a, b in zip(curves["kernel"]["loss"],
                                                 curves["plain"]["loss"])]
-    emit("train_plain_curve", n_layers=get_config(TRAIN["arch"]).n_layers,
-         steps=len(steps), curves=curves, loss_rel_diff=diff, tol=TRAIN_TOL["bfloat16"])
-    check(all(np.isfinite(st["loss"]) for st in steps), f"train plain route: {curves}")
+    emit("train_plain_curve", n_layers=cfg.n_layers, steps=TRAIN_PLAIN_STEPS, curves=curves,
+         loss_rel_diff=diff, tol=TRAIN_TOL["bfloat16"])
+    check(all(np.isfinite(st["loss"]) for run in runs.values() for st in run),
+          f"train curves: {curves}")
     check(max(diff) <= TRAIN_TOL["bfloat16"], f"train curves part: {diff}")
 
 
@@ -2331,9 +2611,13 @@ def _cut(params, layers):
 
 
 def _leaf_errs(got, want):
-    """max|got - want| / max|want| per gradient leaf, keyed by path."""
+    """max|got - want| / max|want| per gradient leaf, keyed by path.  A key
+    bias (``bk``: softmax over keys is blind to it, so its exact gradient is
+    0 and both routes hold rounding) is taken relative to the max|want| of
+    the same projection's weight, ``wk``."""
+    scale = {path: b.float().abs().max().clamp_min(1e-30) for path, b in want}
     return {"/".join(path): ((a.float() - b.float()).abs().max()
-                             / b.float().abs().max().clamp_min(1e-30)).item()
+                             / scale[path[:-1] + ("wk",) if path[-1] == "bk" else path]).item()
             for (path, a), (_, b) in zip(got, want)}
 
 
@@ -2353,18 +2637,23 @@ def train_compare(label, kern, plain, tol):
     return per_leaf
 
 
-def grad_checks(dev, cfg, spec, tag, plain_layers, f32):
-    """The gradients of one step of ``cfg`` (full remat, bf16 compute on f32
-    masters) on train_loop's first batch and weights: two kernel runs
-    bitwise equal, the kernel route against the plain route at
-    ``plain_layers`` (TRAIN_TOL), a planted fault that the limit must catch
-    (the local layers' window dropped in the backward kernel only), then
-    f32 at full width and ``f32["layers"]`` (1e-4, launches exact).
-    Emitted as ``train_{tag}...``."""
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dtype="float32")
+def pipeline_batch(dev, cfg, spec):
+    """train_loop's first batch at ``spec``'s batch and sequence."""
     pipe = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=spec["seq"],
                                     global_batch=spec["batch"]))
-    batch = batch_to(next(pipe), dev)  # train_loop's first batch, on its weights
+    return batch_to(next(pipe), dev)
+
+
+def grad_checks(dev, cfg, spec, tag, plain_layers, f32, batch, fault):
+    """The gradients of one step of ``cfg`` (full remat, bf16 compute on f32
+    masters, ``dense_params``' weights) on ``batch``: two kernel runs
+    bitwise equal, the kernel route against the plain route at
+    ``plain_layers`` (TRAIN_TOL), a planted fault that the limit must catch
+    (``fault``: its name and a context that plants it), then f32 at full
+    width, ``f32["layers"]`` (and ``f32["enc_layers"]``) and the batch's
+    first ``f32["batch"]`` rows (1e-4, launches exact).  Emitted as
+    ``train_{tag}...``."""
+    params = dense_params(dev, dataclasses.replace(cfg, dtype="float32"))
 
     # determinism: the same backward twice at the train run's depth
     first = _grads(cfg, params, batch, "kernel", "bfloat16")
@@ -2388,26 +2677,23 @@ def grad_checks(dev, cfg, spec, tag, plain_layers, f32):
     train_compare(f"{tag}bf16", kern, plain, TRAIN_TOL["bfloat16"])
     del kern
 
-    # planted fault: the local layers' window dropped in the backward kernel only
-    real_bwd = ops.flash_attention_bwd
-    ops.flash_attention_bwd = lambda *a, **kw: real_bwd(*a, **dict(kw, window=None))
-    try:
-        fault = _grads(cut, cparams, batch, "kernel", "bfloat16")
-    finally:
-        ops.flash_attention_bwd = real_bwd
-    per_leaf = _leaf_errs(fault[1], plain[1])
+    fault_name, plant = fault
+    with plant():
+        planted = _grads(cut, cparams, batch, "kernel", "bfloat16")
+    per_leaf = _leaf_errs(planted[1], plain[1])
     worst = max(per_leaf, key=per_leaf.get)
-    emit(f"train_{tag}bf16_planted_fault", fault="window dropped in the backward kernel",
-         worst_leaf=worst, worst_rel_err=per_leaf[worst], tol=TRAIN_TOL["bfloat16"])
+    emit(f"train_{tag}bf16_planted_fault", fault=fault_name, worst_leaf=worst,
+         worst_rel_err=per_leaf[worst], tol=TRAIN_TOL["bfloat16"])
     check(per_leaf[worst] > TRAIN_TOL["bfloat16"],
           f"the bf16 train limit misses a planted fault: {worst} {per_leaf[worst]}")
-    del fault, plain, cparams, params
+    del planted, plain, cparams, params
     _release()
 
-    # f32: full width, f32["layers"] layers, f32["batch"] rows
-    cfg32 = dataclasses.replace(cfg, n_layers=f32["layers"], dtype="float32")
-    params = init_params(cfg32, torch.Generator(device=dev).manual_seed(0))
-    batch = {k: v[:f32["batch"]] for k, v in batch.items()}
+    cfg32 = dataclasses.replace(cfg, n_layers=f32["layers"], dtype="float32",
+                                n_enc_layers=f32.get("enc_layers", cfg.n_enc_layers))
+    params = dense_params(dev, cfg32)
+    batch = {k: (v[:f32["batch"]].float() if v.is_floating_point() else v[:f32["batch"]])
+             for k, v in batch.items()}
     reset_launches()
     kern = _grads(cfg32, params, batch, "kernel", "float32")
     want = train_launches_per_step(cfg32)
@@ -2420,15 +2706,16 @@ def grad_checks(dev, cfg, spec, tag, plain_layers, f32):
 
 
 def train_phase(dev):
-    """Training hymba-1.5b through the kernels (``train_run``) and the same
-    steps on the plain route (``train_plain_curve``), then the gradient
+    """Training hymba-1.5b through the kernels (``train_run``), both routes'
+    loss curves at a cut depth (``train_plain_curve``), then the gradient
     checks (``grad_checks``: bitwise at the published depth, the plain route
     at TRAIN_PLAIN_LAYERS, a planted fault, f32 at 8 layers).  Returns the
     launches of the train run (the main path's)."""
     cfg = get_config(TRAIN["arch"])
     main_launches, kernel_steps = train_run(dev, cfg, TRAIN, "", 21)
-    train_plain_curve(dev, kernel_steps)
-    grad_checks(dev, cfg, TRAIN, "", TRAIN_PLAIN_LAYERS, TRAIN_F32)
+    train_plain_curve(dev, len(kernel_steps))
+    grad_checks(dev, cfg, TRAIN, "", TRAIN_PLAIN_LAYERS, TRAIN_F32,
+                pipeline_batch(dev, cfg, TRAIN), WINDOW_DROPPED)
     return main_launches
 
 
@@ -2439,7 +2726,101 @@ def train_dense_phase(dev):
     depth (f32 at TRAIN_DENSE_F32).  Returns the train run's launches."""
     cfg = dataclasses.replace(get_config(TRAIN_DENSE["arch"]), n_layers=TRAIN_DENSE["layers"])
     main_launches, _ = train_run(dev, cfg, TRAIN_DENSE, "dense_", 13)
-    grad_checks(dev, cfg, TRAIN_DENSE, "dense_", cfg.n_layers, TRAIN_DENSE_F32)
+    grad_checks(dev, cfg, TRAIN_DENSE, "dense_", cfg.n_layers, TRAIN_DENSE_F32,
+                pipeline_batch(dev, cfg, TRAIN_DENSE), WINDOW_DROPPED)
+    return main_launches
+
+
+def whisper_train_batch(dev, cfg, spec, seed=0):
+    """A train batch of TRAIN_WHISPER's requests from numpy, drawn as
+    ``whisper_inputs`` draws a serve batch (frames first, then token ids):
+    the decoder reads ``seq`` ids and is scored on the next ones."""
+    rng = np.random.default_rng(seed)
+    frames = rng.standard_normal((spec["batch"], spec["frames"], cfg.d_model))
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab, (spec["batch"], spec["seq"] + 1)))
+    return {"frames": torch.from_numpy(frames).to(dev, getattr(torch, cfg.dtype)),
+            "tokens": ids[:, :-1].to(dev), "labels": ids[:, 1:].to(dev)}
+
+
+def whisper_train_run(dev, cfg, spec):
+    """whisper-small trained through ``make_train_step`` on the kernel route
+    (f32 masters, bf16 compute, full remat) on one seeded batch: one
+    warm-up step, spec["steps"] timed ones, one under torch.profiler, each
+    step's launches read and set to 0 after it.  Returns the launches of
+    the whole run."""
+    steps_n = spec["warm"] + spec["steps"] + 1
+    opt = AdamConfig(lr=spec["lr"], warmup_steps=max(steps_n // 20, 5),  # train_loop's
+                     total_steps=steps_n)
+    params = dense_params(dev, dataclasses.replace(cfg, dtype="float32"))  # f32 masters
+    state = {"params": params, "opt": init_opt_state(params)}
+    del params
+    step_fn = make_train_step(cfg, SINGLE_CARD, opt)
+    batch = whisper_train_batch(dev, cfg, spec)
+    profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    steps = []
+    for i in range(steps_n):
+        if i == steps_n - 1:
+            profiler.start()
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        loss = metrics["loss"].item()
+        sync()
+        steps.append(dict(step=i, s=time.perf_counter() - t0, loss=loss,
+                          grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
+                          launches={k: launches[k] for k in TRAIN_KERNELS},
+                          max_memory_allocated=torch.cuda.max_memory_allocated(dev)))
+        reset_launches()
+    profiler.stop()
+    n_params = sum(t.numel() for _, t in _leaves(state["params"]))
+    del state
+    _release()
+    timed = steps[spec["warm"]:spec["warm"] + spec["steps"]]
+    s_per_step = sum(st["s"] for st in timed) / len(timed)
+    want = train_launches_per_step(cfg)
+    B, T, S = spec["batch"], spec["frames"], spec["seq"]
+    emit("train_whisper_kernel", arch=spec["arch"], layers=[cfg.n_enc_layers, cfg.n_layers],
+         d_model=cfg.d_model, params=n_params, batch=B, frames=T, seq=S, dtype=cfg.dtype,
+         master="float32", remat=SINGLE_CARD.remat, s_per_step=s_per_step,
+         tokens_per_s=B * S / s_per_step, frames_per_s=B * T / s_per_step,
+         max_memory_allocated=max(st["max_memory_allocated"] for st in steps),
+         steps=steps, launches_per_step_expected=want)
+    emit("train_whisper_profile", **train_profile(profiler, steps[-1]["s"]))
+    check(all(np.isfinite(st["loss"]) and np.isfinite(st["grad_norm"]) for st in steps),
+          f"train_whisper: non-finite loss or grad norm {steps}")
+    for st in steps:
+        check(st["launches"] == want,
+              f"train_whisper step {st['step']} launches {st['launches']} != {want}")
+    return {k: sum(st["launches"][k] for st in steps) for k in TRAIN_KERNELS}
+
+
+def causal_cross(real):
+    """``ops.flash_attention`` with every call over another length of keys
+    than of queries (cross-attention) made causal: each target position
+    then sees only the frames up to its own index."""
+    def attention(q, k, v, **kw):
+        if not kw.get("causal", True) and q.shape[2] != k.shape[2]:
+            kw["causal"] = True
+        return real(q, k, v, **kw)
+
+    return attention
+
+
+def train_whisper_phase(dev):
+    """Training whisper-small as published through the kernels
+    (``whisper_train_run``: the encoder's and cross-attention's forward and
+    backward with no mask, the decoder's causal), then ``grad_checks`` at
+    the same depth (a planted fault: cross-attention made causal; f32 at
+    TRAIN_WHISPER_F32).  Returns the train run's launches."""
+    cfg = get_config(TRAIN_WHISPER["arch"])
+    main_launches = whisper_train_run(dev, cfg, TRAIN_WHISPER)
+    grad_checks(dev, cfg, TRAIN_WHISPER, "whisper_", cfg.n_layers, TRAIN_WHISPER_F32,
+                whisper_train_batch(dev, cfg, TRAIN_WHISPER),
+                ("cross-attention causal", lambda: patched(ops, "flash_attention",
+                                                           causal_cross)))
     return main_launches
 
 
@@ -2496,7 +2877,9 @@ def main() -> int:
     flash_cases, scan_cases = serve_kernel_phase(dev)
     flash_cases += dense_kernel_cases(dev)
     flash_cases += whisper_kernel_cases(dev)
+    flash_cases += moe_kernel_cases(dev)
     flash_bwd_cases, scan_bwd_cases = train_kernel_phase(dev)
+    flash_bwd_cases += whisper_bwd_cases(dev)
     lap("kernel_cases")
 
     # the block phases make their large random blocks once (HostBlocks)
@@ -2555,6 +2938,9 @@ def main() -> int:
     # on gemma3-4b and gemma-7b)
     dense_launches = serve_dense_phase(dev)
     lap("serve_dense")
+    # the MoE decoders at their published width, cut in depth
+    moe_launches = serve_moe_phase(dev)
+    lap("serve_moe")
     # the encoder-decoder: whisper-small's encoder, self- and cross-attention
     # through the attention kernel (no mask on the encoder and cross)
     whisper_launches = serve_whisper_phase(dev)
@@ -2565,26 +2951,32 @@ def main() -> int:
     lap("train")
     dense_train_launches = train_dense_phase(dev)
     lap("train_dense")
+    # whisper-small trained: the attention backward with no mask (encoder,
+    # cross-attention over 1500 frames) and causal (decoder)
+    whisper_train_launches = train_whisper_phase(dev)
+    lap("train_whisper")
     emit("timing", phase_s=phase_s, total_s=time.perf_counter() - t0)
 
     # launches of the main paths' own runs: the block runtime on backend
     # cuda (like the reference's backend, it never routes to glm_fused, held
     # against its plain version above at the main path's shapes), the bf16
     # serve run through the kernels, the bf16 continuous-batching runs of
-    # both models, the dense decoders' bf16 runs, whisper-small's bf16 run,
-    # and the two train runs
+    # both models, the dense decoders' and the MoE decoders' bf16 runs,
+    # whisper-small's bf16 run, and the three train runs
     main_launches = {k: cuda["launches"][k] + dg_cuda["launches"][k]
                      for k in ("matmul", "glm_fused")}
     main_launches["matmul"] += block_launches + fault_obs_launches
     main_launches.update({k: serve_launches[k] + batched_launches[k] + dense_launches[k]
-                          + train_launches[k] + dense_train_launches[k]
+                          + moe_launches[k] + train_launches[k] + dense_train_launches[k]
+                          + whisper_train_launches[k]
                           for k in ("flash_attention", "mamba_scan")})
     main_launches["flash_attention"] += whisper_launches["flash_attention"]
     main_launches.update({k: train_launches[k] + dense_train_launches[k]
+                          + whisper_train_launches[k]
                           for k in ("flash_attention_bwd", "mamba_scan_bwd")})
-    check(all(dense_train_launches[k] > 0 and whisper_launches["flash_attention"] > 0
-              for k in ("flash_attention", "flash_attention_bwd")),
-          f"the new paths' launches: {dense_train_launches}, {whisper_launches}")
+    check(all(whisper_train_launches[k] > 0 for k in ("flash_attention", "flash_attention_bwd"))
+          and moe_launches["flash_attention"] > 0,
+          f"the new paths' launches: {moe_launches}, {whisper_train_launches}")
     check(main_launches["matmul"] > 0, f"main-path launches {main_launches}")
     print(json.dumps({"kernels": [
         kernel_entry("matmul", MATMUL_SRC, matmul_cases, "X^T(w*X) f64",

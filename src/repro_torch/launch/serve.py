@@ -62,7 +62,8 @@ def serve_demo(cfg: ModelConfig, batch: int = 4, prompt_len: int = 16, gen: int 
                seed: int = 0, log_fn=print, *, device=None,
                params: Optional[Dict[str, Any]] = None, impl: str = "kernel",
                forced: Optional[np.ndarray] = None,
-               record: Optional[Dict[str, Any]] = None) -> np.ndarray:
+               record: Optional[Dict[str, Any]] = None,
+               dispatch_mode: str = "einsum") -> np.ndarray:
     """Serve one batch of model ``cfg``: prefill ``prompt_len`` tokens, then
     ``gen - 1`` greedy decode steps; returns the (batch, gen) generated
     tokens.
@@ -72,7 +73,8 @@ def serve_demo(cfg: ModelConfig, batch: int = 4, prompt_len: int = 16, gen: int 
     route of attention and the scan (``"kernel"`` or ``"plain"``).
     ``forced`` (batch, gen) tokens are fed back in place of the greedy ones
     (teacher forcing: the returned tokens are still the greedy picks).
-    ``record``, when given, receives the timings and every step's logits."""
+    ``record``, when given, receives the timings and every step's logits.
+    ``dispatch_mode`` is an MoE model's ("einsum" or "gather")."""
     dev = resolve_device(device)
     if params is None:
         params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
@@ -85,7 +87,7 @@ def serve_demo(cfg: ModelConfig, batch: int = 4, prompt_len: int = 16, gen: int 
         raise ValueError(f"serve_demo: forced tokens {tuple(forced.shape)} are not "
                          f"(batch, gen) = {(batch, gen)}")
     max_len = prompt_len + gen + 1
-    prefill_fn = make_prefill(cfg, max_len=max_len, impl=impl)
+    prefill_fn = make_prefill(cfg, max_len=max_len, impl=impl, dispatch_mode=dispatch_mode)
     prompts = {k: torch.from_numpy(v).to(dev, torch.int64 if k == "tokens"
                                          else getattr(torch, cfg.dtype))
                for k, v in make_prompts(cfg, batch, prompt_len, seed).items()}
@@ -102,7 +104,8 @@ def serve_demo(cfg: ModelConfig, batch: int = 4, prompt_len: int = 16, gen: int 
         tok = torch.argmax(steps[-1], dim=-1)[:, None]
         if forced_t is not None:
             tok = forced_t[:, i:i + 1]
-        logits, cache = decode_step(params, tok, cache, cfg, impl=impl)
+        logits, cache = decode_step(params, tok, cache, cfg, impl=impl,
+                                    dispatch_mode=dispatch_mode)
         steps.append(logits[:, -1])
     seqs = torch.stack([torch.argmax(s, dim=-1) for s in steps], dim=1)
     _sync(dev)

@@ -1,8 +1,8 @@
-"""LM model zoo: the hymba-style hybrid (attention + SSM), Mamba and dense
-decoders (M-RoPE too) and the whisper-style encoder-decoder, for training
-and serving, with attention and the scan through the hand-written kernels
-(forward and backward).  MoE and sharding rules wait for later slices
-(ROADMAP Queue 1 items 6 and 7)."""
+"""LM model zoo: the hymba-style hybrid (attention + SSM), Mamba, dense and
+MoE decoders (M-RoPE too) and the whisper-style encoder-decoder, for
+training and serving, with attention and the scan through the hand-written
+kernels (forward and backward).  Sharding rules wait for a later slice
+(ROADMAP Queue 1 item 7)."""
 from .config import ModelConfig, MoEConfig, SSMConfig
 from .partitioning import Rules, constrain, use_rules
 from .transformer import decode_step, forward, init_params, param_shapes, prefill

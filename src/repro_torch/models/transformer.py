@@ -24,8 +24,10 @@ model takes ``batch["frames"]`` (B, T, D), the stub frontend's frames, runs
 the encoder over them (attention with no mask) and gives every decoder
 layer a cross-attention sublayer over the encoder's output; prefill
 projects each layer's cross keys and values once into the cache (``ck``,
-``cv``), which decoding reads.  MoE waits for a later slice and raises
-``NotImplementedError`` naming its ROADMAP item.
+``cv``), which decoding reads.  An MoE model's channel sublayer is
+``moe.moe_block`` (``dispatch_mode`` and ``capacity_factor`` are keywords
+of all three entry points); its load-balancing loss, summed over layers in
+f32, is ``forward``'s aux.
 """
 from __future__ import annotations
 
@@ -39,10 +41,10 @@ import torch.utils.checkpoint as torch_checkpoint
 
 from .config import ModelConfig
 from .layers import CausalMask, apply_norm, attention_block, mlp_block, softcap_logits
+from .moe import moe_block
 from .partitioning import constrain
 from .ssm import ssm_block
 
-_MOE = "MoE layers are not ported yet: ROADMAP Queue 1 item 6 (the MoE configs)"
 REMATS = ("none", "dots", "full")
 
 # ---------------------------------------------------------------------------
@@ -238,22 +240,25 @@ def _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl):
     return x + mixed, (new_cache if cache is not None else None)
 
 
-def _channel(cfg, lp, x):
-    """Channel-mixing sublayer: dense MLP (MoE, the one source of an aux
-    loss, waits for its slice)."""
+def _channel(cfg, lp, x, dispatch_mode, capacity_factor):
+    """Channel-mixing sublayer: dense MLP or MoE.  Returns the new x and the
+    layer's aux loss (None without MoE, its one source)."""
     if cfg.moe is not None:
-        raise NotImplementedError(_MOE)
+        h = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
+        out, aux = moe_block(lp["moe"], h, cfg, capacity_factor, dispatch_mode)
+        return x + out, aux
     if cfg.d_ff:
         h = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
-        return x + mlp_block(lp["mlp"], h, cfg)
-    return x
+        return x + mlp_block(lp["mlp"], h, cfg), None
+    return x, None
 
 
 def decoder_layer(cfg, lp, x, positions, mask, cache, cache_pos, impl="kernel",
-                  enc_out=None):
+                  enc_out=None, dispatch_mode="einsum", capacity_factor=1.25):
     """Self-attention and/or SSM, then (encoder-decoder) cross-attention over
     ``enc_out``, or at decode (``enc_out`` None) over the cache's static
-    ``ck``, ``cv``, then the MLP."""
+    ``ck``, ``cv``, then the MLP or MoE.  Returns (x, new cache, aux), aux
+    None without MoE."""
     x, new_cache = _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl)
     if cfg.encdec:
         h = apply_norm(x, lp["norm_cross"], cfg.norm, cfg.norm_eps)
@@ -263,7 +268,8 @@ def decoder_layer(cfg, lp, x, positions, mask, cache, cache_pos, impl="kernel",
         c_out, _ = attention_block(lp["cross"], h, cfg, None, None, c_cache, kv_x=enc_out,
                                    cross=True, impl=impl)
         x = x + c_out
-    return _channel(cfg, lp, x), new_cache
+    x, aux = _channel(cfg, lp, x, dispatch_mode, capacity_factor)
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -285,8 +291,10 @@ def _dots_saveable():
 
 
 def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
-                  cache_pos, impl="kernel", remat: str = "none", enc_out=None):
-    """Apply every layer in turn.  ``mask`` is the global layers' mask; a
+                  cache_pos, impl="kernel", remat: str = "none", enc_out=None,
+                  dispatch_mode="einsum", capacity_factor=1.25):
+    """Apply every layer in turn; returns (x, caches, aux), aux the layers'
+    MoE losses summed in f32 from zero.  ``mask`` is the global layers' mask; a
     local layer takes it with ``cfg.window``.  Each layer's new cache state
     is written into the stacked ``caches`` in place.  ``remat`` ("none",
     "dots", "full") checkpoints each layer for the backward, as the
@@ -303,6 +311,8 @@ def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
         raise ValueError("decoder_stack: remat is for training; the serving caches "
                          "are written in place")
     context_fn = _dots_saveable() if remat == "dots" else None
+    moe_kw = dict(dispatch_mode=dispatch_mode, capacity_factor=capacity_factor)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = _tree_map(lambda t: t.unbind(0), layers)
     for i in range(cfg.n_layers):
         lp = _tree_map(lambda parts: parts[i], per_layer)
@@ -311,20 +321,24 @@ def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
             layer_mask = dataclasses.replace(mask, window=cfg.window)
         if remat != "none":
             def run(x_in, lp_in, enc_in, layer_mask=layer_mask):
-                return decoder_layer(cfg, lp_in, x_in, positions, layer_mask, None, None,
-                                     impl, enc_in)[0]
+                x_out, _, a = decoder_layer(cfg, lp_in, x_in, positions, layer_mask, None,
+                                            None, impl, enc_in, **moe_kw)
+                return x_out, a
 
             kw = {} if context_fn is None else {"context_fn": context_fn}
-            x = torch_checkpoint.checkpoint(run, x, lp, enc_out, use_reentrant=False, **kw)
-            continue
-        cache_l = None if caches is None else {k: t[i] for k, t in caches.items()}
-        x, new_cache = decoder_layer(cfg, lp, x, positions, layer_mask, cache_l,
-                                     cache_pos, impl, enc_out)
+            x, a = torch_checkpoint.checkpoint(run, x, lp, enc_out, use_reentrant=False,
+                                               **kw)
+        else:
+            cache_l = None if caches is None else {k: t[i] for k, t in caches.items()}
+            x, new_cache, a = decoder_layer(cfg, lp, x, positions, layer_mask, cache_l,
+                                            cache_pos, impl, enc_out, **moe_kw)
+        if a is not None:
+            aux = aux + a
         if caches is not None:
             for k in ("conv", "ssm"):  # k and v were written in place
                 if k in new_cache:
                     caches[k][i].copy_(new_cache[k])
-    return x, caches
+    return x, caches, aux
 
 
 def encoder_stack(cfg, enc_params, frames, remat: str = "none", impl: str = "kernel"):
@@ -429,10 +443,11 @@ def _positions(B, S, offset, device):
     return torch.arange(offset, offset + S, device=device).expand(B, S)
 
 
-def forward(params, batch, cfg: ModelConfig, remat: str = "none", impl: str = "kernel"):
-    """Training forward: full-sequence logits (+ the MoE aux loss, 0 here).
-    Differentiable; ``remat`` checkpoints each layer (see
-    ``decoder_stack``)."""
+def forward(params, batch, cfg: ModelConfig, remat: str = "none", impl: str = "kernel",
+            dispatch_mode: str = "einsum", capacity_factor: float = 1.25):
+    """Training forward: full-sequence logits and the MoE aux loss (an f32
+    zero without MoE).  Differentiable; ``remat`` checkpoints each layer
+    (see ``decoder_stack``)."""
     x = _embed_inputs(cfg, params, batch)
     B, S = x.shape[0], x.shape[1]
     positions = batch.get("positions")
@@ -441,14 +456,15 @@ def forward(params, batch, cfg: ModelConfig, remat: str = "none", impl: str = "k
     enc_out = None
     if cfg.encdec:
         enc_out = encoder_stack(cfg, params["encoder"], batch["frames"], remat, impl)
-    x, _ = decoder_stack(cfg, params["layers"], x, positions, CausalMask(S, S), None,
-                         None, impl, remat, enc_out)
+    x, _, aux = decoder_stack(cfg, params["layers"], x, positions, CausalMask(S, S), None,
+                              None, impl, remat, enc_out, dispatch_mode, capacity_factor)
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    return _lm_logits(cfg, params, x), torch.zeros((), device=x.device)
+    return _lm_logits(cfg, params, x), aux
 
 
 @torch.no_grad()
-def prefill(params, batch, cfg: ModelConfig, max_len: int, impl: str = "kernel"):
+def prefill(params, batch, cfg: ModelConfig, max_len: int, impl: str = "kernel",
+            dispatch_mode: str = "einsum", capacity_factor: float = 1.25):
     """Process the prompt, returning last-position logits + serving cache
     (with an encoder-decoder model, the encoder's output's cross keys and
     values too)."""
@@ -463,15 +479,17 @@ def prefill(params, batch, cfg: ModelConfig, max_len: int, impl: str = "kernel")
         enc_out = encoder_stack(cfg, params["encoder"], batch["frames"], impl=impl)
         caches["ck"], caches["cv"] = _cross_kv(cfg, params["layers"], enc_out)
     S_kv = caches["k"].shape[2] if "k" in caches else S
-    x, caches = decoder_stack(cfg, params["layers"], x, positions, CausalMask(S, S_kv),
-                              caches, 0, impl, enc_out=enc_out)
+    x, caches, _ = decoder_stack(cfg, params["layers"], x, positions, CausalMask(S, S_kv),
+                                 caches, 0, impl, enc_out=enc_out, dispatch_mode=dispatch_mode,
+                                 capacity_factor=capacity_factor)
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = _lm_logits(cfg, params, x[:, -1:])
     return logits, {"layers": caches, "pos": S}
 
 
 @torch.no_grad()
-def decode_step(params, tokens, cache, cfg: ModelConfig, impl: str = "kernel"):
+def decode_step(params, tokens, cache, cfg: ModelConfig, impl: str = "kernel",
+                dispatch_mode: str = "einsum", capacity_factor: float = 1.25):
     """One serving step: tokens (B, 1) -> logits (B, 1, V), updated cache.
     ``cache["pos"]`` is a host int that every row shares, or a sequence of B
     host ints, one per row: row b's token then sits at its own position for
@@ -498,8 +516,9 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, impl: str = "kernel"):
     if "k" in layers_cache:
         mask = CausalMask(1, layers_cache["k"].shape[2], q_offset=pos,
                           offsets=offsets if per_row else None)
-    x, layers_cache = decoder_stack(cfg, params["layers"], x, positions, mask,
-                                    layers_cache, pos, impl)
+    x, layers_cache, _ = decoder_stack(cfg, params["layers"], x, positions, mask,
+                                       layers_cache, pos, impl, dispatch_mode=dispatch_mode,
+                                       capacity_factor=capacity_factor)
     x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
     logits = _lm_logits(cfg, params, x)
     new_pos = tuple(p + 1 for p in pos) if per_row else pos + 1

@@ -7,9 +7,11 @@ forward with the plan's remat policy, the loss's gradient by autograd
 (through the attention and scan kernels' backward kernels on the kernel
 route), optional accumulation over ``plan.accum_steps`` microbatches, the
 optional bf16 gradient cast (``plan.grad_dtype``), and an AdamW update, in
-place.  The reference's ``Plan`` also carries mesh and MoE choices that one
-card does not use; ``rules`` must be None until SPMD sharding is ported
-(ROADMAP Queue 1 item 7).
+place.  The forward takes the plan's MoE ``dispatch_mode``; the
+reference's ``Plan`` also carries mesh choices that one card does not use,
+and ``rules`` must be None until SPMD sharding is ported (ROADMAP Queue 1
+item 7).  The serving builders have no plan: ``dispatch_mode`` is their
+keyword.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ def make_grad_fn(cfg: ModelConfig, plan: Plan, rules=None,
         leaves = [p.detach().requires_grad_() for p in masters]
         with torch.enable_grad(), use_rules(rules):
             cparams = _tree_map(lambda p: p.to(cast).to(wide), _unflatten(paths, leaves))
-            logits, aux = forward(cparams, batch, cfg, remat=plan.remat, impl=impl)
+            logits, aux = forward(cparams, batch, cfg, remat=plan.remat, impl=impl,
+                                  dispatch_mode=plan.dispatch_mode)
             loss = cross_entropy(logits, batch["labels"]) + aux
             del cparams, logits
             grads = list(torch.autograd.grad(loss, leaves))
@@ -75,7 +78,7 @@ def make_train_step(cfg: ModelConfig, plan: Plan, opt_cfg: AdamConfig, rules=Non
     """One train step: (state, batch) -> (state, metrics).  ``state`` is
     ``{"params", "opt"}`` (``init_train_state``), updated in place and
     returned; ``batch`` holds "tokens" and "labels" (B, S) tensors on the
-    state's device.  ``impl`` is the route of attention and the scan
+    state's device (and an encoder-decoder's "frames", (B, T, D)).  ``impl`` is the route of attention and the scan
     ("kernel" or "plain")."""
     one_grad = make_grad_fn(cfg, plan, rules, compute_dtype, impl)
 
@@ -110,22 +113,26 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
     return {"params": params, "opt": init_opt_state(params)}
 
 
-def make_serve_step(cfg: ModelConfig, rules=None, impl: str = "kernel"):
+def make_serve_step(cfg: ModelConfig, rules=None, impl: str = "kernel",
+                    dispatch_mode: str = "einsum"):
     """One decode step: (params, tokens, cache) -> (next_tokens, cache),
     greedy."""
 
     def serve_step(params, tokens, cache):
         with use_rules(rules):
-            logits, cache = decode_step(params, tokens, cache, cfg, impl=impl)
+            logits, cache = decode_step(params, tokens, cache, cfg, impl=impl,
+                                        dispatch_mode=dispatch_mode)
         next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         return next_tok, cache
 
     return serve_step
 
 
-def make_prefill(cfg: ModelConfig, max_len: int, rules=None, impl: str = "kernel"):
+def make_prefill(cfg: ModelConfig, max_len: int, rules=None, impl: str = "kernel",
+                 dispatch_mode: str = "einsum"):
     def prefill_fn(params, batch):
         with use_rules(rules):
-            return prefill(params, batch, cfg, max_len=max_len, impl=impl)
+            return prefill(params, batch, cfg, max_len=max_len, impl=impl,
+                           dispatch_mode=dispatch_mode)
 
     return prefill_fn

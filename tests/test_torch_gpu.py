@@ -1023,3 +1023,118 @@ def test_dense_serve_at_hd256_on_card_kernel_route_matches_plain(cuda_device, dt
     lk, lp = rec_k["logits"], rec_p["logits"]
     tol = 1e-4 if dtype == "float32" else 0.1
     assert np.isfinite(lk).all() and np.abs(lk - lp).max() <= tol * np.abs(lp).max()
+
+
+WHISPER_BWD_CASES = [  # B, Sq, Skv, causal: whisper-small's 12 heads, rep 1, hd 64
+    (2, 1500, 1500, False),   # the encoder over 1500 frames (ragged to the key tile)
+    (2, 448, 1500, False),    # cross-attention: 448 target positions over the frames
+    (2, 448, 448, True),      # the decoder's self-attention
+]
+
+
+@pytest.mark.parametrize("case", WHISPER_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_backward_at_whisper_training_shapes_vs_plain(cuda_device, case,
+                                                                      dtype):
+    """The backward kernels at whisper-small's training shapes, each run
+    twice (bitwise equal), against the plain backward."""
+    B, Sq, Skv, causal = case
+    q = _uniform(71, (B, 12, Sq, 64), cuda_device, dtype)
+    k = _uniform(72, (B, 12, Skv, 64), cuda_device, dtype)
+    v = _uniform(73, (B, 12, Skv, 64), cuda_device, dtype)
+    do = _uniform(74, (B, 12, Sq, 64), cuda_device, dtype)
+    out, lse = ops.flash_attention(q, k, v, causal=causal, return_lse=True)
+    reset_launches()
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert launches["flash_attention_bwd"] == 2
+    ref = flash_attention_bwd_ref(q, k, v, out, lse, do, causal, None, 0)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a) and g.dtype == dtype and g.shape == r.shape
+        assert _rel_err(g, r) <= FLASH_TOL[dtype], _rel_err(g, r)
+
+
+@pytest.mark.parametrize("sq,q_offset", [(300, 33), (1, 332)], ids=["prefill", "decode"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_flash_attention_rep16_hd128_qwen3_moe_shapes_vs_plain(cuda_device, sq, q_offset,
+                                                               dtype):
+    """qwen3-moe-235b-a22b's heads: 64 query heads over 4 kv heads (rep 16)
+    at head dim 128, a prefill behind a cache and a decode step."""
+    q = _uniform(81, (2, 64, sq, 128), cuda_device, dtype)
+    k = _uniform(82, (2, 4, 333, 128), cuda_device, dtype)
+    v = _uniform(83, (2, 4, 333, 128), cuda_device, dtype)
+    reset_launches()
+    got = ops.flash_attention(q, k, v, q_offset=q_offset)
+    again = ops.flash_attention(q, k, v, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == 2 and torch.equal(got, again)
+    ref = flash_attention_ref(q, k, v, True, None, q_offset)
+    assert _rel_err(got, ref) <= FLASH_TOL[dtype], _rel_err(got, ref)
+
+
+def _moe_setup(dev, dtype, B=2, S=1100):
+    """A wider MoE than reduced()'s (16 experts, top 4) on qwen3-moe's
+    reduced config; weights and input from numpy."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import MoEConfig
+
+    cfg = dataclasses.replace(get_config("qwen3-moe-235b-a22b").reduced(),
+                              moe=MoEConfig(num_experts=16, top_k=4, d_ff_expert=96))
+    D, E, F = cfg.d_model, 16, 96
+    rng = np.random.default_rng(31)
+    p = {"router": rng.standard_normal((D, E)) / np.sqrt(D),
+         "w_gate": rng.standard_normal((E, D, F)) / np.sqrt(D),
+         "w_up": rng.standard_normal((E, D, F)) / np.sqrt(D),
+         "w_down": rng.standard_normal((E, F, D)) / np.sqrt(F)}
+    params = {k: torch.from_numpy(v).to(dev, dtype) for k, v in p.items()}
+    x = torch.from_numpy(rng.standard_normal((B, S, D))).to(dev, dtype)
+    return cfg, params, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_moe_block_on_card_einsum_matches_gather_and_gather_is_bitwise(cuda_device, dtype):
+    """moe_block on the card: N = 2200 tokens (the group size halves from
+    2048 to 8), drops at capacity 1.25; "gather" (a scatter on the
+    card) run twice gives the same bits, and agrees with "einsum" (1e-5 of
+    max|out| at f32, 2e-2 at bf16: another summation order) and, at f32,
+    with the same block on the CPU (1e-4)."""
+    from repro_torch.models.moe import moe_block
+
+    cfg, params, x = _moe_setup(cuda_device, dtype)
+    gather, aux = moe_block(params, x, cfg, dispatch_mode="gather")
+    again, aux2 = moe_block(params, x, cfg, dispatch_mode="gather")
+    einsum, aux3 = moe_block(params, x, cfg, dispatch_mode="einsum")
+    torch.cuda.synchronize()
+    assert torch.equal(gather, again) and torch.equal(aux, aux2)
+    assert torch.isfinite(gather).all() and aux.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _rel_err(gather, einsum) <= tol, _rel_err(gather, einsum)
+    assert (aux - aux3).abs().item() <= 1e-6 * aux3.abs().item()
+    if dtype == torch.float32:
+        cpu, cpu_aux = moe_block({k: v.cpu() for k, v in params.items()}, x.cpu(), cfg)
+        assert _rel_err(einsum.cpu(), cpu) <= 1e-4
+        assert (aux3.cpu() - cpu_aux).abs().item() <= 1e-4 * cpu_aux.abs().item()
+
+
+def test_moe_serve_on_card_kernel_route_matches_plain(cuda_device):
+    """Reduced qwen3-moe-235b-a22b in f32 through serve_demo in both dispatch
+    modes: every layer's attention launched the kernel, the plain route,
+    teacher-forced, gives the same logits (1e-4 of max|logit|), and gather
+    gives einsum's tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_demo
+
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    recs, toks = {}, {}
+    for impl, mode in (("kernel", "einsum"), ("plain", "einsum"), ("kernel", "gather")):
+        rec = recs[impl, mode] = {}
+        reset_launches()
+        toks[impl, mode] = serve_demo(cfg, 2, 40, 6, device="cuda", impl=impl,
+                                      dispatch_mode=mode, record=rec,
+                                      forced=toks.get(("kernel", "einsum")),
+                                      log_fn=lambda *a: None)
+        assert launches["flash_attention"] == (cfg.n_layers * 6 if impl == "kernel" else 0)
+    lk, lp = recs["kernel", "einsum"]["logits"], recs["plain", "einsum"]["logits"]
+    assert np.isfinite(lk).all() and np.abs(lk - lp).max() <= 1e-4 * np.abs(lp).max()
+    assert np.array_equal(toks["kernel", "gather"], toks["kernel", "einsum"])

@@ -153,13 +153,10 @@ def _hymba(**changes):
 
 
 def _lm_feature(name):
-    from repro_torch.models import MoEConfig, forward
+    from repro_torch.models import forward
     from repro_torch.models import partitioning
 
     tokens = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
-    if name == "moe":
-        cfg, params = _hymba(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
-        return forward(params, tokens, cfg)
     if name == "softcap":
         cfg, params = _hymba(logit_softcap=30.0)
         return forward(params, tokens, cfg)
@@ -188,11 +185,44 @@ def _lm_feature(name):
 
 
 @pytest.mark.parametrize("feature", [
-    ("lm", "moe"), ("lm", "softcap"), ("lm", "Rules"),
+    ("lm", "softcap"), ("lm", "Rules"),
     ("lm", "sharded steps"), ("lm", "sharded train step"), ("lm", "activation_rules"),
-    ("lm", "phi3.5-moe-42b-a6.6b"), ("lm", "qwen3-moe-235b-a22b"),
 ], ids=lambda f: f[1])
 def test_features_of_later_slices_raise(feature):
     _kind, name = feature
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _lm_feature(name)
+
+
+#: the MoE configs as published: layers, d_model, heads, kv heads, vocab,
+#: experts, top-k, expert width, norm
+MOE_PUBLISHED = {
+    "qwen3-moe-235b-a22b": (94, 4096, 64, 4, 151936, 128, 8, 1536, "rmsnorm"),
+    "phi3.5-moe-42b-a6.6b": (32, 4096, 32, 8, 32064, 16, 2, 6400, "layernorm"),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(MOE_PUBLISHED))
+def test_moe_configs_load_as_published(arch):
+    """Both MoE configs load, by alias and by module name, as published."""
+    from repro_torch.configs import get_config, list_archs
+
+    cfg = get_config(arch)
+    assert arch in list_archs()
+    assert get_config(arch.replace("-", "_").replace(".", "p")) is cfg
+    e = cfg.moe
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.vocab,
+            e.num_experts, e.top_k, e.d_ff_expert, cfg.norm) == MOE_PUBLISHED[arch]
+    assert cfg.family == "moe" and cfg.d_ff == 0 and cfg.resolved_head_dim == 128
+
+
+def test_hymba_with_moe_runs_forward():
+    """A hybrid layer with an MoE channel sublayer (the case that raised
+    before MoE was ported) gives finite logits and a positive aux loss."""
+    from repro_torch.models import MoEConfig, forward
+
+    cfg, params = _hymba(moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
+    tokens = torch.arange(8).reshape(1, 8) % cfg.vocab
+    logits, aux = forward(params, {"tokens": tokens}, cfg)
+    assert logits.shape == (1, 8, cfg.vocab) and torch.isfinite(logits).all()
+    assert aux.dtype == torch.float32 and aux.shape == () and float(aux) > 0
