@@ -109,7 +109,18 @@ both (CUDA events), then drives the main paths at full width:
   steps and one profiled, launches exact: every encoder, decoder-self and
   cross-attention call forward twice and backward once), its gradients
   held to the plain route (a planted fault, cross-attention made causal,
-  caught) and in f32 at 2 + 2 layers, bitwise across two runs.
+  caught) and in f32 at 2 + 2 layers, bitwise across two runs.  Every
+  train run takes the plan that the LSHS plan optimizer picks on the H100
+  table (``choose_plan`` over a 1 x 1 mesh: full remat, bf16 gradients);
+- SPMD sharding (``spmd``): those choices, their ranking and estimated
+  memory beside each train run's measured peak; gemma3-4b's step time
+  against the H100 roofline (model FLOPs utilisation); then one gradient
+  step of gemma3-4b (12 layers) and hymba-1.5b at 4 x 2048 under fsdp+tp
+  on a 1 x 1 CUDA mesh (NCCL, world of one): parameters and batch as
+  DTensors, the attention and scan kernels launched on each rank's local
+  shards through ``local_map``, as often as in the same step on plain
+  tensors, which it must equal bit for bit; the collectives it issued are
+  counted.
 
 Each phase prints one JSON line (a matmul case also names the loader it
 took, vector or scalar; an attention-backward case the device time of each
@@ -152,6 +163,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
+from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
+from torch.distributed.tensor import DTensor, distribute_tensor  # noqa: E402
 
 from repro_torch.configs.glm_logreg import CONFIG  # noqa: E402
 from repro_torch.core import (ArrayContext, ClusterSpec, CostModel,  # noqa: E402
@@ -167,6 +181,7 @@ from repro_torch.kernels.matmul import loaders, matmul_ref  # noqa: E402
 from repro_torch.launch import chaos as chaos_driver  # noqa: E402
 from repro_torch.launch.chaos import _newton_iteration  # noqa: E402
 from repro_torch.launch.serve import serve_demo  # noqa: E402
+from repro_torch.launch.shapes import fit_plan_to_mesh  # noqa: E402
 from repro_torch.launch.trace_report import histogram_stats, wall_histograms  # noqa: E402
 from repro_torch.launch.train import batch_to, train_loop  # noqa: E402
 from repro_torch.launch.workloads import (cpals_loop, dgemm_graph,  # noqa: E402
@@ -177,7 +192,11 @@ from repro_torch.models import decode_step, init_params, prefill  # noqa: E402
 from repro_torch.obs import analyze, drift_report, run_calibration  # noqa: E402
 from repro_torch.obs.calibrate import fastest_retires  # noqa: E402
 from repro_torch.serve import ContinuousBatcher  # noqa: E402
-from repro_torch.sharding.plans import SINGLE_CARD  # noqa: E402
+from repro_torch.models.partitioning import fit_spec, spec_placements  # noqa: E402
+from repro_torch.sharding import (H100_SXM, CollectiveCounter, Plan,  # noqa: E402
+                                  activation_rules, batch_specs, choose_plan,
+                                  local_param_numel, shard_tree)
+from repro_torch.sharding.roofline import mfu, roofline  # noqa: E402
 from repro_torch.train import (AdamConfig, DataConfig, TokenPipeline,  # noqa: E402
                                init_opt_state, make_grad_fn, make_prefill,
                                make_serve_step, make_train_step)
@@ -379,6 +398,17 @@ TRAIN_WHISPER_F32 = dict(layers=2, enc_layers=2, batch=1)
 #: (the window dropped in the backward kernel only) exceeding it.  f32:
 #: 1e-4, as the CPU tests hold the port to the reference.
 TRAIN_TOL = {"bfloat16": 0.16, "float32": 1e-4}
+#: the plan optimizer's mesh on one card: the train phases take its choice
+#: (train_loop's plan=None), and so does train_whisper
+ONE_CARD = {"data": 1, "model": 1}
+#: the sharded path (spmd): on a 1 x 1 CUDA mesh, one gradient step of each
+#: model at its train phase's width and shape (gemma3-4b at TRAIN_DENSE's 12
+#: layers) under fsdp+tp with the dots policy, parameters and batch as
+#: DTensors and the attention and scan kernels on local shards, against the
+#: same step on plain tensors: every collective moves nothing, so the two
+#: must agree bit for bit
+SPMD = dict(models=(("gemma3-4b", 12), ("hymba-1.5b", None)), batch=4, seq=2048,
+            plan=Plan("fsdp_tp", tp_axis="model", fsdp_axis=("data",), remat="dots"))
 MATMUL_SRC = ("src/repro_torch/csrc/matmul.cu", "src/repro/kernels/matmul.py:35")
 GLM_SRC = ("src/repro_torch/csrc/glm_fused.cu", "src/repro/kernels/glm_fused.py:26")
 FLASH_SRC = ("src/repro_torch/csrc/flash_attention.cu",
@@ -2515,7 +2545,7 @@ def train_run(dev, cfg, spec, tag, n_leaves):
     want = train_launches_per_step(cfg)
     emit(f"train_{tag}kernel", arch=spec["arch"], n_layers=L, d_model=cfg.d_model,
          params=n_params, leaves=got_leaves, batch=spec["batch"], seq=spec["seq"],
-         dtype=cfg.dtype, master="float32", remat=SINGLE_CARD.remat,
+         dtype=cfg.dtype, master="float32", plan=steps[0]["plan"],
          s_per_step=s_per_step, tokens_per_s=spec["batch"] * spec["seq"] / s_per_step,
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
          steps=[{k: st[k] for k in ("step", "s", "loss", "grad_norm", "lr", "launches",
@@ -2594,12 +2624,12 @@ def train_profile(profiler, step_s):
                 groups_ms=groups, top_kernels_ms=dict(top))
 
 
-def _grads(cfg, params, batch, impl, compute_dtype):
-    """(loss, [(path, grad)]) of one gradient step of ``cfg`` (full remat),
-    and the seconds it took."""
+def _grads(cfg, params, batch, impl, compute_dtype, plan, rules=None):
+    """(loss, [(path, grad)]) of one gradient step of ``cfg`` under ``plan``
+    (and ``rules``), and the seconds it took."""
     sync()
     t0 = time.perf_counter()
-    loss, _aux, grads = make_grad_fn(cfg, SINGLE_CARD, compute_dtype=compute_dtype,
+    loss, _aux, grads = make_grad_fn(cfg, plan, rules, compute_dtype=compute_dtype,
                                      impl=impl)(params, batch)
     sync()
     return loss, list(_leaves(grads)), time.perf_counter() - t0
@@ -2644,20 +2674,21 @@ def pipeline_batch(dev, cfg, spec):
     return batch_to(next(pipe), dev)
 
 
-def grad_checks(dev, cfg, spec, tag, plain_layers, f32, batch, fault):
-    """The gradients of one step of ``cfg`` (full remat, bf16 compute on f32
-    masters, ``dense_params``' weights) on ``batch``: two kernel runs
+def grad_checks(dev, cfg, spec, tag, plain_layers, f32, batch, fault, plan):
+    """The gradients of one step of ``cfg`` under ``plan``, the train run's
+    (full remat, bf16 compute on f32 masters, bf16 gradients;
+    ``dense_params``' weights) on ``batch``: two kernel runs
     bitwise equal, the kernel route against the plain route at
     ``plain_layers`` (TRAIN_TOL), a planted fault that the limit must catch
-    (``fault``: its name and a context that plants it), then f32 at full
-    width, ``f32["layers"]`` (and ``f32["enc_layers"]``) and the batch's
-    first ``f32["batch"]`` rows (1e-4, launches exact).  Emitted as
-    ``train_{tag}...``."""
+    (``fault``: its name and a context that plants it), then f32 (f32
+    gradients too) at full width, ``f32["layers"]`` (and
+    ``f32["enc_layers"]``) and the batch's first ``f32["batch"]`` rows
+    (1e-4, launches exact).  Emitted as ``train_{tag}...``."""
     params = dense_params(dev, dataclasses.replace(cfg, dtype="float32"))
 
     # determinism: the same backward twice at the train run's depth
-    first = _grads(cfg, params, batch, "kernel", "bfloat16")
-    second = _grads(cfg, params, batch, "kernel", "bfloat16")
+    first = _grads(cfg, params, batch, "kernel", "bfloat16", plan)
+    second = _grads(cfg, params, batch, "kernel", "bfloat16", plan)
     same = (torch.equal(first[0], second[0])
             and all(torch.equal(a, b) for (_, a), (_, b) in zip(first[1], second[1])))
     emit(f"train_{tag}determinism", n_layers=cfg.n_layers, bitwise_equal=same,
@@ -2668,10 +2699,10 @@ def grad_checks(dev, cfg, spec, tag, plain_layers, f32, batch, fault):
     cut = dataclasses.replace(cfg, n_layers=plain_layers)
     cparams = _cut(params, plain_layers)
     kern = first if plain_layers == cfg.n_layers else _grads(cut, cparams, batch, "kernel",
-                                                             "bfloat16")
+                                                             "bfloat16", plan)
     del first
     reset_launches()
-    plain = _grads(cut, cparams, batch, "plain", "bfloat16")
+    plain = _grads(cut, cparams, batch, "plain", "bfloat16", plan)
     check(all(launches[k] == 0 for k in TRAIN_KERNELS),
           f"train plain route launched kernels: {dict(launches)}")
     train_compare(f"{tag}bf16", kern, plain, TRAIN_TOL["bfloat16"])
@@ -2679,7 +2710,7 @@ def grad_checks(dev, cfg, spec, tag, plain_layers, f32, batch, fault):
 
     fault_name, plant = fault
     with plant():
-        planted = _grads(cut, cparams, batch, "kernel", "bfloat16")
+        planted = _grads(cut, cparams, batch, "kernel", "bfloat16", plan)
     per_leaf = _leaf_errs(planted[1], plain[1])
     worst = max(per_leaf, key=per_leaf.get)
     emit(f"train_{tag}bf16_planted_fault", fault=fault_name, worst_leaf=worst,
@@ -2694,12 +2725,13 @@ def grad_checks(dev, cfg, spec, tag, plain_layers, f32, batch, fault):
     params = dense_params(dev, cfg32)
     batch = {k: (v[:f32["batch"]].float() if v.is_floating_point() else v[:f32["batch"]])
              for k, v in batch.items()}
+    plan32 = dataclasses.replace(plan, grad_dtype="float32")
     reset_launches()
-    kern = _grads(cfg32, params, batch, "kernel", "float32")
+    kern = _grads(cfg32, params, batch, "kernel", "float32", plan32)
     want = train_launches_per_step(cfg32)
     got = {k: launches[k] for k in TRAIN_KERNELS}
     check(got == want, f"train {spec['arch']} f32 kernel launches {got} != {want}")
-    plain = _grads(cfg32, params, batch, "plain", "float32")
+    plain = _grads(cfg32, params, batch, "plain", "float32", plan32)
     train_compare(f"{tag}f32", kern, plain, TRAIN_TOL["float32"])
     del kern, plain, params
     _release()
@@ -2710,25 +2742,28 @@ def train_phase(dev):
     loss curves at a cut depth (``train_plain_curve``), then the gradient
     checks (``grad_checks``: bitwise at the published depth, the plain route
     at TRAIN_PLAIN_LAYERS, a planted fault, f32 at 8 layers).  Returns the
-    launches of the train run (the main path's)."""
+    launches of the train run (the main path's) and the run (``train_run``'s
+    steps, with the config and shape)."""
     cfg = get_config(TRAIN["arch"])
     main_launches, kernel_steps = train_run(dev, cfg, TRAIN, "", 21)
     train_plain_curve(dev, len(kernel_steps))
     grad_checks(dev, cfg, TRAIN, "", TRAIN_PLAIN_LAYERS, TRAIN_F32,
-                pipeline_batch(dev, cfg, TRAIN), WINDOW_DROPPED)
-    return main_launches
+                pipeline_batch(dev, cfg, TRAIN), WINDOW_DROPPED, chosen_plan(cfg, TRAIN))
+    return main_launches, dict(cfg=cfg, spec=TRAIN, steps=kernel_steps)
 
 
 def train_dense_phase(dev):
     """Training gemma3-4b at its published width and TRAIN_DENSE's depth
     through the kernels (``train_run``: every layer's attention forward and
     backward on its kernels, head dim 256), then ``grad_checks`` at the same
-    depth (f32 at TRAIN_DENSE_F32).  Returns the train run's launches."""
+    depth (f32 at TRAIN_DENSE_F32).  Returns the train run's launches and
+    the run."""
     cfg = dataclasses.replace(get_config(TRAIN_DENSE["arch"]), n_layers=TRAIN_DENSE["layers"])
-    main_launches, _ = train_run(dev, cfg, TRAIN_DENSE, "dense_", 13)
+    main_launches, steps = train_run(dev, cfg, TRAIN_DENSE, "dense_", 13)
     grad_checks(dev, cfg, TRAIN_DENSE, "dense_", cfg.n_layers, TRAIN_DENSE_F32,
-                pipeline_batch(dev, cfg, TRAIN_DENSE), WINDOW_DROPPED)
-    return main_launches
+                pipeline_batch(dev, cfg, TRAIN_DENSE), WINDOW_DROPPED,
+                chosen_plan(cfg, TRAIN_DENSE))
+    return main_launches, dict(cfg=cfg, spec=TRAIN_DENSE, steps=steps)
 
 
 def whisper_train_batch(dev, cfg, spec, seed=0):
@@ -2742,19 +2777,28 @@ def whisper_train_batch(dev, cfg, spec, seed=0):
             "tokens": ids[:, :-1].to(dev), "labels": ids[:, 1:].to(dev)}
 
 
+def chosen_plan(cfg, spec) -> Plan:
+    """The LSHS plan optimizer's choice on one card at ``spec``'s shape,
+    fitted to the 1 x 1 mesh (the plan ``train_loop`` takes when given
+    none)."""
+    return fit_plan_to_mesh(choose_plan(cfg, ONE_CARD, "train", spec["batch"],
+                                        spec["seq"]).plan, ONE_CARD)
+
+
 def whisper_train_run(dev, cfg, spec):
     """whisper-small trained through ``make_train_step`` on the kernel route
-    (f32 masters, bf16 compute, full remat) on one seeded batch: one
-    warm-up step, spec["steps"] timed ones, one under torch.profiler, each
-    step's launches read and set to 0 after it.  Returns the launches of
-    the whole run."""
+    (f32 masters, bf16 compute, under ``chosen_plan``: full remat, bf16
+    gradients) on one seeded batch: one warm-up step, spec["steps"] timed
+    ones, one under torch.profiler, each step's launches read and set to 0
+    after it.  Returns the launches of the whole run and its steps."""
     steps_n = spec["warm"] + spec["steps"] + 1
     opt = AdamConfig(lr=spec["lr"], warmup_steps=max(steps_n // 20, 5),  # train_loop's
                      total_steps=steps_n)
     params = dense_params(dev, dataclasses.replace(cfg, dtype="float32"))  # f32 masters
     state = {"params": params, "opt": init_opt_state(params)}
     del params
-    step_fn = make_train_step(cfg, SINGLE_CARD, opt)
+    plan = chosen_plan(cfg, spec)
+    step_fn = make_train_step(cfg, plan, opt)
     batch = whisper_train_batch(dev, cfg, spec)
     profiler = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                   torch.profiler.ProfilerActivity.CUDA])
@@ -2769,7 +2813,7 @@ def whisper_train_run(dev, cfg, spec):
         state, metrics = step_fn(state, batch)
         loss = metrics["loss"].item()
         sync()
-        steps.append(dict(step=i, s=time.perf_counter() - t0, loss=loss,
+        steps.append(dict(step=i, s=time.perf_counter() - t0, loss=loss, plan=plan.describe(),
                           grad_norm=float(metrics["grad_norm"]), lr=float(metrics["lr"]),
                           launches={k: launches[k] for k in TRAIN_KERNELS},
                           max_memory_allocated=torch.cuda.max_memory_allocated(dev)))
@@ -2784,7 +2828,7 @@ def whisper_train_run(dev, cfg, spec):
     B, T, S = spec["batch"], spec["frames"], spec["seq"]
     emit("train_whisper_kernel", arch=spec["arch"], layers=[cfg.n_enc_layers, cfg.n_layers],
          d_model=cfg.d_model, params=n_params, batch=B, frames=T, seq=S, dtype=cfg.dtype,
-         master="float32", remat=SINGLE_CARD.remat, s_per_step=s_per_step,
+         master="float32", plan=plan.describe(), s_per_step=s_per_step,
          tokens_per_s=B * S / s_per_step, frames_per_s=B * T / s_per_step,
          max_memory_allocated=max(st["max_memory_allocated"] for st in steps),
          steps=steps, launches_per_step_expected=want)
@@ -2794,7 +2838,7 @@ def whisper_train_run(dev, cfg, spec):
     for st in steps:
         check(st["launches"] == want,
               f"train_whisper step {st['step']} launches {st['launches']} != {want}")
-    return {k: sum(st["launches"][k] for st in steps) for k in TRAIN_KERNELS}
+    return {k: sum(st["launches"][k] for st in steps) for k in TRAIN_KERNELS}, steps
 
 
 def causal_cross(real):
@@ -2814,14 +2858,128 @@ def train_whisper_phase(dev):
     (``whisper_train_run``: the encoder's and cross-attention's forward and
     backward with no mask, the decoder's causal), then ``grad_checks`` at
     the same depth (a planted fault: cross-attention made causal; f32 at
-    TRAIN_WHISPER_F32).  Returns the train run's launches."""
+    TRAIN_WHISPER_F32).  Returns the train run's launches and the run."""
     cfg = get_config(TRAIN_WHISPER["arch"])
-    main_launches = whisper_train_run(dev, cfg, TRAIN_WHISPER)
+    main_launches, steps = whisper_train_run(dev, cfg, TRAIN_WHISPER)
     grad_checks(dev, cfg, TRAIN_WHISPER, "whisper_", cfg.n_layers, TRAIN_WHISPER_F32,
                 whisper_train_batch(dev, cfg, TRAIN_WHISPER),
                 ("cross-attention causal", lambda: patched(ops, "flash_attention",
-                                                           causal_cross)))
-    return main_launches
+                                                           causal_cross)),
+                chosen_plan(cfg, TRAIN_WHISPER))
+    return main_launches, dict(cfg=cfg, spec=TRAIN_WHISPER, steps=steps)
+
+
+def spmd_plans(runs):
+    """The plan optimizer on the H100 table (``choose_plan`` over a 1 x 1
+    mesh) for each train run's model at its shape: the top four of the
+    ranking, the chosen plan, its estimated memory against the run's
+    measured peak; the choice fits, is the plan the run took, and the peak
+    is under the card's memory."""
+    for run in runs:
+        cfg, spec, steps = run["cfg"], run["spec"], run["steps"]
+        choice = choose_plan(cfg, ONE_CARD, "train", spec["batch"], spec["seq"])
+        peak = max(st["max_memory_allocated"] for st in steps)
+        chosen = chosen_plan(cfg, spec).describe()
+        emit("spmd_plan", arch=spec["arch"], n_layers=cfg.n_layers, batch=spec["batch"],
+             seq=spec["seq"], chosen=chosen, ranking=choice.ranking[:4],
+             mem_bytes=choice.est.mem_bytes, measured_peak=peak,
+             estimate_err=(choice.est.mem_bytes - peak) / peak, hbm_bytes=H100_SXM.hbm_bytes,
+             run_plan=steps[0]["plan"])
+        check(choice.est.fits and peak < H100_SXM.hbm_bytes and steps[0]["plan"] == chosen,
+              f"spmd plan {spec['arch']}: {chosen} fits {choice.est.fits}, "
+              f"peak {peak}, run took {steps[0]['plan']}")
+
+
+def spmd_roofline(run):
+    """gemma3-4b's train_loop(plan=None) run (train_dense) against the H100
+    roofline: its seconds a step beside the analytic compute and memory
+    times, and its model FLOPs utilisation (6 N tokens over 989 TFLOP/s x
+    the measured step)."""
+    cfg, spec, steps = run["cfg"], run["spec"], run["steps"]
+    B, S = spec["batch"], spec["seq"]
+    timed = steps[spec["warm"]:spec["warm"] + spec["steps"]]
+    s_step = sum(st["s"] for st in timed) / len(timed)
+    plan = chosen_plan(cfg, spec)
+    terms = roofline(cfg, "train", B, S, 1, local_param_numel(cfg, plan, ONE_CARD), 0.0,
+                     plan.remat, plan.dispatch_mode)
+    emit("spmd_roofline", arch=spec["arch"], n_layers=cfg.n_layers, plan=plan.describe(),
+         s_per_step=s_step, compute_s=terms.compute_s, memory_s=terms.memory_s,
+         collective_s=terms.collective_s, dominant=terms.dominant, flops=terms.flops,
+         model_flops=terms.model_flops, mfu=mfu(cfg, "train", B, S, s_step),
+         hw=H100_SXM.name)
+
+
+def spmd_step(dev, mesh, cfg):
+    """One gradient step of ``cfg`` under SPMD["plan"] on plain tensors,
+    then on the 1 x 1 mesh as DTensors under the plan's rules: launches
+    equal, the loss and every gradient leaf equal bit for bit, the
+    collectives counted.  Returns the sharded step's launches."""
+    plan = fit_plan_to_mesh(SPMD["plan"], mesh)
+    params = dense_params(dev, dataclasses.replace(cfg, dtype="float32"))
+    batch = pipeline_batch(dev, cfg, SPMD)
+    _grads(cfg, params, batch, "kernel", "bfloat16", plan)  # warm both paths' caches
+    reset_launches()
+    plain = _grads(cfg, params, batch, "kernel", "bfloat16", plan)
+    plain_launches = {k: launches[k] for k in TRAIN_KERNELS}
+    sharded_params = shard_tree(params, cfg, plan, mesh)
+    specs = batch_specs(cfg, plan, "train")
+    sharded_batch = {k: distribute_tensor(v, mesh, spec_placements(
+        mesh, fit_spec(mesh, specs[k], v.shape))) for k, v in batch.items()}
+    rules = activation_rules(plan, mesh, cfg)
+    _grads(cfg, sharded_params, sharded_batch, "kernel", "bfloat16", plan, rules)
+    reset_launches()
+    with CollectiveCounter() as cc:
+        sharded = _grads(cfg, sharded_params, sharded_batch, "kernel", "bfloat16", plan,
+                         rules)
+    got = {k: launches[k] for k in TRAIN_KERNELS}
+    local = [(path, g.to_local() if isinstance(g, DTensor) else g) for path, g in sharded[1]]
+    bitwise = torch.equal(sharded[0], plain[0]) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(local, plain[1]))
+    errs = _leaf_errs(local, plain[1])
+    worst = max(errs, key=errs.get)
+    emit("spmd_step", arch=cfg.name, n_layers=cfg.n_layers, batch=SPMD["batch"],
+         seq=SPMD["seq"], plan=plan.describe(), mesh="1x1 cuda", launches_sharded=got,
+         launches_plain=plain_launches, loss=sharded[0].item(), loss_plain=plain[0].item(),
+         bitwise_equal=bitwise, worst_leaf=worst, worst_rel_err=errs[worst],
+         collectives=cc.result(), sharded_s=sharded[2], plain_s=plain[2],
+         dtensor_overhead=sharded[2] / plain[2] - 1)
+    check(got == plain_launches and got["flash_attention"] > 0,
+          f"spmd {cfg.name}: sharded launches {got} != plain {plain_launches}")
+    if cfg.ssm is not None:
+        check(got["mamba_scan"] > 0 and got["mamba_scan_bwd"] > 0,
+              f"spmd {cfg.name}: the scan kernels did not run: {got}")
+    # one rank: every collective is the identity, so nothing but a fault
+    # of the sharded path can move a bit
+    check(bitwise, f"spmd {cfg.name}: sharded step not bit-equal to the plain step: loss "
+          f"{sharded[0].item()} vs {plain[0].item()}, {worst} {errs[worst]}")
+    del params, sharded_params, plain, sharded, local
+    _release()
+    return got
+
+
+def spmd_phase(dev, runs):
+    """SPMD sharding on the card: the plan optimizer's choices on the H100
+    table against the train runs' measured peaks (``spmd_plans``), the
+    roofline and mfu of gemma3-4b's ``train_loop(plan=None)`` run
+    (``spmd_roofline``), then the sharded path's step on a 1 x 1 CUDA mesh
+    for each SPMD model (``spmd_step``).  Returns the sharded steps'
+    launches."""
+    spmd_plans(runs)
+    spmd_roofline(next(r for r in runs if r["spec"] is TRAIN_DENSE))
+    total = {k: 0 for k in TRAIN_KERNELS}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        for arch, layers in SPMD["models"]:
+            cfg = get_config(arch)
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, n_layers=layers)
+            got = spmd_step(dev, mesh, cfg)
+            total = {k: total[k] + got[k] for k in TRAIN_KERNELS}
+    finally:
+        dist.destroy_process_group()
+    return total
 
 
 def kernel_entry(name, source, cases, headline, main_launches):
@@ -2947,14 +3105,18 @@ def main() -> int:
     lap("serve_whisper")
     # main path 3: LM training, through the attention and scan kernels and
     # their backward kernels; then gemma3-4b (head dim 256) at 12 layers
-    train_launches = train_phase(dev)
+    train_launches, hymba_run = train_phase(dev)
     lap("train")
-    dense_train_launches = train_dense_phase(dev)
+    dense_train_launches, dense_run = train_dense_phase(dev)
     lap("train_dense")
     # whisper-small trained: the attention backward with no mask (encoder,
     # cross-attention over 1500 frames) and causal (decoder)
-    whisper_train_launches = train_whisper_phase(dev)
+    whisper_train_launches, whisper_run = train_whisper_phase(dev)
     lap("train_whisper")
+    # SPMD sharding: the plan optimizer on the H100 table, and the sharded
+    # path's step (DTensors, kernels on local shards) on a 1 x 1 CUDA mesh
+    spmd_launches = spmd_phase(dev, [hymba_run, dense_run, whisper_run])
+    lap("spmd")
     emit("timing", phase_s=phase_s, total_s=time.perf_counter() - t0)
 
     # launches of the main paths' own runs: the block runtime on backend
@@ -2968,11 +3130,11 @@ def main() -> int:
     main_launches["matmul"] += block_launches + fault_obs_launches
     main_launches.update({k: serve_launches[k] + batched_launches[k] + dense_launches[k]
                           + moe_launches[k] + train_launches[k] + dense_train_launches[k]
-                          + whisper_train_launches[k]
+                          + whisper_train_launches[k] + spmd_launches[k]
                           for k in ("flash_attention", "mamba_scan")})
     main_launches["flash_attention"] += whisper_launches["flash_attention"]
     main_launches.update({k: train_launches[k] + dense_train_launches[k]
-                          + whisper_train_launches[k]
+                          + whisper_train_launches[k] + spmd_launches[k]
                           for k in ("flash_attention_bwd", "mamba_scan_bwd")})
     check(all(whisper_train_launches[k] > 0 for k in ("flash_attention", "flash_attention_bwd"))
           and moe_launches["flash_attention"] > 0,

@@ -1,23 +1,29 @@
-"""Why does the kernel route's 5-step bf16 train run of hymba-1.5b spike at
-step 4 where the plain route does not (ROADMAP Queue 3 (g))?
+"""Does a 5-step bf16 train run rise or spike because of a kernel, or by
+rounding?  (ROADMAP Queue 3 (g): hymba-1.5b's step-4 spike; (i): gemma3-4b
+at 12 layers rising at lr 1e-2.)
 
-    python scripts/train_spike_probe.py             # on one H100, ~9 min
+    python scripts/train_spike_probe.py             # hymba-1.5b, one H100, ~9 min
     python scripts/train_spike_probe.py bf16_KK f32_KK  # some runs only
+    python scripts/train_spike_probe.py --arch gemma3-4b --layers 12
     python scripts/train_spike_probe.py --cpu       # a 2-layer rehearsal
 
-Same seed, batches and lr schedule as chip_smoke.py's TRAIN (32 layers,
-4 x 2048, lr 1e-2, 5 steps, warm-up 5). Runs:
+Same seed, batches and lr schedule as chip_smoke.py's train runs (4 x 2048,
+lr 1e-2 unless ``--lr``, 5 steps, warm-up 5; hymba-1.5b as published, or
+``--arch`` at ``--layers``), under SINGLE_CARD (full remat, f32 gradients).
+Runs:
  1. f32 on both routes (kernel route takes the scalar f32 kernels);
  2. bf16 with the attention/scan forwards and backwards swapped between the
     kernels and their plain versions (flash_attention_ref, mamba_scan_ref,
     flash_attention_bwd_ref, mamba_scan_bwd_ref: f32 math);
  3. at step 3 of the bf16 kernel run, the gradients of that state and batch
     by the kernel route, the plain route and the all-reference swap, leaf by
-    leaf; the same in f32.
+    leaf (held on the host, so that three gradient trees of gemma3-4b fit
+    beside its state); the same in f32.
 Prints one JSON line per run, and appends it to build/train_spike_probe.jsonl.
 The swaps live in this script only: it replaces the four wrappers on
 ``repro_torch.kernels.ops`` for the duration of a run.
 """
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -43,8 +49,15 @@ from repro_torch.train import (AdamConfig, DataConfig, TokenPipeline,  # noqa: E
                                init_train_state, make_grad_fn, make_train_step)
 
 OUT = Path(__file__).resolve().parents[1] / "build" / "train_spike_probe.jsonl"
-STEPS, BATCH, SEQ, LR = 5, 4, 2048, 1e-2
-CPU = "--cpu" in sys.argv
+_ap = argparse.ArgumentParser()
+_ap.add_argument("runs", nargs="*", help="run names (default: all)")
+_ap.add_argument("--cpu", action="store_true")
+_ap.add_argument("--arch", default="hymba-1.5b")
+_ap.add_argument("--layers", type=int, default=None, help="cut the depth (default: published)")
+_ap.add_argument("--lr", type=float, default=1e-2)
+ARGS = _ap.parse_args()
+STEPS, BATCH, SEQ, LR = 5, 4, 2048, ARGS.lr
+CPU = ARGS.cpu
 DEV = torch.device("cpu") if CPU else torch.device("cuda", 0)
 if CPU:
     SEQ, BATCH = 40, 2
@@ -64,7 +77,8 @@ def emit(**kw):
         f.write(line + "\n")
 
 
-def plain_fa(q, k, v, *, causal=True, window=None, q_offset=0, return_lse=False):
+def plain_fa(q, k, v, *, causal=True, window=None, q_offset=0, max_offset=None,
+             return_lse=False):
     if ops._wants_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, window, q_offset)
     return flash_attention_ref(q, k, v, causal, window, q_offset, return_lse)
@@ -95,7 +109,9 @@ def swap(fwd: str, bwd: str):
 
 
 def cfg_of(dtype):
-    cfg = get_config("hymba-1.5b")
+    cfg = get_config(ARGS.arch)
+    if ARGS.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=ARGS.layers)
     if CPU:
         cfg = dataclasses.replace(cfg.reduced(), n_layers=2)
     return dataclasses.replace(cfg, dtype=dtype)
@@ -115,7 +131,8 @@ def grads(cfg, dtype, params, batch, impl, route):
         loss, _aux, g = make_grad_fn(cfg, SINGLE_CARD, compute_dtype=dtype,
                                      impl=impl)(params, batch)
         sync()
-        return loss.item(), list(_leaves(g)), time.perf_counter() - t0
+        s = time.perf_counter() - t0
+        return loss.item(), [(p, t.cpu()) for p, t in _leaves(g)], s
     finally:
         swap("K", "K")
 
@@ -160,7 +177,8 @@ def run(label, dtype, impl="kernel", route=("K", "K"), compare_at=None):
             swap("K", "K")
         print(f"# {label} step {step} loss {losses[-1]:.4f} gnorm {norms[-1]:.2f} "
               f"{secs[-1]:.1f}s", file=sys.stderr, flush=True)
-    emit(run=label, dtype=dtype, impl=impl, fwd=route[0], bwd=route[1], loss=losses,
+    emit(run=label, arch=cfg.name, n_layers=cfg.n_layers, lr=LR, dtype=dtype, impl=impl,
+         fwd=route[0], bwd=route[1], loss=losses,
          grad_norm=norms, s=secs, launches=dict(launches),
          total_s=time.perf_counter() - t_run, compare=comp,
          peak_gb=0 if CPU else torch.cuda.max_memory_allocated(DEV) / 1e9)
@@ -182,7 +200,7 @@ def main():
     if not CPU:
         build.build(["flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd"])
     emit(run="build", s=time.perf_counter() - t0)
-    only = set(sys.argv[1:]) - {"--cpu"}
+    only = set(ARGS.runs)
 
     def want(name):
         return not only or name in only

@@ -7,8 +7,10 @@ crash mid-write never corrupts the latest checkpoint.  ``keep`` bounds disk
 use.  The data-pipeline cursor rides along in meta, so resume replays the
 exact batch stream.  Leaves are tensors (copied to the host) or anything
 numpy takes; ``restore`` returns numpy arrays, which the caller puts on its
-device.  The format is the reference's, so either package reads the other's
-checkpoints.
+device (or shards: ``sharding.shard_tree``, onto any mesh).  A DTensor leaf
+is gathered whole (``full_tensor``) on every rank, and the first rank of an
+initialised process group writes while the others wait for it.  The format
+is the reference's, so either package reads the other's checkpoints.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 def _flatten(tree, prefix="") -> Dict[str, Any]:
@@ -44,6 +48,8 @@ def _unflatten(flat: Dict[str, Any]):
 
 
 def _to_host(x) -> np.ndarray:
+    if isinstance(x, DTensor):  # a collective: every rank gathers its leaves
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise TypeError("checkpoint: bfloat16 leaves have no numpy type; keep "
@@ -54,13 +60,24 @@ def _to_host(x) -> np.ndarray:
 
 def save(ckpt_dir: str, step: int, state, meta: Optional[Dict] = None,
          keep: int = 3) -> str:
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    flat = {k: _to_host(v) for k, v in _flatten(state).items()}
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, final, flat, meta, keep)
+        dist.barrier()  # no rank reads the step before it is published
+        return final
+    _write(ckpt_dir, step, final, flat, meta, keep)
+    return final
+
+
+def _write(ckpt_dir: str, step: int, final: str, flat: Dict[str, np.ndarray],
+           meta: Optional[Dict], keep: int) -> None:
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f".tmp-{step}")
-    final = os.path.join(ckpt_dir, f"step_{step:08d}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    flat = {k: _to_host(v) for k, v in _flatten(state).items()}
     np.savez(os.path.join(tmp, "state.npz"), **flat)
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump({"step": step, **(meta or {})}, f)
@@ -68,7 +85,6 @@ def save(ckpt_dir: str, step: int, state, meta: Optional[Dict] = None,
         shutil.rmtree(final)
     os.rename(tmp, final)  # atomic publish
     _gc(ckpt_dir, keep)
-    return final
 
 
 def _gc(ckpt_dir: str, keep: int) -> None:

@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .flash_attention import DTYPE_CODES as _FLASH_DTYPES
 from .flash_attention import (HEAD_DIMS, THREADS, WIDE_ROWS, Offset, flash_attention_cuda,
@@ -52,10 +53,22 @@ def _wants_grad(*tensors: torch.Tensor) -> bool:
 
 
 def _device_kind(name: str, *tensors: torch.Tensor) -> str:
+    """"cuda" (launch the kernel) or "cpu" (its plain version) for inputs on
+    one device.  A ``meta`` tensor (shapes only: a dry run) takes the plain
+    version too: it holds no data, so nothing is computed and no kernel
+    result is stood in for.  A DTensor raises: a kernel runs on a rank's
+    local shard, inside ``local_map`` (``models.partitioning.local_call``),
+    and is never handed a whole sharded tensor (the autograd Functions'
+    forwards come here too)."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: got a DTensor; a kernel runs on local shards "
+                        "(call it through models.partitioning.local_call)")
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: inputs on different devices "
                          f"{[str(t.device) for t in tensors]}")
+    if dev.type == "meta":
+        return "cpu"
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev.type

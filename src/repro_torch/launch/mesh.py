@@ -1,17 +1,50 @@
-"""Device inventory of the card(s) a block runtime runs on.
+"""Device meshes and the device inventory (counterpart of
+``repro.launch.mesh``).
 
-Counterpart of the device half of ``repro.launch.mesh``: the reference
-enumerates ``jax.devices()``; the port enumerates CUDA devices through
-``torch.cuda``.  The device class is the record a ``CalibrationProfile``
-carries, so a profile states the substrate it was fitted on.  The
-reference's production meshes (``make_production_mesh``/``make_host_mesh``)
-belong to SPMD sharding (ROADMAP Queue 1 item 7).
+Meshes are functions, not module constants, so importing this module
+touches no process group.  They are ``torch.distributed`` DeviceMeshes
+over the initialised world (``init_process_group`` first): the production
+meshes are the reference's, (16, 16) = 256 devices on ("data", "model"),
+or (2, 16, 16) = 512 on ("pod", "data", "model"), the leading "pod" axis
+across the slower links between pods; the host mesh spans whatever world
+there is.  ``device_type`` is "cuda" unless the caller names another
+("cpu" for gloo ranks or a fake world).
+
+The inventory enumerates CUDA devices through ``torch.cuda`` (the reference
+enumerates ``jax.devices()``).  The device class is the record a
+``CalibrationProfile`` carries, so a profile states the substrate it was
+fitted on.
 """
 from __future__ import annotations
 
 import platform
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+
+from repro_torch.models.partitioning import axis_sizes
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(model_axis: int = 1, device_type: str = "cuda"):
+    """(world / model_axis, model_axis) on ("data", "model") over the
+    initialised world."""
+    n = dist.get_world_size()
+    if n % model_axis:
+        raise ValueError(f"make_host_mesh: model axis {model_axis} does not divide "
+                         f"the world of {n}")
+    return init_device_mesh(device_type, (n // model_axis, model_axis),
+                            mesh_dim_names=("data", "model"))
+
+
+def mesh_axis_sizes(mesh) -> dict:
+    return axis_sizes(mesh)
 
 
 def device_inventory() -> list:

@@ -8,30 +8,41 @@ name, e.g. ``dataclasses.replace(get_config("gemma3-4b"), n_layers=12)``
 with ``reduced=False``: the published width at a cut depth.
 
 The model trains on the card unless ``--device cpu`` is given; without
-``--full`` it is the reduced configuration (``cfg.reduced()``).  Deterministic
-data pipeline (``TokenPipeline``), AdamW with warmup-cosine, f32 master
-weights with a bf16 compute cast, remat per layer, checkpoint/restart
-(auto-resume from the latest step, exact data-cursor replay) with atomic
-publication.  Attention and the SSM scan run forward and backward through
-the hand-written kernels (their plain versions on the CPU).  The reference
-picks its sharding plan over a jax mesh; the port trains on one card and
-takes a ``Plan`` (default: ``remat="full"``, no accumulation).
+``--full`` it is the reduced configuration (``cfg.reduced()``).  Features:
+an LSHS-chosen sharding plan over the host mesh (``choose_plan`` on the H100
+table, then ``fit_plan_to_mesh``), a deterministic data pipeline
+(``TokenPipeline``), AdamW with warmup-cosine, f32 master weights with a
+bf16 compute cast, remat per layer, checkpoint/restart (auto-resume from
+the latest step, exact data-cursor replay) with atomic publication.
+Attention and the SSM scan run forward and backward through the
+hand-written kernels (their plain versions on the CPU).  Over a world of
+more than one rank (``init_process_group`` first) the state is sharded by
+the plan and the step runs under its rules; on one rank the plan's remat,
+gradient dtype and accumulation act and its mesh axes do not.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import math
 import time
 from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
 from repro_torch.backend.torch_backend import resolve_device
 from repro_torch.checkpoint import latest_step, restore, save
 from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.shapes import fit_plan_to_mesh
 from repro_torch.models import ModelConfig
+from repro_torch.models.partitioning import axis_sizes, spec_placements
 from repro_torch.models.transformer import _tree_map
-from repro_torch.sharding.plans import SINGLE_CARD, Plan
+from repro_torch.sharding.optimizer import choose_plan
+from repro_torch.sharding.plans import Plan, activation_rules, batch_specs, shard_tree
 from repro_torch.train import (AdamConfig, DataConfig, TokenPipeline, init_train_state,
                                make_train_step)
 
@@ -66,18 +77,28 @@ def train_loop(
     returns (state, loss history).  ``reduced`` trains ``cfg.reduced()``.
 
     ``device`` None means the card (and raises where there is none).
-    ``impl`` is the route of attention and the scan ("kernel" or "plain").
-    ``on_step(step, metrics)`` is called after each step, once its loss has
-    reached the host, with float metrics (loss, grad_norm, lr) and the
-    step's wall seconds."""
+    ``plan`` None is the LSHS choice over the host mesh, or over a 1 x 1
+    mesh where no process group is initialised.  ``impl`` is the route of
+    attention and the scan ("kernel" or "plain").  ``on_step(step,
+    metrics)`` is called after each step, once its loss has reached the
+    host, with float metrics (loss, grad_norm, lr), the step's wall seconds
+    and the plan (``describe()``)."""
     dev = resolve_device(device)
     cfg = get_config(arch) if isinstance(arch, str) else arch
     if reduced:
         cfg = cfg.reduced()
-    plan = plan or SINGLE_CARD
+    mesh = make_host_mesh(device_type=dev.type) if dist.is_initialized() else None
+    axes = axis_sizes(mesh) if mesh is not None else {"data": 1, "model": 1}
+    if plan is None:
+        plan = choose_plan(cfg, axes, "train", batch, seq).plan
+    plan = fit_plan_to_mesh(plan, axes)
+    if batch % max(math.prod(axes.get(a, 1) for a in plan.batch_axes), 1):
+        plan = dataclasses.replace(plan, batch_axes=())
+    rules = activation_rules(plan, mesh, cfg) if mesh is not None and mesh.size() > 1 \
+        else None
     sched = schedule_steps or steps
     opt_cfg = AdamConfig(lr=lr, warmup_steps=max(sched // 20, 5), total_steps=sched)
-    step_fn = make_train_step(cfg, plan, opt_cfg, impl=impl)
+    step_fn = make_train_step(cfg, plan, opt_cfg, rules, impl=impl)
     data_cfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
                           corpus=corpus, seed=seed)
 
@@ -92,18 +113,28 @@ def train_loop(
         log_fn(f"[resume] step {start_step} from {ckpt_dir}")
     if state is None:
         state = init_train_state(cfg, torch.Generator(device=dev).manual_seed(seed))
+    if rules is not None:
+        state = shard_tree(state, cfg, plan, mesh)
+        specs = batch_specs(cfg, plan, "train")
+
+    def put(batch_np):
+        b = batch_to(batch_np, dev)
+        if rules is None:
+            return b
+        return {k: distribute_tensor(v, mesh, spec_placements(mesh, specs[k]))
+                for k, v in b.items()}
 
     history = []
     t0 = time.time()
     for step in range(start_step, steps):
         t_step = time.perf_counter()
-        state, metrics = step_fn(state, batch_to(next(pipe), dev))
+        state, metrics = step_fn(state, put(next(pipe)))
         loss = float(metrics["loss"])  # waits for the step
         history.append(loss)
         if on_step is not None:
             on_step(step, {"loss": loss, "grad_norm": float(metrics["grad_norm"]),
                            "lr": float(metrics["lr"]),
-                           "s": time.perf_counter() - t_step})
+                           "s": time.perf_counter() - t_step, "plan": plan.describe()})
         if step % log_every == 0 or step == steps - 1:
             tok_s = (batch * seq * (step - start_step + 1)) / max(time.time() - t0, 1e-9)
             log_fn(f"[step {step:5d}] loss={loss:.4f} "

@@ -28,10 +28,11 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..kernels import ops
 from ..kernels.flash_attention import visible
-from .partitioning import constrain
+from .partitioning import constrain, local_call
 
 IMPLS = ("kernel", "plain")
 
@@ -227,9 +228,7 @@ def attention_scores(
                                   "flash-attention kernel (nor in the reference's): ROADMAP "
                                   "Queue 1 item 6 (attention logit soft-capping)")
     if mask is None:
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  causal=False)
-        return out.transpose(1, 2)
+        return local_call(_flash, (q, k, v), _ATTN_DIMS, _ATTN_DIMS[:1], causal=False)
     if not isinstance(mask, CausalMask):
         raise ValueError("attention_scores: the kernel route takes a CausalMask or None; "
                          "a boolean mask tensor is for impl='plain'")
@@ -238,10 +237,23 @@ def attention_scores(
                          f"{q.shape[1]} queries and {k.shape[1]} keys")
     offset, max_offset = mask.q_offset, None
     if mask.per_row:
+        if isinstance(q, DTensor):
+            raise NotImplementedError("attention_scores: per-row query offsets (continuous "
+                                      "batching) are for one card, not under sharding rules")
         offset, max_offset = mask.device_offsets(q.device), max(mask.q_offset)
-    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=True, window=mask.window, q_offset=offset,
-                              max_offset=max_offset)
+    return local_call(_flash, (q, k, v), _ATTN_DIMS, _ATTN_DIMS[:1], causal=True,
+                      window=mask.window, q_offset=offset, max_offset=max_offset)
+
+
+#: attention's operands and output, (B, S, heads, hd), by role: the batch
+#: (dim 0) and the heads (dim 2) split over ranks, each rank's query heads
+#: with their kv heads
+_ATTN_DIMS = ((0, 2), (0, 2), (0, 2))
+
+
+def _flash(q, k, v, **kw):
+    """``ops.flash_attention`` on (B, S, heads, hd) operands."""
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
     return out.transpose(1, 2)
 
 
@@ -268,7 +280,9 @@ def attention_block(
     prefill projected from it (decode)."""
     B, S, D = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    q = (x @ params["wq"]).reshape(B, S, H, hd)
+    # the projections are split by whole heads, or not at all, before they
+    # are viewed as heads (a no-op without sharding rules)
+    q = constrain(x @ params["wq"], "batch", "seq", "heads").reshape(B, S, H, hd)
     if cross and kv_x is None:
         if cfg.attn_bias:
             q = q + params["bq"].reshape(1, 1, H, hd)
@@ -278,8 +292,10 @@ def attention_block(
         out = out.reshape(B, S, H * hd) @ params["wo"]
         return constrain(out, "batch", "seq", "embed"), None
     src = x if kv_x is None else kv_x
-    k = (src @ params["wk"]).reshape(B, src.shape[1], KV, hd)
-    v = (src @ params["wv"]).reshape(B, src.shape[1], KV, hd)
+    k = constrain(src @ params["wk"], "batch", "seq", "kv_heads").reshape(
+        B, src.shape[1], KV, hd)
+    v = constrain(src @ params["wv"], "batch", "seq", "kv_heads").reshape(
+        B, src.shape[1], KV, hd)
     if cfg.attn_bias:
         q = q + params["bq"].reshape(1, 1, H, hd)
         k = k + params["bk"].reshape(1, 1, KV, hd)

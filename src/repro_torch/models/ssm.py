@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from ..kernels import ops
 from ..kernels.mamba_scan import mamba_scan_ref
 from .layers import IMPLS
-from .partitioning import constrain
+from .partitioning import constrain, local_call
 
 
 def _ssm_core(params, xz, cfg, conv_state=None, ssm_state=None, impl: str = "kernel"):
@@ -39,15 +39,18 @@ def _ssm_core(params, xz, cfg, conv_state=None, ssm_state=None, impl: str = "ker
     w = params["conv_w"]                                  # (d_conv, DI)
     if conv_state is not None:
         xc = torch.cat([conv_state, x], dim=1)            # (B, d_conv-1+S, DI)
-    else:
-        xc = F.pad(x, (0, 0, s.d_conv - 1, 0))
+    else:  # d_conv - 1 zeros before the first position: F.pad's values, as a
+        # cat, since some versions' DTensor pads only over a 1-D mesh
+        xc = torch.cat([x.new_zeros((B, s.d_conv - 1, x.shape[-1])), x], dim=1)
     new_conv = xc[:, xc.shape[1] - (s.d_conv - 1):, :]
     x = sum(xc[:, i:i + S, :] * w[i][None, None, :] for i in range(s.d_conv)) \
         + params["conv_b"][None, None, :]
     x = F.silu(x)
 
     # input-dependent (selective) parameters
-    proj = x @ params["x_proj"]                           # (B, S, R+2N)
+    # (B, S, R+2N), contracted over d_inner: summed over the ranks that
+    # split it before dt, B and C are used
+    proj = constrain(x @ params["x_proj"], "batch", "seq", None)
     dt, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
     dt = F.softplus(dt @ params["dt_proj"] + params["dt_bias"])   # (B, S, DI)
     A = -torch.exp(params["A_log"].float())               # (DI, N)
@@ -63,7 +66,10 @@ def _ssm_core(params, xz, cfg, conv_state=None, ssm_state=None, impl: str = "ker
         if ssm_state is not None:  # continue a scan from carried state
             dBx[:, 0] += dA[:, 0] * ssm_state
         scan = ops.mamba_scan if impl == "kernel" else mamba_scan_ref
-        y, new_ssm = scan(dA, dBx, C32.contiguous())
+        # on each rank's shard of the batch and of d_inner
+        y, new_ssm = local_call(lambda *t: scan(*(a.contiguous() for a in t)),
+                                (dA, dBx, C32), ((0, 2), (0, 2), (0, None)),
+                                ((0, 2), (0, 1)))
     y = y.to(x.dtype)
     y = y + params["D"][None, None, :] * x
     y = y * F.silu(z)

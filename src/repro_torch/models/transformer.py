@@ -37,12 +37,14 @@ import math
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint as torch_checkpoint
+from torch.distributed.tensor import distribute_tensor
 
 from .config import ModelConfig
 from .layers import CausalMask, apply_norm, attention_block, mlp_block, softcap_logits
 from .moe import moe_block
-from .partitioning import constrain
+from .partitioning import constrain, gather_weights, get_rules
 from .ssm import ssm_block
 
 REMATS = ("none", "dots", "full")
@@ -258,7 +260,9 @@ def decoder_layer(cfg, lp, x, positions, mask, cache, cache_pos, impl="kernel",
     """Self-attention and/or SSM, then (encoder-decoder) cross-attention over
     ``enc_out``, or at decode (``enc_out`` None) over the cache's static
     ``ck``, ``cv``, then the MLP or MoE.  Returns (x, new cache, aux), aux
-    None without MoE."""
+    None without MoE.  Under sharding rules the layer's weights are
+    gathered over their FSDP axes first (``gather_weights``)."""
+    lp = gather_weights(lp)
     x, new_cache = _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl)
     if cfg.encdec:
         h = apply_norm(x, lp["norm_cross"], cfg.norm, cfg.norm_eps)
@@ -358,6 +362,7 @@ def encoder_stack(cfg, enc_params, frames, remat: str = "none", impl: str = "ker
     x = x + torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None].to(x.dtype)
 
     def block(xc, lp):
+        lp = gather_weights(lp)
         h = apply_norm(xc, lp["norm1"], cfg.norm, cfg.norm_eps)
         xc = xc + attention_block(lp["attn"], h, cfg, None, None, impl=impl)[0]
         h = apply_norm(xc, lp["norm2"], cfg.norm, cfg.norm_eps)
@@ -379,7 +384,7 @@ def _cross_kv(cfg, layers, enc_out):
     the reference's ``prefill`` does (with the biases, no norm)."""
     B, T = enc_out.shape[0], enc_out.shape[1]
     KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    cross = layers["cross"]
+    cross = gather_weights(layers["cross"])
     ks, vs = [], []
     for i in range(cfg.n_layers):
         k = (enc_out @ cross["wk"][i]).reshape(B, T, KV, hd)
@@ -401,27 +406,39 @@ def _embed_inputs(cfg, params, batch):
     if "embeds" in batch:
         x = batch["embeds"]
     else:
-        x = params["embed"][batch["tokens"]]
+        # an embedding lookup: the rows indexing gives, but DTensor shards
+        # its backward (indexing's, an index_put, fails on some versions)
+        x = F.embedding(batch["tokens"], gather_weights(params["embed"]))
     if cfg.scale_embed:
         x = x * math.sqrt(cfg.d_model)
     if cfg.learned_pos:
         S = x.shape[1]
         off = batch.get("pos_offset", 0)
         if isinstance(off, torch.Tensor):  # per row: (B,) offsets on the device
-            x = x + params["pos_embed"][off[:, None] + torch.arange(S, device=off.device)]
+            x = x + gather_weights(params["pos_embed"])[off[:, None]
+                                                        + torch.arange(S, device=off.device)]
         else:
-            x = x + params["pos_embed"][off:off + S][None]
+            x = x + gather_weights(params["pos_embed"])[off:off + S][None]
     return constrain(x.to(getattr(torch, cfg.dtype)), "batch", "seq", "embed")
 
 
 def _lm_logits(cfg, params, x):
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    head = gather_weights(params["embed"] if cfg.tie_embeddings else params["lm_head"])
     logits = constrain(x @ head.T, "batch", "seq", "vocab")
     return softcap_logits(logits, cfg.logit_softcap)
 
 
 def _make_caches(cfg, B, max_len, dtype, device):
+    """Zeroed serving caches; under sharding rules, DTensors split as the
+    rules split the batch, the kv heads and d_inner."""
     L = cfg.n_layers
+    rules = get_rules()
+
+    def zeros(shape, dt, *names):
+        t = torch.zeros(shape, dtype=dt, device=device)
+        return t if rules is None else distribute_tensor(t, rules.mesh,
+                                                         rules.placements(*names))
+
     per: Dict[str, Any] = {}
     if not cfg.attention_free:
         KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
@@ -429,13 +446,14 @@ def _make_caches(cfg, B, max_len, dtype, device):
         # max_len of them on every model.  (The reference bounds a
         # sliding-window-only model's cache at the window and then overflows
         # it past that many tokens: ROADMAP Queue 3 (f).)
-        per["k"] = torch.zeros((L, B, max_len, KV, hd), dtype=dtype, device=device)
-        per["v"] = torch.zeros((L, B, max_len, KV, hd), dtype=dtype, device=device)
+        kv = (None, "batch", None, "kv_heads", None)
+        per["k"] = zeros((L, B, max_len, KV, hd), dtype, *kv)
+        per["v"] = zeros((L, B, max_len, KV, hd), dtype, *kv)
     if cfg.ssm is not None:
         s = cfg.ssm
         DI = s.d_inner(cfg.d_model)
-        per["conv"] = torch.zeros((L, B, s.d_conv - 1, DI), dtype=dtype, device=device)
-        per["ssm"] = torch.zeros((L, B, DI, s.d_state), dtype=torch.float32, device=device)
+        per["conv"] = zeros((L, B, s.d_conv - 1, DI), dtype, None, "batch", None, "ff")
+        per["ssm"] = zeros((L, B, DI, s.d_state), torch.float32, None, "batch", "ff", None)
     return per
 
 

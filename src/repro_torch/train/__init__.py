@@ -1,6 +1,5 @@
 """Training substrate (counterpart of ``repro.train``): optimizer, step
-builders, data pipeline.  Gradient compression (``train/compress.py``)
-waits for SPMD sharding (ROADMAP Queue 1 item 7)."""
+builders, data pipeline, gradient compression (``train/compress.py``)."""
 from .data import DataConfig, TokenPipeline
 from .optim import AdamConfig, adam_update, global_norm, init_opt_state, lr_at
 from .steps import (cross_entropy, init_train_state, make_grad_fn, make_prefill,

@@ -16,6 +16,7 @@ from dataclasses import dataclass
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.transformer import _leaves, _tree_map
 
@@ -48,16 +49,23 @@ def lr_at(cfg: AdamConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(params) -> Dict[str, Any]:
-    """Zero f32 moments shaped like ``params`` and an int32 step counter, on
-    the parameters' device."""
+    """Zero f32 moments shaped (and, for DTensor parameters, placed) like
+    ``params`` and an int32 step counter, on the parameters' device."""
     device = _tree_leaves(params)[0].device
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     return {"m": _tree_map(zeros, params), "v": _tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in _tree_leaves(tree)))
+    """sqrt of the sum of squares of every leaf, a plain scalar tensor.  A
+    DTensor leaf's sum is reduced over its mesh explicitly (``full_tensor``:
+    an all-reduce where the leaf is sharded)."""
+    def sq(g):
+        s = torch.sum(torch.square(g.float()))
+        return s.full_tensor() if isinstance(s, DTensor) else s
+
+    return torch.sqrt(sum(sq(g) for g in _tree_leaves(tree)))
 
 
 @torch.no_grad()

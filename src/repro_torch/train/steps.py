@@ -6,12 +6,16 @@ f32 master parameters cast to the compute dtype inside the step, the
 forward with the plan's remat policy, the loss's gradient by autograd
 (through the attention and scan kernels' backward kernels on the kernel
 route), optional accumulation over ``plan.accum_steps`` microbatches, the
-optional bf16 gradient cast (``plan.grad_dtype``), and an AdamW update, in
-place.  The forward takes the plan's MoE ``dispatch_mode``; the
-reference's ``Plan`` also carries mesh choices that one card does not use,
-and ``rules`` must be None until SPMD sharding is ported (ROADMAP Queue 1
-item 7).  The serving builders have no plan: ``dispatch_mode`` is their
-keyword.
+optional bf16 gradients (``plan.grad_dtype``), and an AdamW update, in
+place.  The forward takes the plan's MoE ``dispatch_mode``; the serving
+builders have no plan: ``dispatch_mode`` is their keyword.
+
+``rules`` (``sharding.activation_rules``) shard the step: the state is then
+a tree of DTensors (``sharding.shard_tree``) and the batch DTensors split
+over the plan's batch axes; the model's ``constrain`` calls redistribute
+activations, the attention and scan kernels run on each rank's local
+shards, and each gradient comes back with its parameter's placements.  The
+loss returned is a plain tensor, the same on every rank.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models import decode_step, forward, init_params, prefill, use_rules
 from repro_torch.models.config import ModelConfig
@@ -52,25 +57,46 @@ def make_grad_fn(cfg: ModelConfig, plan: Plan, rules=None,
     Leaves are cast to the compute dtype inside; where the model's
     activation dtype (``cfg.dtype``) is wider, they are then widened to it,
     as jax's type promotion does where the reference's f32 activations meet
-    its bf16 weights."""
+    its bf16 weights.
+
+    bf16 gradients (``plan.grad_dtype``, the reference's compressed
+    all-reduce) under a bf16 compute dtype are taken with respect to the
+    bf16 compute copy: each is born in bf16, the same bits as the f32
+    gradient cast to bf16 (the cast's backward rounds it there first), and
+    no f32 gradient tree is built.  Otherwise the gradient is the f32
+    masters', cast afterwards where the plan asks for bf16."""
     cast = getattr(torch, compute_dtype)
     wide = torch.promote_types(cast, getattr(torch, cfg.dtype))
+    born_bf16 = plan.grad_dtype == "bfloat16" and cast == torch.bfloat16
 
     def grad_fn(params, batch):
         paths, masters = zip(*_leaves(params))
-        leaves = [p.detach().requires_grad_() for p in masters]
+        leaves = [(p.detach().to(cast) if born_bf16 else p.detach()).requires_grad_()
+                  for p in masters]
         with torch.enable_grad(), use_rules(rules):
             cparams = _tree_map(lambda p: p.to(cast).to(wide), _unflatten(paths, leaves))
             logits, aux = forward(cparams, batch, cfg, remat=plan.remat, impl=impl,
                                   dispatch_mode=plan.dispatch_mode)
             loss = cross_entropy(logits, batch["labels"]) + aux
+            if isinstance(loss, DTensor):  # one value on every rank
+                loss = loss.full_tensor()
+            if isinstance(aux, DTensor):
+                aux = aux.full_tensor()
             del cparams, logits
-            grads = list(torch.autograd.grad(loss, leaves))
-        if plan.grad_dtype == "bfloat16":  # the reference's compressed all-reduce
+            grads = [_like(g, p) for g, p in zip(torch.autograd.grad(loss, leaves), leaves)]
+        if plan.grad_dtype == "bfloat16" and not born_bf16:
             grads = [g.to(torch.bfloat16) for g in grads]
         return loss.detach(), aux.detach(), _unflatten(paths, grads)
 
     return grad_fn
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient with its parameter's placements (the optimizer updates
+    each shard in place)."""
+    if isinstance(g, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(cfg: ModelConfig, plan: Plan, opt_cfg: AdamConfig, rules=None,
@@ -86,8 +112,7 @@ def make_train_step(cfg: ModelConfig, plan: Plan, opt_cfg: AdamConfig, rules=Non
         params, opt = state["params"], state["opt"]
         if plan.accum_steps > 1:
             a = plan.accum_steps
-            grads = _tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                    device=p.device), params)
+            grads = _tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
             for i in range(a):
                 mb = {k: v.reshape((a, v.shape[0] // a) + tuple(v.shape[1:]))[i]
@@ -98,7 +123,8 @@ def make_train_step(cfg: ModelConfig, plan: Plan, opt_cfg: AdamConfig, rules=Non
                 loss = loss + mb_loss / a
         else:
             loss, _aux, grads = one_grad(params, batch)
-        params, opt, metrics = adam_update(opt_cfg, params, grads, opt)
+        with use_rules(rules):
+            params, opt, metrics = adam_update(opt_cfg, params, grads, opt)
         metrics["loss"] = loss
         return {"params": params, "opt": opt}, metrics
 
@@ -116,13 +142,21 @@ def init_train_state(cfg: ModelConfig, generator: torch.Generator,
 def make_serve_step(cfg: ModelConfig, rules=None, impl: str = "kernel",
                     dispatch_mode: str = "einsum"):
     """One decode step: (params, tokens, cache) -> (next_tokens, cache),
-    greedy."""
+    greedy.  Under ``rules`` the parameters, tokens and cache are
+    DTensors."""
 
     def serve_step(params, tokens, cache):
         with use_rules(rules):
             logits, cache = decode_step(params, tokens, cache, cfg, impl=impl,
                                         dispatch_mode=dispatch_mode)
-        next_tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        last = logits[:, -1]
+        if isinstance(last, DTensor):  # each row's whole vocabulary on its ranks:
+            # DTensor's argmax over a split dim gathers (value, index) pairs,
+            # which fails on some meshes
+            last = last.redistribute(last.device_mesh, tuple(
+                p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in last.placements))
+        next_tok = torch.argmax(last, dim=-1)[:, None]
         return next_tok, cache
 
     return serve_step

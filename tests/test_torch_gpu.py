@@ -1138,3 +1138,73 @@ def test_moe_serve_on_card_kernel_route_matches_plain(cuda_device):
     lk, lp = recs["kernel", "einsum"]["logits"], recs["plain", "einsum"]["logits"]
     assert np.isfinite(lk).all() and np.abs(lk - lp).max() <= 1e-4 * np.abs(lp).max()
     assert np.array_equal(toks["kernel", "gather"], toks["kernel", "einsum"])
+
+
+# ---------------------------------------------------------------------------
+# SPMD sharding: the sharded step on a 1 x 1 CUDA mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda_world(cuda_device):
+    """A process group of one rank on the card (NCCL), destroyed after."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=cuda_device)
+    try:
+        yield cuda_device
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "hymba-1.5b"])
+def test_sharded_step_on_1x1_cuda_mesh_equals_plain(cuda_world, arch):
+    """A reduced gradient step under fsdp+tp on the host mesh (1 x 1, NCCL):
+    parameters and batch as DTensors, the attention (and scan) kernels
+    launched on the local shards as often as on plain tensors, the loss and
+    every gradient bitwise equal to the same step on plain tensors."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import init_params
+    from repro_torch.models.partitioning import spec_placements
+    from repro_torch.models.transformer import _leaves
+    from repro_torch.sharding import Plan, activation_rules, batch_specs, shard_tree
+    from repro_torch.train import DataConfig, TokenPipeline, make_grad_fn
+
+    cfg = get_config(arch).reduced()
+    if arch == "gemma3-4b":
+        cfg = dataclasses.replace(cfg, n_layers=6, head_dim=256, dtype="bfloat16")
+    mesh = make_host_mesh()
+    plan = Plan("fsdp_tp", batch_axes=("data",), tp_axis="model", fsdp_axis=("data",),
+                remat="dots")
+    params = init_params(dataclasses.replace(cfg, dtype="float32"),
+                         torch.Generator(device=cuda_world).manual_seed(0))
+    batch = batch_to(next(TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=40,
+                                                   global_batch=2))), cuda_world)
+    kernels = ("flash_attention", "flash_attention_bwd", "mamba_scan", "mamba_scan_bwd")
+    reset_launches()
+    loss, _, grads = make_grad_fn(cfg, plan)(params, batch)
+    want = {k: launches[k] for k in kernels}
+    specs = batch_specs(cfg, plan, "train")
+    sbatch = {k: distribute_tensor(v, mesh, spec_placements(mesh, specs[k]))
+              for k, v in batch.items()}
+    reset_launches()
+    sloss, _, sgrads = make_grad_fn(cfg, plan, activation_rules(plan, mesh, cfg))(
+        shard_tree(params, cfg, plan, mesh), sbatch)
+    torch.cuda.synchronize()
+    assert {k: launches[k] for k in kernels} == want and want["flash_attention"] > 0
+    assert (want["mamba_scan"] > 0) == (cfg.ssm is not None)
+    assert torch.equal(sloss, loss)
+    for (path, g), (_, s) in zip(_leaves(grads), _leaves(sgrads)):
+        assert torch.equal(s.to_local(), g), path
+
+
+def test_host_mesh_on_the_card(cuda_world):
+    from repro_torch.launch.mesh import make_host_mesh, mesh_axis_sizes
+
+    mesh = make_host_mesh(device_type="cuda")
+    assert mesh.device_type == "cuda" and mesh_axis_sizes(mesh) == {"data": 1, "model": 1}

@@ -55,7 +55,12 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.core.trace, repro_torch.core.chaos, repro_torch.obs.perfetto, "
     "repro_torch.obs.critical_path, repro_torch.obs.calibrate, repro_torch.obs.controller, "
     "repro_torch.launch.chaos, repro_torch.launch.trace_report, repro_torch.launch.mesh",
-], ids=["block runtime", "LM serving", "LM training", "fault tolerance and observability"])
+    "repro_torch.sharding, repro_torch.sharding.hardware, repro_torch.sharding.estimator, "
+    "repro_torch.sharding.optimizer, repro_torch.sharding.roofline, "
+    "repro_torch.sharding.collectives, repro_torch.launch.shapes, repro_torch.launch.dryrun, "
+    "repro_torch.train.compress, repro_torch.models.partitioning",
+], ids=["block runtime", "LM serving", "LM training", "fault tolerance and observability",
+        "SPMD sharding"])
 def test_import_loads_neither_jax_nor_reference(modules):
     code = (f"import sys, {modules}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -154,40 +159,17 @@ def _hymba(**changes):
 
 def _lm_feature(name):
     from repro_torch.models import forward
-    from repro_torch.models import partitioning
 
     tokens = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
     if name == "softcap":
         cfg, params = _hymba(logit_softcap=30.0)
         return forward(params, tokens, cfg)
-    if name == "Rules":
-        return partitioning.Rules(None)
-    if name == "sharded steps":
-        from repro_torch.train import make_prefill
-
-        cfg, params = _hymba()
-        return make_prefill(cfg, max_len=8, rules=object())(params, tokens)
-    if name == "sharded train step":
-        from repro_torch.sharding.plans import SINGLE_CARD
-        from repro_torch.train import AdamConfig, init_opt_state, make_train_step
-
-        cfg, params = _hymba()
-        step = make_train_step(cfg, SINGLE_CARD, AdamConfig(), rules=object())
-        return step({"params": params, "opt": init_opt_state(params)},
-                    dict(tokens, labels=tokens["tokens"]))
-    if name == "activation_rules":
-        from repro_torch.sharding.plans import SINGLE_CARD, activation_rules
-
-        return activation_rules(SINGLE_CARD, None)
     from repro_torch.configs import get_config
 
     return get_config(name)
 
 
-@pytest.mark.parametrize("feature", [
-    ("lm", "softcap"), ("lm", "Rules"),
-    ("lm", "sharded steps"), ("lm", "sharded train step"), ("lm", "activation_rules"),
-], ids=lambda f: f[1])
+@pytest.mark.parametrize("feature", [("lm", "softcap")], ids=lambda f: f[1])
 def test_features_of_later_slices_raise(feature):
     _kind, name = feature
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -88,7 +88,10 @@ class TestMatmul:
         with pytest.raises(TypeError, match="dtypes"):
             ops.matmul(a.int(), torch.zeros(3, 2, dtype=torch.int32))
         with pytest.raises(ValueError, match="device"):
-            ops.matmul(a.to("meta"), torch.zeros(3, 2, device="meta"))
+            ops.matmul(a, torch.zeros(3, 2, device="meta"))  # two devices
+        # a meta tensor (a dry run's: shapes, no data) takes the plain version
+        out = ops.matmul(a.to("meta"), torch.zeros(3, 2, device="meta"))
+        assert out.is_meta and tuple(out.shape) == (4, 2)
 
     def test_cpu_takes_plain_version_without_launch(self):
         reset_launches()
@@ -211,7 +214,10 @@ class TestGLMFused:
         with pytest.raises(TypeError, match="dtypes"):
             ops.glm_fused(z.int(), z.int())
         with pytest.raises(ValueError, match="device"):
-            ops.glm_fused(z.to("meta"), z.to("meta"))
+            ops.glm_fused(z, z.to("meta"))  # two devices
+        # a meta tensor (a dry run's: shapes, no data) takes the plain version
+        assert all(t.is_meta and t.shape == z.shape
+                   for t in ops.glm_fused(z.to("meta"), z.to("meta")))
 
     def test_f64_inputs_give_f32_outputs(self):
         z = torch.linspace(-30, 30, 64, dtype=torch.float64).reshape(32, 2)

@@ -11,7 +11,8 @@ the port (``impl="kernel"``, whose attention and scan run their plain
 forward and backward versions on CPU tensors, and ``impl="plain"``, autograd
 through the plain forward); three ``make_train_step`` steps agree with the
 reference's jitted step to 1e-4; remat does not change the gradients by a
-bit; a resumed ``train_loop`` replays a straight run.
+bit; bf16 gradients are the f32 gradients cast, bit for bit; a resumed
+``train_loop`` replays a straight run.
 """
 from __future__ import annotations
 
@@ -214,6 +215,27 @@ def test_remat_gives_the_same_gradients_bit_for_bit(hymba8, remat):
     assert torch.equal(runs["none"][0], runs[remat][0])
     for (path, a), (_, b) in zip(_leaves(runs["none"][2]), _leaves(runs[remat][2])):
         assert torch.equal(a, b), path
+
+
+@pytest.mark.parametrize("dtype,remat", [("float32", "none"), ("float32", "full"),
+                                         ("bfloat16", "full")])
+def test_bf16_gradients_are_the_f32_gradients_cast(hymba8, dtype, remat):
+    """bf16 gradients (``grad_dtype``) at a bf16 compute dtype, taken with
+    respect to the bf16 compute copy, equal the f32 masters' gradients cast
+    to bf16 bit for bit, with f32 and with bf16 activations."""
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(hymba8["cfg"], n_layers=2, dtype=dtype)
+    params = init_params(cfg, torch.Generator().manual_seed(0), dtype="float32")
+    batch = batch_to(hymba8["batches"][1], "cpu")
+    runs = {}
+    for g in ("float32", "bfloat16"):
+        grad_fn = make_grad_fn(cfg, dataclasses.replace(LOCAL, remat=remat, grad_dtype=g))
+        runs[g] = grad_fn(params, batch)
+    assert torch.equal(runs["float32"][0], runs["bfloat16"][0])
+    for (path, a), (_, b) in zip(_leaves(runs["float32"][2]), _leaves(runs["bfloat16"][2])):
+        assert a.dtype == torch.float32 and b.dtype == torch.bfloat16, path
+        assert torch.equal(a.to(torch.bfloat16), b), path
 
 
 def test_accumulated_microbatches_match_one_batch(hymba8):
