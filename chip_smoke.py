@@ -134,8 +134,10 @@ call, whose device times a decode case also reports), also with one offset
 per row (``decode-ragged``: 8 slots at their own positions), and at the
 dense decoders' shapes (head dim 256, 6 to 8 query heads per kv head) and
 whisper-small's with no mask (the encoder, cross prefill and decode) and
-the MoE decoders' (rep 16 and 4 at head dim 128); the attention backward at
-hymba-1.5b's, gemma3-4b's and whisper-small's train shapes; the
+the MoE decoders' (rep 16 and 4 at head dim 128), and in f32 at 64 query
+heads per kv head at head dim 256 (the most the kernels take); the
+attention backward at hymba-1.5b's, gemma3-4b's and whisper-small's train
+shapes and at that f32 one; the
 scan forward with its checkpoints written, and the scan backward on both
 its routes (from the forward's checkpoints, the one training takes, and
 without them), which must give the same bits.  The block phases make each
@@ -330,12 +332,15 @@ HOST_BLOCK_MIN = 1 << 20
 #: weights and AdamW state, bf16 compute, full remat; 1 warm-up step, then
 #: TRAIN["steps"] timed ones, then one step under torch.profiler
 TRAIN = dict(arch="hymba-1.5b", batch=4, seq=2048, warm=1, steps=3, lr=1e-2)
+#: the f32 attention at the most query heads per kv head the kernels take
+#: (64) and head dim 256, causal, forward and backward, batch 1
+REP64_F32 = dict(q=(1, 64, 1024, 256), kv=(1, 1, 1024, 256))
 #: device kernels of a train step by what they do, matched on their names
 KERNEL_GROUPS = (
-    ("attention forward", ("flash_fwd_kernel", "flash_fwd_mma_kernel",
+    ("attention forward", ("flash_fwd_f32_kernel", "flash_fwd_mma_kernel",
                            "flash_split_combine_kernel")),
-    ("attention backward", ("dkv_kernel", "dq_kernel", "dkv_mma_kernel", "dq_mma_kernel",
-                            "delta_kernel")),
+    ("attention backward", ("dkv_f32_kernel", "dq_f32_kernel", "dkv_mma_kernel",
+                            "dq_mma_kernel", "delta_kernel")),
     ("scan forward", ("mamba_scan_kernel",)),
     ("scan backward", ("scan_bwd_kernel", "dc_sum_kernel")),
     ("matrix products (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass", "cublas", "sm90_")),
@@ -687,11 +692,11 @@ def flash_case(name, q, k, v, window, q_offset, causal=True):
                                * q.element_size(), dtype)
     library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=sdpa_mask, enable_gqa=True)
-    splits = kv_splits(dtype, B, KV, H // KV, Sq, Skv, hd, causal, window, host_max)
+    splits = kv_splits(B, KV, H // KV, Sq, Skv, hd, causal, window, host_max)
     case = dict(case=name, dtype=str(dtype).replace("torch.", ""),
                 q=list(q.shape), kv=list(k.shape), causal=causal, window=window,
                 q_offset=list(q_offset) if per_row else q_offset,
-                splits=splits, blocks=B * KV * query_tiles(dtype, H // KV, Sq, hd) * splits,
+                splits=splits, blocks=B * KV * query_tiles(H // KV, Sq) * splits,
                 max_abs_err=err, rel_err=rel, tol=FLASH_TOL[dtype],
                 ms=time_ms(lambda: ops.flash_attention(q, k, v, **kw)),
                 plain_ms=time_ms(lambda: flash_attention_ref(q, k, v, causal, window,
@@ -790,8 +795,9 @@ def dense_kernel_cases(dev):
     """The attention kernel at serve_dense's shapes, bf16 unless named:
     gemma3-4b (hd 256, rep 2) prefill of its global and local layers, a
     decode step, a ragged decode step over a 4096 cache and an f32 prefill
-    (batch 1); gemma-7b's prefill (hd 256, rep 1); command-r-35b's prefill
-    and decode step (hd 128, rep 8); qwen2-vl-7b's prefill (hd 128, rep 7)."""
+    (batch 1); an f32 prefill at REP64_F32 (rep 64, hd 256); gemma-7b's
+    prefill (hd 256, rep 1); command-r-35b's prefill and decode step (hd
+    128, rep 8); qwen2-vl-7b's prefill (hd 128, rep 7)."""
     g = torch.Generator(device=dev).manual_seed(2)
     B, S = SERVE_DENSE["batch"], SERVE_DENSE["prompt_len"]
     max_len = S + SERVE_DENSE["gen"] + 1
@@ -812,6 +818,9 @@ def dense_kernel_cases(dev):
     q32, k32, v32 = (t[:1].float() for t in (q, k, v))
     cases.append(flash_case("gemma3-4b prefill-global f32 (batch 1)", q32, k32, v32, None, 0))
     del q, k, v, q32, k32, v32
+    q, k, v = (u(*REP64_F32[n], dtype=torch.float32) for n in ("q", "kv", "kv"))
+    cases.append(flash_case("rep 64 hd 256 prefill-global f32 (batch 1)", q, k, v, None, 0))
+    del q, k, v
     rows = len(RAGGED["offsets"])
     q, k, v = u(rows, H, 1, hd), u(rows, KV, RAGGED["max_len"], hd), u(rows, KV,
                                                                         RAGGED["max_len"], hd)
@@ -1014,7 +1023,8 @@ def scan_bwd_case(name, dA, dBx, C, dy):
 def train_kernel_phase(dev):
     """Both backward kernels at the train paths' shapes: attention of
     hymba-1.5b's global and local layers (bf16) and of a global layer in
-    f32, gemma3-4b's (head dim 256) likewise, and the scan's backward."""
+    f32, gemma3-4b's (head dim 256) likewise, f32 at REP64_F32 (64 query
+    heads over one kv head at head dim 256), and the scan's backward."""
     g = torch.Generator(device=dev).manual_seed(2)
     sh = train_shapes()
     B, S, H, KV, hd = sh["B"], sh["S"], sh["H"], sh["KV"], sh["hd"]
@@ -1041,6 +1051,8 @@ def train_kernel_phase(dev):
     flash.append(flash_bwd_case("gemma3-4b train-local bf16", q, k, v, cfg.window))
     q, k, v = (t[:1].float() for t in (q, k, v))
     flash.append(flash_bwd_case("gemma3-4b train-global f32 (batch 1)", q, k, v, None))
+    q, k, v = (u(*REP64_F32[n], dtype=torch.float32) for n in ("q", "kv", "kv"))
+    flash.append(flash_bwd_case("rep 64 hd 256 train-global f32 (batch 1)", q, k, v, None))
     del q, k, v
     _release()
     N, DI = sh["N"], sh["DI"]
@@ -2494,6 +2506,22 @@ def patched(owner, name, wrap):
         setattr(owner, name, real)
 
 
+#: f32 attention launches of the main paths (their f32 legs and planted
+#: faults; the kernel cases' comparisons excluded), by kernel library
+F32_LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
+
+
+def f32_counter(name):
+    """A wrap for ``patched``: the launcher, counting its f32 calls in
+    ``F32_LAUNCHES[name]``."""
+    def wrap(real):
+        def counted(q, *args, **kw):
+            F32_LAUNCHES[name] += int(q.dtype == torch.float32)
+            return real(q, *args, **kw)
+        return counted
+    return wrap
+
+
 #: the planted fault of the hymba and gemma train checks: the local layers'
 #: window dropped in the backward kernel only
 WINDOW_DROPPED = ("window dropped in the backward kernel",
@@ -3039,6 +3067,10 @@ def main() -> int:
     flash_bwd_cases, scan_bwd_cases = train_kernel_phase(dev)
     flash_bwd_cases += whisper_bwd_cases(dev)
     lap("kernel_cases")
+    # from here on, count the f32 attention launches (F32_LAUNCHES)
+    f32_counting = contextlib.ExitStack()
+    for name in ("flash_attention", "flash_attention_bwd"):
+        f32_counting.enter_context(patched(ops, f"{name}_cuda", f32_counter(name)))
 
     # the block phases make their large random blocks once (HostBlocks)
     with HostBlocks():
@@ -3117,6 +3149,8 @@ def main() -> int:
     # path's step (DTensors, kernels on local shards) on a 1 x 1 CUDA mesh
     spmd_launches = spmd_phase(dev, [hymba_run, dense_run, whisper_run])
     lap("spmd")
+    f32_counting.close()
+    emit("f32_launches", **F32_LAUNCHES)
     emit("timing", phase_s=phase_s, total_s=time.perf_counter() - t0)
 
     # launches of the main paths' own runs: the block runtime on backend

@@ -36,15 +36,28 @@
 //   from the accumulators, with V read by ldmatrix.trans.  A warp skips a
 //   tile that none of its 16 rows sees and masks element by element only a
 //   tile that straddles a boundary (mma.cuh holds the building blocks).
-// - f32 (flash_fwd_kernel): scalar IEEE f32 FMA (the tensor cores would
-//   take f32 only through TF32, which the port never uses).  A block of 128
-//   threads is rows x key groups; each thread keeps its row's output
-//   accumulator in registers (and its query there too up to hd 64, in
-//   shared memory above); with few rows the groups split each key tile and
-//   are merged through shared memory at the end.  At hd 256 a row's
-//   accumulator would not fit one thread's registers: flash_fwd_wide_kernel
-//   splits the head dim over a group of four threads (64 dims each), which
-//   reduce each q.k product with two __shfl_xor steps.
+// - f32 (flash_fwd_f32_kernel): IEEE f32 FMA only (the tensor cores would
+//   take f32 only through TF32, which the port never uses), so f32 FMA
+//   operations bound it: 67 TFLOP/s on the H100.  The block is the bf16
+//   kernel's: 64 position-major rows of one kv head, so rep does not bound
+//   it.  256 threads form a 32 x 8 grid; a thread computes S = Q K^T for 2
+//   rows x (key tile / 8) keys as register outer products over the head dim
+//   (f32_tiles.cuh), reading each 16-byte chunk of Q or K once for 4 or 8
+//   FMAs against one in a dot product, with a warp's 4 row groups and 8 key
+//   lanes reading 4 and 8 distinct chunks (broadcasts, no bank conflict).
+//   The online softmax is exp2f with scale * log2 e folded into the scores;
+//   a row's tile max takes three __shfl_xor steps over its 8 lanes.  P goes
+//   through shared memory rows that only its warp writes and reads
+//   (__syncwarp), and O += P V runs as outer products again: each thread
+//   owns its 2 rows x hd / 8 dims of O in registers (64 at hd 256).  Q stays
+//   resident; K and V tiles of 64 keys (32 above hd 64, key_tile in the
+//   wrapper) come by 16-byte cp.async into padded shared memory, two tiles
+//   in flight, in dynamic shared memory above 48 KB.  Blocks start in
+//   reverse query order across all (batch, kv head): the longest causal
+//   blocks first.  As compiled on the H100 (PERF.md): 256 threads; at hd
+//   256 168 registers and 205 KB of shared memory, one block of 8 warps
+//   per SM; at hd 64 and 128 128 registers (the launch bound) and 103 and
+//   109 KB, two blocks per SM.
 // - Decode (split-KV): when the grid, B * KV * query tiles, is too small to
 //   fill the card, the wrapper asks for `splits` > 1.  Each block then
 //   covers one of `splits` contiguous ranges of whole key tiles of its
@@ -64,17 +77,19 @@
 // Operands are read through strides (batch, head, position; the head
 // dimension is contiguous), so the model's (B, S, H, hd) activations and its
 // (B, S_max, KV, hd) cache are read in place, without a transposing copy.
-// The bf16 kernel copies rows 16 bytes at a time, so it needs every
-// operand's base and strides 16-byte aligned: the wrapper copies a view that
-// is not into a new tensor first.
+// Both kernels copy rows 16 bytes at a time, so they need every operand's
+// base and strides 16-byte aligned: the wrapper copies a view that is not
+// into a new tensor first.
 #include <math.h>
 
 #include "common.cuh"
+#include "f32_tiles.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr int NT = 128;  // threads per block (four warps)
+constexpr int NT = 128;  // threads per block of the bf16 and combine kernels (four warps)
+constexpr int MAX_REP = 64;  // query heads per kv head (MAX_REP in the wrapper)
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -93,8 +108,6 @@ struct FlashArgs {
   int64_t R;    // rows of the output, B * H * Sq, in lse's order
   int Sq, Skv, KV;
   int rep;      // query heads per kv head
-  int rows;     // f32: rows per block, a power of two <= NT
-  int bq;       // f32: query positions per block, rows / rep
   int causal;   // 0 or 1
   int window;   // 0: no window; else key j is visible iff j > q - window
   int q_offset; // absolute position of query 0 (of every row, when q_offsets is null)
@@ -137,371 +150,206 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: scalar FMA
+// f32: register micro-tiles of IEEE FMA (f32_tiles.cuh)
 // ---------------------------------------------------------------------------
 
-__host__ __device__ constexpr int key_tile(int hd) { return hd <= 64 ? 64 : 32; }
-__host__ __device__ constexpr int key_chunk(int hd) { return hd <= 64 ? 16 : 8; }
-// above hd 64 a thread's query and accumulator would not both fit its
-// registers: the query rows live in shared memory
-__host__ __device__ constexpr bool q_in_smem(int hd) { return hd > 64; }
-
 template <int HD>
-constexpr size_t smem_floats() {
-  // max(two key/value tiles (and the query rows), the merge's per-thread states)
-  constexpr size_t tiles = 2 * key_tile(HD) * (HD + 4) + (q_in_smem(HD) ? NT * (HD + 4) : 0);
-  constexpr size_t merge = 2 * NT + NT * (HD + 1);
-  return tiles > merge ? tiles : merge;
-}
+struct F32Tiles {
+  static constexpr int ROWS = 64;                 // query rows per block, position-major
+  static constexpr int THREADS = 256;             // a GR x GC grid of threads
+  static constexpr int GC = 8, GR = THREADS / GC; // 8 threads share a row group's keys
+  static constexpr int TR = ROWS / GR;            // rows a thread: 2
+  static constexpr int BKV = HD <= 64 ? 64 : 32;  // keys per tile (key_tile in the wrapper)
+  static constexpr int TC = BKV / GC;             // keys a thread: 8 or 4
+  static constexpr int LD = HD + 4;               // padded row of Q, K, V, in floats
+  static constexpr int LDP = BKV + 8;             // padded row of P: a warp's 4 row groups
+                                                  // write 32 distinct banks
+  using CH = f32t::Chunks<HD, GC>;                // head dims of O a thread owns
+  static constexpr int STAGES = 2;                // key/value tiles in flight
+  static constexpr int SMEM = (ROWS * LD + STAGES * 2 * BKV * LD + ROWS * LDP) * 4;
+};
 
+// Thread (gr, gc) owns rows gr + 32 i (i < 2) of the block: their scores
+// against keys gc + 8 j of each tile, their softmax state (m, and its share
+// of l), and their output's head dims in chunks gc + 8 c.  A row's eight
+// threads are neighbouring lanes: the tile's max is three __shfl_xor steps,
+// and P goes through shared memory rows that only this warp writes and
+// reads (a __syncwarp, no block barrier).
 template <int HD>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(const FlashArgs a) {
-  constexpr int BC = key_tile(HD);   // keys per tile
-  constexpr int CH = key_chunk(HD);  // keys per softmax update
-  constexpr int LD = HD + 4;         // padded tile row, in floats (16-byte aligned)
-  constexpr bool QS = q_in_smem(HD);
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Ks = smem;
-  float* Vs = smem + BC * LD;
-  float* Qs = smem + 2 * BC * LD;    // QS: the block's query rows, scaled
+__global__ void __launch_bounds__(F32Tiles<HD>::THREADS, HD > 128 ? 1 : 2)
+    flash_fwd_f32_kernel(const FlashArgs a) {
+  using TL = F32Tiles<HD>;
+  constexpr int ROWS = TL::ROWS, NTH = TL::THREADS, GC = TL::GC, GR = TL::GR, TR = TL::TR;
+  constexpr int BKV = TL::BKV, TC = TL::TC, LD = TL::LD, LDP = TL::LDP, ST = TL::STAGES;
+  constexpr int CW = TL::CH::CW, NCH = TL::CH::N, CH4 = HD / 4;
+  extern __shared__ __align__(16) float fsmem[];
+  float* Qs = fsmem;               // ROWS x LD
+  float* Ks = Qs + ROWS * LD;      // ST stages x BKV keys
+  float* Vs = Ks + ST * BKV * LD;  // ST stages x BKV keys
+  float* Ps = Vs + ST * BKV * LD;  // ROWS x LDP: this tile's probabilities
 
-  const int tid = threadIdx.x;
-  const int G = NT / a.rows;         // key groups
-  const int r = tid % a.rows;        // this thread's row ...
-  const int g = tid / a.rows;        // ... and key group
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int split = blockIdx.x % a.splits;
-  const int q0 = blockIdx.x / a.splits * a.bq;
-  const int pos_l = r / a.rep;
-  const int qpos = q0 + pos_l;
-  const bool row_ok = pos_l < a.bq && qpos < a.Sq;
-  const int h = kvh * a.rep + r % a.rep;
-  const int q_offset = row_offset(a, b);
-  const int qabs = qpos + q_offset;
-
-  float qr[QS ? 1 : HD];
+  const int tid = threadIdx.x, gc = tid % GC, gr = tid / GC;
+  // the grid is (query tiles x splits, KV, B); blocks are handed out in
+  // the order of their linear index, which here runs over the query tiles
+  // slowest and in reverse, so that under a causal mask the blocks with the
+  // most keys start first across every (batch, kv head)
+  int b, kvh, split, tile;
   {
-    const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh +
-                      static_cast<int64_t>(qpos) * a.q_ss;
-    if constexpr (QS) {
-      if (g == 0)
-        for (int d = 0; d < HD; ++d) Qs[r * LD + d] = row_ok ? qp[d] * a.scale : 0.0f;
-    } else {
-#pragma unroll
-      for (int d = 0; d < HD; ++d) qr[d] = row_ok ? qp[d] * a.scale : 0.0f;
-    }
+    const int units = a.splits * a.KV * static_cast<int>(gridDim.z);  // blocks a query tile
+    const int64_t lin =
+        blockIdx.x + static_cast<int64_t>(gridDim.x) * (blockIdx.y + gridDim.y * blockIdx.z);
+    const int rem = static_cast<int>(lin % units);
+    tile = static_cast<int>(gridDim.x) / a.splits - 1 - static_cast<int>(lin / units);
+    split = rem % a.splits;
+    kvh = rem / a.splits % a.KV;
+    b = rem / a.splits / a.KV;
   }
-
-  // keys any row of this block may see, in tiles; this split's share
-  const int q_last = min(q0 + a.bq, a.Sq) - 1 + q_offset;
-  int k_end = a.Skv;
-  if (a.causal) k_end = min(k_end, q_last + 1);
-  int k_begin = 0;
-  if (a.window > 0) k_begin = max(0, q0 + q_offset - a.window + 1);
-  k_begin = (k_begin / BC) * BC;
-  int t_lo, t_hi;
-  split_tiles(k_end > k_begin ? (k_end - k_begin + BC - 1) / BC : 0, split, a.splits, t_lo,
-              t_hi);
-
-  // this row's visible keys: [lo, hi)
-  int hi = a.Skv;
-  if (a.causal) hi = min(hi, qabs + 1);
-  const int lo = a.window > 0 ? qabs - a.window + 1 : 0;
-
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-
-  float m = -INFINITY, l = 0.0f;
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
-
-  for (int k0 = k_begin + t_lo * BC; k0 < k_begin + t_hi * BC; k0 += BC) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < BC * HD; i += NT) {
-      const int j = i / HD, d = i % HD;
-      const int kj = k0 + j;
-      float kv = 0.0f, vv = 0.0f;
-      if (kj < a.Skv) {
-        kv = kb[static_cast<int64_t>(kj) * a.k_ss + d];
-        vv = vb[static_cast<int64_t>(kj) * a.v_ss + d];
-      }
-      Ks[j * LD + d] = kv;
-      Vs[j * LD + d] = vv;
-    }
-    __syncthreads();
-    if (!row_ok) continue;
-    const float4* qv = reinterpret_cast<const float4*>(Qs + r * LD);
-    for (int j0 = g; j0 < BC; j0 += G * CH) {
-      float s[CH];
-      float mc = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        const int j = j0 + c * G;
-        const int kj = k0 + j;
-        s[c] = -INFINITY;
-        if (j < BC && kj >= lo && kj < hi) {
-          const float4* kr = reinterpret_cast<const float4*>(Ks + j * LD);
-          float dot = 0.0f;
-#pragma unroll
-          for (int d4 = 0; d4 < HD / 4; ++d4) {
-            const float4 kk = kr[d4];
-            float4 qq;
-            if constexpr (QS) {
-              qq = qv[d4];
-            } else {
-              qq = make_float4(qr[4 * d4], qr[4 * d4 + 1], qr[4 * d4 + 2], qr[4 * d4 + 3]);
-            }
-            dot = fmaf(qq.x, kk.x, dot);
-            dot = fmaf(qq.y, kk.y, dot);
-            dot = fmaf(qq.z, kk.z, dot);
-            dot = fmaf(qq.w, kk.w, dot);
-          }
-          s[c] = dot;
-          mc = fmaxf(mc, dot);
-        }
-      }
-      if (mc == -INFINITY) continue;  // no visible key in this chunk
-      const float m_new = fmaxf(m, mc);
-      const float alpha = expf(m - m_new);  // 0 while m is -inf
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) {
-        if (s[c] == -INFINITY) continue;
-        const float p = expf(s[c] - m_new);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(Vs + (j0 + c * G) * LD);
-#pragma unroll
-        for (int d4 = 0; d4 < HD / 4; ++d4) {
-          const float4 vv = vr[d4];
-          acc[4 * d4] = fmaf(p, vv.x, acc[4 * d4]);
-          acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
-          acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
-          acc[4 * d4 + 3] = fmaf(p, vv.w, acc[4 * d4 + 3]);
-        }
-      }
-      m = m_new;
-    }
-  }
-
-  const int64_t row = (static_cast<int64_t>(b) * a.KV * a.rep + h) * a.Sq + qpos;
-  float* op = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh +
-              static_cast<int64_t>(qpos) * a.o_ss;
-  if (G == 1) {
-    if (!row_ok) return;
-    if (a.splits > 1) {  // this split's partial: (m, l, unnormalised O)
-      float* wa = ws_acc(a, split, row, HD);
-#pragma unroll
-      for (int d = 0; d < HD; ++d) wa[d] = acc[d];
-      *ws_m(a, split, row, HD) = m;
-      *ws_l(a, split, row, HD) = l;
-      return;
-    }
-    const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // a row that sees no key gives 0
-#pragma unroll
-    for (int d = 0; d < HD; ++d) op[d] = acc[d] * inv;
-    if (a.lse != nullptr) a.lse[row] = row_lse(m, l);
-    return;
-  }
-
-  // merge the groups' softmax states, row by row
-  __syncthreads();  // the key/value tiles are no longer read
-  float* pm = smem;
-  float* pl = smem + NT;
-  float* pacc = smem + 2 * NT;
-  pm[tid] = m;
-  pl[tid] = l;
-#pragma unroll
-  for (int d = 0; d < HD; ++d) pacc[tid * (HD + 1) + d] = acc[d];
-  __syncthreads();
-  if (!row_ok) return;
-  float M = -INFINITY;
-  for (int gg = 0; gg < G; ++gg) M = fmaxf(M, pm[gg * a.rows + r]);
-  float L = 0.0f;
-  for (int gg = 0; gg < G; ++gg) {
-    const float mg = pm[gg * a.rows + r];
-    if (mg != -INFINITY) L += pl[gg * a.rows + r] * expf(mg - M);
-  }
-  const bool part = a.splits > 1;
-  const float inv = part ? 1.0f : (L > 0.0f ? 1.0f / L : 0.0f);
-  if (g == 0) {
-    if (part) {
-      *ws_m(a, split, row, HD) = M;
-      *ws_l(a, split, row, HD) = L;
-    } else if (a.lse != nullptr) {
-      a.lse[row] = row_lse(M, L);
-    }
-  }
-  float* dst = part ? ws_acc(a, split, row, HD) : op;
-  for (int d = g; d < HD; d += G) {  // this thread writes every G-th dim of its row
-    float o = 0.0f;
-    for (int gg = 0; gg < G; ++gg) {
-      const int t = gg * a.rows + r;
-      if (pm[t] != -INFINITY) o = fmaf(pacc[t * (HD + 1) + d], expf(pm[t] - M), o);
-    }
-    dst[d] = o * inv;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// f32 at hd 256: a row's head dim split over a group of threads
-// ---------------------------------------------------------------------------
-
-constexpr int TPR = 4;               // threads per row
-constexpr int WIDE_ROWS = NT / TPR;  // rows per block, rep x positions
-constexpr int WIDE_BC = 32;          // keys per tile
-constexpr int WIDE_CH = 8;           // keys per softmax update
-
-template <int HD>
-constexpr size_t wide_smem_floats() {  // two key/value tiles and the query rows
-  return static_cast<size_t>(2 * WIDE_BC + WIDE_ROWS) * (HD + 4);
-}
-
-// Thread t of a row's group owns the float4 chunks t, t + TPR, ... of the
-// head dim (neighbouring threads on neighbouring chunks): HD / TPR values of
-// the accumulator, and the same share of each q.k product, which two
-// __shfl_xor steps sum (in the same order on all four lanes, so they agree
-// bitwise).  Every lane runs every product, masked rows too, so the
-// shuffles always find the whole warp; a row's m and l are kept by all four.
-template <int HD>
-__global__ void __launch_bounds__(NT) flash_fwd_wide_kernel(const FlashArgs a) {
-  constexpr int LD = HD + 4;          // padded row, in floats (16-byte aligned)
-  constexpr int NV = HD / (4 * TPR);  // float4 chunks per thread
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Ks = smem;
-  float* Vs = smem + WIDE_BC * LD;
-  float* Qs = smem + 2 * WIDE_BC * LD;  // the block's query rows, scaled
-
-  const int tid = threadIdx.x;
-  const int r = tid / TPR, t = tid % TPR;  // this thread's row and its place in the group
-  const int b = blockIdx.z, kvh = blockIdx.y;
-  const int split = blockIdx.x % a.splits;
-  const int q0 = blockIdx.x / a.splits * a.bq;
-  const int pos_l = r / a.rep;
-  const int qpos = q0 + pos_l;
-  const bool row_ok = r < a.rows && pos_l < a.bq && qpos < a.Sq;
-  const int h = kvh * a.rep + r % a.rep;
-  const int q_offset = row_offset(a, b);
-  const int qabs = qpos + q_offset;
-
+  // rows f = position * rep + head of this kv head, fewer than 2^31 (the
+  // launch checks)
+  const int n_rows = a.Sq * a.rep;
+  const int f0 = tile * ROWS;
+  const int rows_ok = min(ROWS, n_rows - f0);
   const float* qb = static_cast<const float*>(a.q) + b * a.q_sb;
-  for (int i = tid; i < WIDE_ROWS * HD; i += NT) {
-    const int rr = i / HD, d = i % HD;
-    const int pl = rr / a.rep, qp = q0 + pl;
-    const bool ok = rr < a.rows && pl < a.bq && qp < a.Sq;
-    const int hh = kvh * a.rep + rr % a.rep;
-    Qs[rr * LD + d] =
-        ok ? qb[hh * a.q_sh + static_cast<int64_t>(qp) * a.q_ss + d] * a.scale : 0.0f;
-  }
-
-  // keys any row of this block may see, in tiles; this split's share
-  const int q_last = min(q0 + a.bq, a.Sq) - 1 + q_offset;
-  int k_end = a.Skv;
-  if (a.causal) k_end = min(k_end, q_last + 1);
-  int k_begin = 0;
-  if (a.window > 0) k_begin = max(0, q0 + q_offset - a.window + 1);
-  k_begin = (k_begin / WIDE_BC) * WIDE_BC;
-  int t_lo, t_hi;
-  split_tiles(k_end > k_begin ? (k_end - k_begin + WIDE_BC - 1) / WIDE_BC : 0, split,
-              a.splits, t_lo, t_hi);
-
-  // this row's visible keys: [lo, hi), empty for a row past the last
-  int hi = row_ok ? a.Skv : 0;
-  if (a.causal) hi = min(hi, qabs + 1);
-  const int lo = a.window > 0 ? qabs - a.window + 1 : 0;
-
   const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
-  const float4* qv = reinterpret_cast<const float4*>(Qs + r * LD);
 
-  float m = -INFINITY, l = 0.0f;
-  float acc[4 * NV];
-#pragma unroll
-  for (int i = 0; i < 4 * NV; ++i) acc[i] = 0.0f;
-
-  for (int k0 = k_begin + t_lo * WIDE_BC; k0 < k_begin + t_hi * WIDE_BC; k0 += WIDE_BC) {
-    __syncthreads();  // the previous tile is consumed (and the query rows stored)
-    for (int i = tid; i < WIDE_BC * HD; i += NT) {
-      const int j = i / HD, d = i % HD;
-      const int kj = k0 + j;
-      float kv = 0.0f, vv = 0.0f;
-      if (kj < a.Skv) {
-        kv = kb[static_cast<int64_t>(kj) * a.k_ss + d];
-        vv = vb[static_cast<int64_t>(kj) * a.v_ss + d];
-      }
-      Ks[j * LD + d] = kv;
-      Vs[j * LD + d] = vv;
-    }
-    __syncthreads();
-    for (int j0 = 0; j0 < WIDE_BC; j0 += WIDE_CH) {
-      float s[WIDE_CH];
-      float mc = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < WIDE_CH; ++c) {
-        const int j = j0 + c;
-        const float4* kr = reinterpret_cast<const float4*>(Ks + j * LD);
-        float dot = 0.0f;
-#pragma unroll
-        for (int i = 0; i < NV; ++i) {
-          const float4 kk = kr[t + TPR * i];
-          const float4 qq = qv[t + TPR * i];
-          dot = fmaf(qq.x, kk.x, dot);
-          dot = fmaf(qq.y, kk.y, dot);
-          dot = fmaf(qq.z, kk.z, dot);
-          dot = fmaf(qq.w, kk.w, dot);
-        }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        const int kj = k0 + j;
-        s[c] = kj >= lo && kj < hi ? dot : -INFINITY;
-        mc = fmaxf(mc, s[c]);
-      }
-      if (mc == -INFINITY) continue;  // no visible key in this chunk (no shuffle follows)
-      const float m_new = fmaxf(m, mc);
-      const float alpha = expf(m - m_new);  // 0 while m is -inf
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < 4 * NV; ++i) acc[i] *= alpha;
-#pragma unroll
-      for (int c = 0; c < WIDE_CH; ++c) {
-        if (s[c] == -INFINITY) continue;
-        const float p = expf(s[c] - m_new);
-        l += p;
-        const float4* vr = reinterpret_cast<const float4*>(Vs + (j0 + c) * LD);
-#pragma unroll
-        for (int i = 0; i < NV; ++i) {
-          const float4 vv = vr[t + TPR * i];
-          acc[4 * i] = fmaf(p, vv.x, acc[4 * i]);
-          acc[4 * i + 1] = fmaf(p, vv.y, acc[4 * i + 1]);
-          acc[4 * i + 2] = fmaf(p, vv.z, acc[4 * i + 2]);
-          acc[4 * i + 3] = fmaf(p, vv.w, acc[4 * i + 3]);
-        }
-      }
-      m = m_new;
-    }
+  for (int idx = tid; idx < ROWS * CH4; idx += NTH) {
+    const int r = idx / CH4, c = idx % CH4;
+    const bool ok = r < rows_ok;
+    const int i = ok ? (f0 + r) / a.rep : 0;
+    const int h = kvh * a.rep + (ok ? f0 + r - i * a.rep : 0);
+    f32t::copy_chunk(Qs + r * LD, qb + h * a.q_sh + static_cast<int64_t>(i) * a.q_ss, c, ok);
   }
 
-  if (!row_ok) return;
-  const int64_t row = (static_cast<int64_t>(b) * a.KV * a.rep + h) * a.Sq + qpos;
-  const bool part = a.splits > 1;
-  const float inv = part ? 1.0f : (l > 0.0f ? 1.0f / l : 0.0f);  // no key seen: 0
-  float* dst = part ? ws_acc(a, split, row, HD)
-                    : static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh +
-                          static_cast<int64_t>(qpos) * a.o_ss;
+  // keys any row of this block may see: [k_begin, k_end), in tiles; this
+  // split's share
+  const int q_offset = row_offset(a, b);
+  const int blk_first = f0 / a.rep + q_offset;
+  const int blk_last = (f0 + rows_ok - 1) / a.rep + q_offset;
+  const int k_end = a.causal ? min(a.Skv, blk_last + 1) : a.Skv;
+  int k_begin = a.window > 0 ? max(0, blk_first - a.window + 1) : 0;
+  k_begin = (k_begin / BKV) * BKV;
+  int t_lo, t_hi;
+  split_tiles(k_end > k_begin ? (k_end - k_begin + BKV - 1) / BKV : 0, split, a.splits, t_lo,
+              t_hi);
+  const int n_tiles = t_hi - t_lo;
+  const int kt_first = k_begin + t_lo * BKV;
+
+  auto load_keys = [&](int t, int stage) {
+    const int kt0 = kt_first + t * BKV;
+    for (int idx = tid; idx < BKV * CH4; idx += NTH) {
+      const int j = idx / CH4, c = idx % CH4, kj = kt0 + j;
+      const bool ok = kj < a.Skv;
+      const int64_t off = static_cast<int64_t>(ok ? kj : 0);
+      f32t::copy_chunk(Ks + (stage * BKV + j) * LD, kb + off * a.k_ss, c, ok);
+      f32t::copy_chunk(Vs + (stage * BKV + j) * LD, vb + off * a.v_ss, c, ok);
+    }
+  };
 #pragma unroll
-  for (int i = 0; i < NV; ++i)
+  for (int t = 0; t < ST - 1; ++t) {  // Q and the first ST - 1 key tiles
+    if (t < n_tiles) load_keys(t, t);
+    tc::cp_async_commit();
+  }
+
+  // this thread's rows: absolute positions, -1 for a row past the last
+  int qa[TR];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dst[4 * (t + TPR * i) + e] = acc[4 * i + e] * inv;
-  if (t != 0) return;
-  if (part) {  // this split's partial: (m, l, unnormalised O)
-    *ws_m(a, split, row, HD) = m;
-    *ws_l(a, split, row, HD) = l;
-  } else if (a.lse != nullptr) {
-    a.lse[row] = row_lse(m, l);
+  for (int i = 0; i < TR; ++i) {
+    const int r = gr + GR * i;
+    qa[i] = r < rows_ok ? (f0 + r) / a.rep + q_offset : -1;
+  }
+  const float scale_log2 = a.scale * LOG2E;
+  float m2[TR], l[TR];  // running max of scaled scores (log2 units), this lane's share of l
+  float acc[TR][CW * NCH];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    m2[i] = -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < CW * NCH; ++d) acc[i][d] = 0.0f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    tc::cp_async_wait<ST - 2>();
+    __syncthreads();  // tile t (and Q) has landed; every warp is done with tile t - 1
+    if (t + ST - 1 < n_tiles) load_keys(t + ST - 1, (t + ST - 1) % ST);  // t - 1's stage
+    tc::cp_async_commit();
+    const int stage = t % ST;
+    const float* Kt = Ks + stage * BKV * LD;
+    const float* Vt = Vs + stage * BKV * LD;
+    const int kt0 = kt_first + t * BKV;
+
+    float s[TR][TC];
+#pragma unroll
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TC; ++j) s[i][j] = 0.0f;
+    f32t::abt<HD, TR, TC, GR, GC, LD>(s, Qs, Kt, gr, gc);  // S = Q K^T
+
+    // a tile whose every key every row of the block sees needs no mask
+    const bool full = rows_ok == ROWS && kt0 + BKV <= a.Skv &&
+                      (!a.causal || kt0 + BKV - 1 <= blk_first) &&
+                      (a.window <= 0 || kt0 > blk_last - a.window);
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      float mx = m2[i];
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (!full && (qa[i] < 0 || !visible(a, qa[i], kt0 + gc + GC * j))) x = -INFINITY;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+      const float base = mx == -INFINITY ? 0.0f : mx;  // a row with no key yet
+      const float alpha = exp2f(m2[i] - base);         // 0 while m2 is -inf
+      m2[i] = mx;
+      l[i] *= alpha;
+#pragma unroll
+      for (int d = 0; d < CW * NCH; ++d) acc[i][d] *= alpha;
+      float* prow = Ps + (gr + GR * i) * LDP + gc;
+#pragma unroll
+      for (int j = 0; j < TC; ++j) {
+        const float p = exp2f(s[i][j] - base);  // 0 where masked
+        l[i] += p;
+        prow[GC * j] = p;
+      }
+    }
+    __syncwarp();  // P's rows of this warp are written
+    f32t::pb<BKV, TR, GR, GC, CW, NCH, LDP, LD>(acc, Ps, Vt, gr, gc);  // O += P V
+  }
+  tc::cp_async_wait<0>();
+
+  float* ob = static_cast<float*>(a.o) + b * a.o_sb;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    float lh = l[i];
+    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+    lh += __shfl_xor_sync(0xffffffffu, lh, 4);
+    if (qa[i] < 0) continue;
+    const int f = f0 + gr + GR * i;
+    const int pos = f / a.rep;
+    const int h = kvh * a.rep + f - pos * a.rep;
+    const int64_t row = (static_cast<int64_t>(b) * a.KV * a.rep + h) * a.Sq + pos;
+    const float m = m2[i] * LN2;  // natural units; -inf for a row that saw no key
+    const bool part = a.splits > 1;
+    // a split's partial is (m, l, unnormalised O); a row that sees no key gives 0
+    const float inv = part ? 1.0f : (lh > 0.0f ? 1.0f / lh : 0.0f);
+    float* dst = part ? ws_acc(a, split, row, HD)
+                      : ob + h * a.o_sh + static_cast<int64_t>(pos) * a.o_ss;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c)
+      f32t::store_chunk<CW>(dst + CW * (gc + GC * c), acc[i] + c * CW, inv);
+    if (gc != 0) continue;
+    if (part) {
+      *ws_m(a, split, row, HD) = m;
+      *ws_l(a, split, row, HD) = lh;
+    } else if (a.lse != nullptr) {
+      a.lse[row] = row_lse(m, lh);
+    }
   }
 }
 
@@ -774,21 +622,15 @@ int set_smem(const void* kernel, size_t bytes) {
 
 template <int HD>
 int launch_f32(const FlashArgs& a, int B, cudaStream_t stream) {
-  const int64_t blocks = static_cast<int64_t>((a.Sq + a.bq - 1) / a.bq) * a.splits;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(blocks), a.KV, B);
-  if constexpr (HD > 128) {  // the head dim split over a group of threads
-    if (a.rows > WIDE_ROWS) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t bytes = wide_smem_floats<HD>() * sizeof(float);
-    const int e = set_smem(reinterpret_cast<const void*>(flash_fwd_wide_kernel<HD>), bytes);
-    if (e != 0) return e;
-    flash_fwd_wide_kernel<HD><<<grid, NT, bytes, stream>>>(a);
-  } else {
-    const size_t bytes = smem_floats<HD>() * sizeof(float);
-    const int e = set_smem(reinterpret_cast<const void*>(flash_fwd_kernel<HD>), bytes);
-    if (e != 0) return e;
-    flash_fwd_kernel<HD><<<grid, NT, bytes, stream>>>(a);
-  }
+  using TL = F32Tiles<HD>;
+  const int e = set_smem(reinterpret_cast<const void*>(flash_fwd_f32_kernel<HD>), TL::SMEM);
+  if (e != 0) return e;
+  const int64_t n_rows = static_cast<int64_t>(a.Sq) * a.rep;
+  const int64_t blocks = (n_rows + TL::ROWS - 1) / TL::ROWS * a.splits;
+  if (n_rows >= (int64_t{1} << 31) || blocks > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_fwd_f32_kernel<HD>
+      <<<dim3(static_cast<unsigned>(blocks), a.KV, B), TL::THREADS, TL::SMEM, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -824,8 +666,7 @@ int launch_combine(const FlashArgs& a, int B, int hd, cudaStream_t s) {
 
 // Launches the forward kernel and, when splits > 1, the combine kernel after
 // it on the same stream; ws then holds splits * B * H * Sq * (hd + 2) floats.
-// `rows` (f32 only: rows per block, a power of two, at least rep) is at
-// most NT, and at most WIDE_ROWS at hd 256.
+// rep, the query heads per kv head, is at most MAX_REP.
 // q_offsets, when not null, is a device array of B int32 offsets >= 0, one
 // per batch row, read in place of q_offset; the host chose `splits` from the
 // largest of them.
@@ -833,15 +674,14 @@ extern "C" int repro_flash_attention(
     int dtype, int hd, const void* q, const void* k, const void* v, void* o, float* lse,
     float* ws, const int* q_offsets, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
     int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss, int64_t o_sb,
-    int64_t o_sh, int64_t o_ss, int B, int KV, int Sq, int Skv, int rep, int rows, int causal,
+    int64_t o_sh, int64_t o_ss, int B, int KV, int Sq, int Skv, int rep, int causal,
     int window, int q_offset, int splits, float scale, void* stream) {
-  if (rows < 1 || rows > NT || (rows & (rows - 1)) != 0 || rows < rep)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (rep < 1 || rep > MAX_REP) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != REPRO_F32 && dtype != REPRO_BF16) return static_cast<int>(cudaErrorInvalidValue);
   if (splits < 1 || (splits > 1 && ws == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   FlashArgs a{q, k, v, o, lse, ws, q_offsets, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
               v_ss, o_sb, o_sh, o_ss, static_cast<int64_t>(B) * KV * rep * Sq, Sq, Skv, KV, rep,
-              rows, rows / rep, causal, window, q_offset, splits, scale};
+              causal, window, q_offset, splits, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int e;
   switch (hd) {

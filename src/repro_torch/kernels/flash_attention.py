@@ -15,8 +15,9 @@ also return each row's log-sum-exp of scaled scores, lse (B, H, Sq) f32
 (-inf for a row that sees no key), which the backward
 (``flash_attention_bwd``) recomputes the probabilities from.
 
-On the card, bf16 runs a tensor-core kernel and f32 a scalar one (at head
-dim 256 one that splits a row's head dim over four threads).  When
+On the card, bf16 runs a tensor-core kernel and f32 one of register
+micro-tiles in IEEE FMA (never TF32); both take blocks of ``ROWS``
+position-major rows (position * rep + head) of one kv head.  When
 their grid (B * KV * query tiles) is too small to fill the card, as at every
 decode step, the keys are split into ``kv_splits`` contiguous ranges: one
 launch then runs two device kernels, the partials per range and their
@@ -39,13 +40,10 @@ from . import build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 #: head dims the kernel is instantiated for
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: threads per block; keep in step with csrc/flash_attention.cu
-THREADS = 128
-#: rows of an f32 block at hd 256, where four threads share a row's head dim
-#: (WIDE_ROWS in csrc/flash_attention.cu); so the most query heads per kv head
-WIDE_ROWS = 32
-#: rows of a bf16 block: four warps of 16 (tensor-core tiles)
-BF16_ROWS = 64
+#: query rows of a block of either kernel, position-major (position * rep + head)
+ROWS = 64
+#: the most query heads per kv head, forward and backward (MAX_REP in csrc/)
+MAX_REP = 64
 #: streaming multiprocessors of the H100: a grid of fewer blocks splits the keys
 SMS = 132
 
@@ -101,26 +99,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse.reshape(B, H, Sq)
 
 
-def block_rows(rep: int, Sq: int, hd: int = 64) -> Tuple[int, int]:
-    """(rows, bq): rows per f32 block — the rep query heads of one kv head at
-    bq positions — a power of two of at most THREADS (WIDE_ROWS at hd 256,
-    where a row takes four threads)."""
-    cap = WIDE_ROWS if hd > 128 else THREADS
-    rows = min(cap, 1 << max(0, rep * Sq - 1).bit_length())
-    return rows, rows // rep
-
-
 def key_tile(hd: int) -> int:
     """Keys per tile of both kernels at head dim hd."""
     return 64 if hd <= 64 else 32
 
 
-def query_tiles(dtype: torch.dtype, rep: int, Sq: int, hd: int = 64) -> int:
-    """Query tiles per (batch, kv head): bf16 blocks take BF16_ROWS of the
-    Sq * rep rows (position-major), f32 blocks bq whole positions."""
-    if dtype == torch.bfloat16:
-        return -(-Sq * rep // BF16_ROWS)
-    return -(-Sq // block_rows(rep, Sq, hd)[1])
+def query_tiles(rep: int, Sq: int) -> int:
+    """Query tiles per (batch, kv head): a block of either dtype takes ROWS
+    of the Sq * rep rows (position-major)."""
+    return -(-Sq * rep // ROWS)
 
 
 def key_range(Sq: int, Skv: int, causal: bool, window: Optional[int], q_offset: int,
@@ -145,12 +132,12 @@ def split_ranges(n_tiles: int, splits: int):
     return [(s * n_tiles // splits, (s + 1) * n_tiles // splits) for s in range(splits)]
 
 
-def kv_splits(dtype: torch.dtype, B: int, KV: int, rep: int, Sq: int, Skv: int, hd: int,
-              causal: bool, window: Optional[int], q_offset: int) -> int:
+def kv_splits(B: int, KV: int, rep: int, Sq: int, Skv: int, hd: int, causal: bool,
+              window: Optional[int], q_offset: int) -> int:
     """Key ranges per query tile: 1 when B * KV * query tiles fills the
     card's SMS multiprocessors, else enough for about two blocks per
     multiprocessor, at most one per key tile of the visible range."""
-    blocks = B * KV * query_tiles(dtype, rep, Sq, hd)
+    blocks = B * KV * query_tiles(rep, Sq)
     if blocks >= SMS:
         return 1
     _, n_tiles = key_tiles(Sq, Skv, causal, window, q_offset, key_tile(hd))
@@ -177,7 +164,7 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if isinstance(q_offset, torch.Tensor):
         offsets = q_offset.tolist()
         if splits is None:
-            splits = kv_splits(q.dtype, B, KV, rep, Sq, Skv, hd, causal, window,
+            splits = kv_splits(B, KV, rep, Sq, Skv, hd, causal, window,
                                max(offsets))
         rows = [flash_attention_split_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal, window,
                                           off, True, splits, bk)
@@ -185,7 +172,7 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = torch.cat([o for o, _ in rows])
         return (out, torch.cat([lse for _, lse in rows])) if return_lse else out
     if splits is None:
-        splits = kv_splits(q.dtype, B, KV, rep, Sq, Skv, hd, causal, window, q_offset)
+        splits = kv_splits(B, KV, rep, Sq, Skv, hd, causal, window, q_offset)
     k_begin, n_tiles = key_tiles(Sq, Skv, causal, window, q_offset, bk)
     qg = q.reshape(B, KV, rep, Sq, hd).float()
     mask = visible(Sq, Skv, causal, window, q_offset, q.device)
@@ -221,10 +208,11 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def rows_aligned(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernels can copy t's (B, X, S, hd) rows 16 bytes at
-    a time: a 16-byte aligned base and batch, head and position strides of
+    """Whether the kernels can copy t's (B, X, S, hd) rows 16 bytes at a
+    time: a 16-byte aligned base and batch, head and position strides of
     whole 16 bytes (the head dim is contiguous)."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+    return t.data_ptr() % 16 == 0 and all(st * t.element_size() % 16 == 0
+                                           for st in t.stride()[:3])
 
 
 def _kernel():
@@ -233,7 +221,7 @@ def _kernel():
         fn = build.load("flash_attention").repro_flash_attention
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int64] * 12 + [ctypes.c_int] * 10
+                       + [ctypes.c_int64] * 12 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -255,18 +243,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the layout the model consumes next; with ``return_lse`` the kernel also
     writes lse and (output, lse) is returned.  With
     ``kv_splits`` > 1 the call runs two device kernels (partials, then their
-    merge) and allocates their f32 workspace.  The bf16 kernel copies rows
-    16 bytes at a time, so a bf16 operand whose rows are not 16-byte aligned
-    is first copied into a new contiguous tensor."""
+    merge) and allocates their f32 workspace.  The kernels copy rows 16
+    bytes at a time, so an operand whose rows are not 16-byte aligned is
+    first copied into a new contiguous tensor."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     rep = H // KV
-    if q.dtype == torch.bfloat16:  # a view at an odd offset: copy it aligned
-        q, k, v = (t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
-                   for t in (q, k, v))
-    # rows per block are the f32 kernels'; the bf16 kernel only checks rows >= rep
-    rows, _ = block_rows(rep, Sq, hd if q.dtype == torch.float32 else 64)
-    splits = kv_splits(q.dtype, B, KV, rep, Sq, Skv, hd, causal, window, q_offset)
+    # a view at an odd offset: copy it aligned
+    q, k, v = (t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    splits = kv_splits(B, KV, rep, Sq, Skv, hd, causal, window, q_offset)
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if return_lse
            else None)
@@ -279,7 +265,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if ws is None else ws.data_ptr(),
             None if q_offsets is None else q_offsets.data_ptr(),
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
-            B, KV, Sq, Skv, rep, rows, int(causal), window or 0, q_offset, splits,
+            B, KV, Sq, Skv, rep, int(causal), window or 0, q_offset, splits,
             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")

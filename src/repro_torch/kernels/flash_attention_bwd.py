@@ -26,39 +26,48 @@ from typing import Optional, Tuple
 import torch
 
 from . import build
-from .flash_attention import DTYPE_CODES, HEAD_DIMS, rows_aligned, visible
-
-#: threads per block; keep in step with csrc/flash_attention_bwd.cu
-THREADS = 128
-#: rows of a bf16 dQ block: four warps of 16 (tensor-core tiles)
-BF16_ROWS = 64
+from .flash_attention import DTYPE_CODES, HEAD_DIMS, MAX_REP, SMS, rows_aligned, visible
 
 _fn = None
 
 
-def dq_rows(hd: int, dtype: torch.dtype = torch.float32) -> int:
-    """Rows of a dQ block (rep query heads x positions), so the most query
-    heads a kv head may have: bf16, four warps of 16 rows at every head dim;
-    f32, one thread per 32-wide slice of the head dim, THREADS threads (16
-    rows at head dim 256)."""
-    if dtype == torch.bfloat16:
-        return BF16_ROWS
-    return THREADS // max(1, hd // 32)
+def dkv_key_tile(hd: int) -> int:
+    """Keys per block of the f32 dK/dV kernel (BKV in csrc/flash_attention_bwd.cu)."""
+    return 64 if hd <= 64 else 32
+
+
+def dkv_row_step(hd: int) -> int:
+    """Query rows per step of the f32 dK/dV kernel (BQ in csrc/flash_attention_bwd.cu)."""
+    return 64 if hd <= 32 else 32
+
+
+def dkv_splits(dtype: torch.dtype, B: int, KV: int, rep: int, Sq: int, Skv: int,
+               hd: int) -> int:
+    """Query ranges per block of the f32 dK/dV kernel: 1 when its grid, B *
+    KV * key blocks, fills the card's SMS multiprocessors, else enough for
+    about two blocks per multiprocessor, at most one per step of query rows
+    (the ranges' partial dK, dV are then summed in range order).  bf16: 1."""
+    if dtype != torch.float32:
+        return 1
+    blocks = B * KV * -(-Skv // dkv_key_tile(hd))
+    if blocks >= SMS:
+        return 1
+    return max(1, min(-(-Sq * rep // dkv_row_step(hd)), -(-2 * SMS // blocks)))
 
 
 def check_launch(q: torch.Tensor, k: torch.Tensor) -> None:
     """Raise where the kernels cannot take q (B, H, Sq, hd) over k (B, KV,
     Skv, hd): a head dim without a kernel (the forward's ``HEAD_DIMS``), more
-    query heads per kv head than a dQ block has rows, or a kv head's Sq x
-    rep query rows past the int32 range."""
+    query heads per kv head than ``MAX_REP`` (a bf16 dQ block's rows: its
+    rep heads at 64 / rep positions; the f32 kernels take the same), or a kv
+    head's Sq x rep query rows past the int32 range."""
     rep, hd = q.shape[1] // k.shape[1], q.shape[3]
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head dim {hd} not in {HEAD_DIMS}")
-    rows = dq_rows(hd, q.dtype)
-    if rep > rows:
+    if rep > MAX_REP:
         raise ValueError(f"flash_attention_bwd: {rep} query heads per kv head; the "
                          f"{str(q.dtype).replace('torch.', '')} kernel takes at most "
-                         f"{rows} at head dim {hd}")
+                         f"{MAX_REP} at head dim {hd}")
     if q.shape[2] * rep >= 2**31:
         raise ValueError(f"flash_attention_bwd: {q.shape[2]} positions x {rep} heads "
                          "exceed the kernel's 2^31 query rows per kv head")
@@ -99,8 +108,8 @@ def _kernel():
     if _fn is None:
         fn = build.load("flash_attention_bwd").repro_flash_attention_bwd
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                       + [ctypes.c_int64] * 24 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
+                       + [ctypes.c_int64] * 24 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -120,24 +129,29 @@ def _like_model(t: torch.Tensor) -> torch.Tensor:
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool, window: Optional[int],
                              q_offset: int):
     """Launch the kernels on CUDA tensors the wrapper
-    (``ops.flash_attention_bwd``) has checked; allocates dq, dk, dv and the
-    (B, H, Sq) f32 delta scratch.  The bf16 kernels copy rows 16 bytes at a
-    time, so a bf16 operand whose rows are not 16-byte aligned is first
-    copied into a new contiguous tensor."""
+    (``ops.flash_attention_bwd``) has checked; allocates dq, dk, dv, the
+    (B, H, Sq) f32 delta scratch and, when ``dkv_splits`` > 1, the f32
+    workspace of the dK/dV partials.  The kernels copy rows 16 bytes at a time,
+    so an operand whose rows are not 16-byte aligned is first copied into a
+    new contiguous tensor."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
-    if q.dtype == torch.bfloat16:  # a view at an odd offset: copy it aligned
-        q, k, v, do = (t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
-                       for t in (q, k, v, do))
+    # a view at an odd offset: copy it aligned
+    q, k, v, do = (t if rows_aligned(t) else t.clone(memory_format=torch.contiguous_format)
+                   for t in (q, k, v, do))
     dq, dk, dv = _like_model(q), _like_model(k), _like_model(v)
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    splits = dkv_splits(q.dtype, B, KV, H // KV, Sq, Skv, hd)
+    ws = (torch.empty(2 * splits * B * KV * Skv * hd, dtype=torch.float32, device=q.device)
+          if splits > 1 else None)
     with torch.cuda.device(q.device):
         err = _kernel()(
             DTYPE_CODES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), *_strides(q), *_strides(k), *_strides(v),
+            dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(),
+            *_strides(q), *_strides(k), *_strides(v),
             *_strides(o), *_strides(do), *_strides(dq), *_strides(dk), *_strides(dv),
-            B, KV, Sq, Skv, H // KV, int(causal), window or 0, q_offset,
+            B, KV, Sq, Skv, H // KV, int(causal), window or 0, q_offset, splits,
             1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA error {err}")

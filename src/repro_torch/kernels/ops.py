@@ -21,7 +21,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from .flash_attention import DTYPE_CODES as _FLASH_DTYPES
-from .flash_attention import (HEAD_DIMS, THREADS, WIDE_ROWS, Offset, flash_attention_cuda,
+from .flash_attention import (HEAD_DIMS, MAX_REP, Offset, flash_attention_cuda,
                               flash_attention_ref)
 from .flash_attention_bwd import FlashAttention
 from .flash_attention_bwd import check_launch as check_bwd_launch
@@ -211,13 +211,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"{max_offset!r}")
         host_offset = max_offset
     rep = q.shape[1] // k.shape[1]
-    if rep > THREADS or q.shape[1] > _GRID_LIMIT or q.shape[2] + host_offset >= 2**31 \
+    if rep > MAX_REP:
+        raise ValueError(f"flash_attention: {rep} query heads per kv head; the kernels take "
+                         f"at most {MAX_REP} at head dim {q.shape[3]}")
+    if q.shape[1] > _GRID_LIMIT or q.shape[2] + host_offset >= 2**31 \
             or q.shape[2] * rep >= 2**31:
         raise ValueError(f"flash_attention: {q.shape[1]} query heads ({rep} per kv head) "
                          "or positions beyond the kernel's range")
-    if q.dtype == torch.float32 and q.shape[3] > 128 and rep > WIDE_ROWS:
-        raise ValueError(f"flash_attention: {rep} query heads per kv head; the f32 kernel "
-                         f"takes at most {WIDE_ROWS} at head dim {q.shape[3]}")
     launches["flash_attention"] += 1
     return flash_attention_cuda(q, k, v, causal, window, host_offset, return_lse,
                                 q_offset.contiguous() if per_row else None)

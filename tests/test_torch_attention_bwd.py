@@ -22,9 +22,10 @@ import torch
 
 from repro.kernels.flash_attention_bwd import _fwd_with_lse, flash_attention_vjp
 from repro_torch.kernels import launches, ops, reset_launches
-from repro_torch.kernels.flash_attention import flash_attention_ref
-from repro_torch.kernels.flash_attention_bwd import (check_launch, dq_rows,
-                                                     flash_attention_bwd_ref, rows_aligned)
+from repro_torch.kernels.flash_attention import MAX_REP, SMS, flash_attention_ref
+from repro_torch.kernels.flash_attention_bwd import (check_launch, dkv_key_tile, dkv_row_step,
+                                                     dkv_splits, flash_attention_bwd_ref,
+                                                     rows_aligned)
 
 RNG = np.random.default_rng(11)
 TOL = 2e-5
@@ -189,27 +190,50 @@ def test_backward_wrapper_rejects_what_it_does_not_take(bad, match):
     (torch.bfloat16, 64, 65, False),
     (torch.bfloat16, 128, 64, True),
     (torch.bfloat16, 16, 65, False),
-    (torch.float32, 64, 64, True),      # 128 threads, 2 per row
+    (torch.float32, 64, 64, True),      # f32: the same 64 at every head dim
     (torch.float32, 64, 65, False),
-    (torch.float32, 128, 33, False),
-    (torch.float32, 16, 128, True),
+    (torch.float32, 128, 33, True),
+    (torch.float32, 16, 128, False),
     (torch.bfloat16, 256, 64, True),    # head dim 256: the same 64 rows
     (torch.bfloat16, 256, 65, False),
-    (torch.float32, 256, 16, True),     # 128 threads, 8 per row
-    (torch.float32, 256, 17, False),
+    (torch.float32, 256, 16, True),
+    (torch.float32, 256, 17, True),
+    (torch.float32, 256, 64, True),
+    (torch.float32, 256, 65, False),
 ], ids=str)
 def test_backward_kernel_limits_raise_with_their_message(dtype, hd, rep, ok):
     """The launch check behind ``ops.flash_attention_bwd`` on a CUDA tensor:
-    rep query heads per kv head up to a dQ block's rows (bf16: 64 at every
-    head dim, 256 included; f32: 128 threads over hd / 32 slices a row)."""
+    rep query heads per kv head up to 64 at every head dim and dtype (a
+    bf16 dQ block's rows; the f32 dQ block is 64 position-major rows
+    whatever rep is, and takes the same)."""
     q = torch.zeros(1, rep, 4, hd, dtype=dtype)
     k = torch.zeros(1, 1, 4, hd, dtype=dtype)
-    assert dq_rows(hd, dtype) == (64 if dtype == torch.bfloat16 else 128 // max(1, hd // 32))
+    assert MAX_REP == 64
     if ok:
         check_launch(q, k)
     else:
-        with pytest.raises(ValueError, match=f"at most {dq_rows(hd, dtype)} at head dim {hd}"):
+        with pytest.raises(ValueError, match=f"at most {MAX_REP} at head dim {hd}"):
             check_launch(q, k)
+
+
+@pytest.mark.parametrize("dtype,shape,want", [
+    (torch.float32, (1, 4, 2, 2048, 2048, 256), 1),    # gemma3-4b, batch 1: 256 blocks
+    (torch.float32, (4, 5, 5, 2048, 2048, 64), 1),     # hymba's train shape
+    (torch.float32, (1, 12, 1, 1500, 1500, 64), 1),    # whisper-small's encoder, batch 1
+    (torch.float32, (1, 1, 64, 1024, 1024, 256), 9),   # 32 blocks: ceil(264 / 32) ranges
+    (torch.float32, (1, 1, 1, 30, 30, 64), 1),         # one step of rows: nothing to split
+    (torch.float32, (2, 2, 4, 64, 70, 16), 4),         # capped by the 4 steps of 64 rows
+    (torch.bfloat16, (1, 1, 64, 1024, 1024, 256), 1),  # the bf16 kernels never split
+], ids=str)
+def test_f32_dkv_blocks_split_their_rows_when_the_grid_is_small(dtype, shape, want):
+    """B * KV * key blocks under the card's SMS multiprocessors: each f32
+    dK/dV block of keys takes one of ``dkv_splits`` ranges of its query
+    rows (about two blocks per multiprocessor, at most one range a step)."""
+    B, KV, rep, Sq, Skv, hd = shape
+    assert dkv_splits(dtype, B, KV, rep, Sq, Skv, hd) == want
+    blocks = B * KV * -(-Skv // dkv_key_tile(hd))
+    if want > 1:
+        assert blocks < SMS and (blocks * want >= SMS or want == -(-Sq * rep // dkv_row_step(hd)))
 
 
 def test_bf16_rows_alignment_is_read_from_base_and_strides():

@@ -54,8 +54,8 @@ def close(got: torch.Tensor, want, tol=TOL):
                                atol=tol, rtol=tol)
 
 
-def blocks(dtype, B, KV, rep, Sq, splits):
-    return B * KV * query_tiles(dtype, rep, Sq) * splits
+def blocks(B, KV, rep, Sq, splits):
+    return B * KV * query_tiles(rep, Sq) * splits
 
 
 # ---------------------------------------------------------------------------
@@ -64,27 +64,35 @@ def blocks(dtype, B, KV, rep, Sq, splits):
 
 
 @pytest.mark.parametrize("window", [None, 1024], ids=["global", "local"])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-def test_decode_at_hymba_serve_shapes_splits_to_fill_the_card(dtype, window):
+def test_decode_at_hymba_serve_shapes_splits_to_fill_the_card(window):
     """B 8, 25 / 5 heads, hd 64, one query at 2048 over a 2081 cache: the
     grid has 40 blocks, the split one at least SMS."""
     B, H, KV, hd, Skv, pos = 8, 25, 5, 64, 2081, 2048
-    splits = kv_splits(dtype, B, KV, H // KV, 1, Skv, hd, True, window, pos)
-    assert blocks(dtype, B, KV, H // KV, 1, 1) == 40
-    assert splits > 1 and blocks(dtype, B, KV, H // KV, 1, splits) >= SMS
+    splits = kv_splits(B, KV, H // KV, 1, Skv, hd, True, window, pos)
+    assert blocks(B, KV, H // KV, 1, 1) == 40
+    assert splits > 1 and blocks(B, KV, H // KV, 1, splits) >= SMS
 
 
 @pytest.mark.parametrize("B,Sq", [(8, 2048), (4, 2048), (2, 512)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-def test_prefill_and_training_grids_take_one_range(dtype, B, Sq):
-    assert blocks(dtype, B, 5, 5, Sq, 1) >= SMS
-    assert kv_splits(dtype, B, 5, 5, Sq, Sq + 33, 64, True, None, 0) == 1
+def test_prefill_and_training_grids_take_one_range(B, Sq):
+    assert blocks(B, 5, 5, Sq, 1) >= SMS
+    assert kv_splits(B, 5, 5, Sq, Sq + 33, 64, True, None, 0) == 1
 
 
 def test_splits_never_exceed_the_key_tiles():
     """A short cache: one tile of keys, so one range however small the grid."""
-    assert kv_splits(torch.bfloat16, 1, 1, 1, 1, 40, 64, True, None, 39) == 1
-    assert kv_splits(torch.bfloat16, 1, 1, 1, 1, 200, 128, True, None, 199) == 7  # 32-key tiles
+    assert kv_splits(1, 1, 1, 1, 40, 64, True, None, 39) == 1
+    assert kv_splits(1, 1, 1, 1, 200, 128, True, None, 199) == 7  # 32-key tiles
+
+
+@pytest.mark.parametrize("rep,Sq,tiles", [(1, 1, 1), (5, 2048, 160), (2, 2048, 64),
+                                          (33, 65, 34), (64, 40, 40), (16, 1, 1), (64, 1, 1)])
+def test_query_tiles_are_64_position_major_rows_whatever_rep(rep, Sq, tiles):
+    """Both kernels' blocks are 64 position-major rows (position * rep +
+    head) of one kv head, at every dtype and head dim: rep 33 and 64 fill
+    them too (the f32 kernel's old blocks held whole positions, at most 32
+    rows at hd 256)."""
+    assert query_tiles(rep, Sq) == tiles
 
 
 @pytest.mark.parametrize("n,splits", [(33, 7), (17, 7), (5, 5), (3, 7), (0, 4), (1, 1)])
@@ -122,7 +130,7 @@ def test_decode_split_matches_one_pass_and_the_reference(Skv, pos, window):
     """hymba's heads; the visible range's last tile is ragged (pos + 1 keys
     is no multiple of 64), and so is the last range."""
     q, k, v = qkv(2, 25, 5, 1, Skv, 64)
-    splits = kv_splits(torch.float32, 2, 5, 5, 1, Skv, 64, True, window, pos)
+    splits = kv_splits(2, 5, 5, 1, Skv, 64, True, window, pos)
     assert splits > 1
     got, lse, want, want_lse = _both_refs(q, k, v, True, window, pos)
     close(got, want)
@@ -167,7 +175,7 @@ def test_a_row_that_sees_no_key_gives_zero_and_minus_infinite_lse():
 @pytest.mark.parametrize("window", [None, 24])
 def test_prefill_takes_one_range_and_matches(window):
     q, k, v = qkv(2, 25, 5, 64, 64, 64)
-    assert kv_splits(torch.float32, 2, 5, 5, 64, 64, 64, True, window, 0) == 1
+    assert kv_splits(2, 5, 5, 64, 64, 64, True, window, 0) == 1
     got, lse, want, want_lse = _both_refs(q, k, v, True, window, 0)
     close(got, want)
     close(lse, want_lse)

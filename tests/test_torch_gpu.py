@@ -500,7 +500,7 @@ def test_flash_attention_split_kv_decode_at_hymba_serve_shapes(cuda_device, dtyp
     key range; the output and lse against the plain one-pass and split
     versions, and two launches give the same bits."""
     B, H, KV, hd, Skv, pos = 8, 25, 5, 64, 2081, 2048
-    assert kv_splits(dtype, B, KV, H // KV, 1, Skv, hd, True, window, pos) > 1
+    assert kv_splits(B, KV, H // KV, 1, Skv, hd, True, window, pos) > 1
     q = _uniform(31, (B, H, 1, hd), cuda_device, dtype)
     k = _uniform(32, (B, KV, Skv, hd), cuda_device, dtype)
     v = _uniform(33, (B, KV, Skv, hd), cuda_device, dtype)
@@ -838,7 +838,7 @@ def test_flash_attention_dense_decoder_shapes_vs_plain(cuda_device, case, dtype)
     assert torch.equal(got, again) and torch.equal(lse, lse2)
     assert got.dtype == dtype and got.shape == q.shape
     if Sq == 1:
-        assert kv_splits(dtype, B, KV, H // KV, Sq, Skv, hd, True, window, pos) > 1
+        assert kv_splits(B, KV, H // KV, Sq, Skv, hd, True, window, pos) > 1
     for plain in (flash_attention_ref, flash_attention_split_ref):
         ref, lse_ref = plain(q, k, v, True, window, pos, return_lse=True)
         assert _rel_err(got, ref) <= FLASH_TOL[dtype], _rel_err(got, ref)
@@ -869,13 +869,28 @@ def test_flash_attention_hd256_per_row_offsets_vs_plain(cuda_device, dtype, sq, 
 
 
 def test_flash_attention_hd256_f32_refuses_more_heads_than_a_block_has_rows(cuda_device):
-    q = torch.zeros(1, 33, 4, 256, device=cuda_device)
-    k = torch.zeros(1, 1, 4, 256, device=cuda_device)
-    with pytest.raises(ValueError, match="at most 32"):
-        ops.flash_attention(q, k, k)
-    got = ops.flash_attention(q.bfloat16(), k.bfloat16(), k.bfloat16())  # bf16 takes it
-    torch.cuda.synchronize()
-    assert not got.float().abs().any()
+    """A block has 64 rows: f32 now takes 33 query heads per kv head at head
+    dim 256 (the old scalar kernel refused them) and matches the plain
+    version both ways; 65 are refused, forward and backward, in f32 and
+    bf16, with the limit in the message."""
+    dtype = torch.float32
+    q = _uniform(65, (1, 33, 40, 256), cuda_device, dtype)
+    k = _uniform(66, (1, 1, 40, 256), cuda_device, dtype)
+    v = _uniform(67, (1, 1, 40, 256), cuda_device, dtype)
+    do = _uniform(68, (1, 33, 40, 256), cuda_device, dtype)
+    out, lse = ops.flash_attention(q, k, v, return_lse=True)
+    assert _rel_err(out, flash_attention_ref(q, k, v)) <= FLASH_TOL[dtype]
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do)
+    for g, r in zip(got, flash_attention_bwd_ref(q, k, v, out, lse, do)):
+        assert _rel_err(g, r) <= FLASH_TOL[dtype], _rel_err(g, r)
+    for dt in (torch.float32, torch.bfloat16):
+        q65 = torch.zeros(1, 65, 4, 256, device=cuda_device, dtype=dt)
+        kv = torch.zeros(1, 1, 4, 256, device=cuda_device, dtype=dt)
+        with pytest.raises(ValueError, match="at most 64 at head dim 256"):
+            ops.flash_attention(q65, kv, kv)
+        with pytest.raises(ValueError, match="at most 64 at head dim 256"):
+            ops.flash_attention_bwd(q65, kv, kv, q65, torch.zeros(1, 65, 4, device=cuda_device),
+                                    q65)
 
 
 BWD_HD256_CASES = [  # B, H, KV, Sq, Skv, causal, window, q_offset at head dim 256
@@ -953,7 +968,7 @@ def test_flash_attention_non_causal_whisper_shapes_vs_plain(cuda_device, case, d
     torch.cuda.synchronize()
     assert launches["flash_attention"] == 2 and torch.equal(got, again)
     if Sq == 1:
-        assert kv_splits(dtype, B, H, 1, Sq, Skv, 64, False, None, 0) > 1
+        assert kv_splits(B, H, 1, Sq, Skv, 64, False, None, 0) > 1
     for plain in (flash_attention_ref, flash_attention_split_ref):
         ref, lse_ref = plain(q, k, v, False, None, 0, return_lse=True)
         assert _rel_err(got, ref) <= FLASH_TOL[dtype], _rel_err(got, ref)
@@ -1208,3 +1223,142 @@ def test_host_mesh_on_the_card(cuda_world):
 
     mesh = make_host_mesh(device_type="cuda")
     assert mesh.device_type == "cuda" and mesh_axis_sizes(mesh) == {"data": 1, "model": 1}
+
+
+# ---------------------------------------------------------------------------
+# the redesigned f32 kernels: register micro-tiles of IEEE FMA, 64
+# position-major rows a block, up to 64 query heads per kv head
+# ---------------------------------------------------------------------------
+
+F32_CASES = [  # B, H, KV, Sq, Skv, hd, causal, window, q_offset
+    (2, 4, 4, 77, 77, 16, True, None, 0),        # rep 1, ragged
+    (1, 64, 1, 33, 47, 16, True, None, 14),      # rep 64 at hd 16, an offset
+    (1, 8, 4, 100, 130, 32, True, 40, 30),       # rep 2, a window and an offset
+    (1, 10, 5, 200, 250, 32, False, None, 0),    # rep 2, no mask, ragged
+    (2, 25, 5, 333, 333, 64, True, None, 0),     # rep 5 (hymba), ragged
+    (1, 25, 5, 300, 300, 64, True, 100, 0),      # ... a local layer
+    (2, 12, 12, 150, 150, 64, False, None, 0),   # rep 1, no mask (whisper)
+    (1, 64, 1, 50, 50, 64, True, 16, 0),         # rep 64, a window
+    (1, 32, 2, 70, 120, 128, True, None, 50),    # rep 16 at hd 128, an offset
+    (1, 66, 2, 30, 90, 128, True, None, 60),     # rep 33 at hd 128
+    (1, 8, 4, 300, 333, 256, True, 100, 33),     # rep 2 at hd 256 (gemma3-4b), a window
+    (1, 33, 1, 65, 65, 256, True, None, 0),      # rep 33 at hd 256
+    (1, 64, 1, 40, 72, 256, False, None, 0),     # rep 64 at hd 256, no mask
+    (4, 16, 16, 600, 600, 64, True, None, 0),    # grids that fill the card: dK/dV
+    (2, 8, 4, 700, 700, 256, True, None, 0),     # blocks take no query split
+]
+
+
+@pytest.mark.parametrize("case", F32_CASES, ids=str)
+def test_flash_attention_f32_micro_tile_kernels_vs_plain(cuda_device, case):
+    """Forward (output and lse) and backward against the plain versions at
+    FLASH_TOL; two launches of each give the same bits.  Small grids split
+    each dK/dV block's query rows (``dkv_splits`` > 1), the last two cases
+    do not."""
+    B, H, KV, Sq, Skv, hd, causal, window, q_offset = case
+    dtype = torch.float32
+    q = _uniform(71, (B, H, Sq, hd), cuda_device, dtype)
+    k = _uniform(72, (B, KV, Skv, hd), cuda_device, dtype)
+    v = _uniform(73, (B, KV, Skv, hd), cuda_device, dtype)
+    do = _uniform(74, (B, H, Sq, hd), cuda_device, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    reset_launches()
+    out, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    out2, lse2 = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    got = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = ops.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == 2 and launches["flash_attention_bwd"] == 2
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref, lse_ref = flash_attention_ref(q, k, v, causal, window, q_offset, return_lse=True)
+    assert _rel_err(out, ref) <= FLASH_TOL[dtype], _rel_err(out, ref)
+    finite = torch.isfinite(lse_ref)
+    assert torch.equal(finite, torch.isfinite(lse))
+    assert (lse - lse_ref)[finite].abs().max().item() <= 1e-5 * lse_ref[finite].abs().max()
+    for g, a, r in zip(got, again, flash_attention_bwd_ref(q, k, v, out, lse, do, causal,
+                                                           window, q_offset)):
+        assert torch.equal(g, a) and g.shape == r.shape
+        assert _rel_err(g, r) <= FLASH_TOL[dtype], _rel_err(g, r)
+
+
+@pytest.mark.parametrize("case", [
+    (3, 66, 2, 2065, 256, None, 2048),   # rep 33 at hd 256
+    (4, 25, 5, 2081, 64, 1024, 2048),    # hymba's local layer
+    (2, 64, 4, 1500, 128, None, 1400),   # rep 16 at hd 128
+    (2, 64, 1, 500, 32, None, 499),      # rep 64 at hd 32
+], ids=str)
+def test_flash_attention_f32_split_kv_decode_with_lse(cuda_device, case):
+    """One query over a long cache: more than one key range; output and lse
+    against the plain one-pass and split versions, bitwise on repeat."""
+    B, H, KV, Skv, hd, window, pos = case
+    dtype = torch.float32
+    assert kv_splits(B, KV, H // KV, 1, Skv, hd, True, window, pos) > 1
+    q = _uniform(75, (B, H, 1, hd), cuda_device, dtype)
+    k = _uniform(76, (B, KV, Skv, hd), cuda_device, dtype)
+    v = _uniform(77, (B, KV, Skv, hd), cuda_device, dtype)
+    kw = dict(causal=True, window=window, q_offset=pos)
+    got, lse = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    again, lse2 = ops.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    for plain in (flash_attention_ref, flash_attention_split_ref):
+        ref, lse_ref = plain(q, k, v, True, window, pos, return_lse=True)
+        assert _rel_err(got, ref) <= FLASH_TOL[dtype]
+        assert (lse - lse_ref).abs().max().item() <= 1e-5 * lse_ref.abs().max().item()
+
+
+@pytest.mark.parametrize("window", [None, 64], ids=["global", "local"])
+@pytest.mark.parametrize("sq", [1, 37], ids=["decode", "prefill"])
+def test_flash_attention_f32_per_row_offsets_at_rep_64(cuda_device, sq, window):
+    """Continuous batching's per-row offsets with 64 query heads over one kv
+    head at hd 128: against the plain one-pass and split versions."""
+    B, H, KV, hd, Skv, offsets = 4, 64, 1, 128, 600, (0, 90, 311, 560)
+    q = _uniform(78, (B, H, sq, hd), cuda_device, torch.float32)
+    k = _uniform(79, (B, KV, Skv, hd), cuda_device, torch.float32)
+    v = _uniform(80, (B, KV, Skv, hd), cuda_device, torch.float32)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda_device)
+    kw = dict(causal=True, window=window, q_offset=off)
+    got, lse = ops.flash_attention(q, k, v, max_offset=max(offsets), return_lse=True, **kw)
+    again = ops.flash_attention(q, k, v, max_offset=max(offsets), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    for plain in (flash_attention_ref, flash_attention_split_ref):
+        ref, lse_ref = plain(q, k, v, return_lse=True, **kw)
+        assert _rel_err(got, ref) <= FLASH_TOL[torch.float32]
+        finite = torch.isfinite(lse_ref)
+        assert torch.equal(finite, torch.isfinite(lse))
+        assert (lse - lse_ref)[finite].abs().max().item() <= \
+            1e-5 * lse_ref[finite].abs().max().item()
+
+
+@pytest.mark.parametrize("hd", [64, 256])
+def test_flash_attention_f32_reads_model_layout_and_misaligned_views(cuda_device, hd):
+    """Transposed views of (B, S, H, hd) activations are read in place both
+    ways (through the autograd Function), and a q 4 bytes past an aligned
+    base is copied aligned; all against the plain versions."""
+    B, S, H, KV = 2, 90, 16, 4
+    qm = _uniform(81, (B, S, H, hd), cuda_device, torch.float32).requires_grad_()
+    km = _uniform(82, (B, S, KV, hd), cuda_device, torch.float32).requires_grad_()
+    vm = _uniform(83, (B, S, KV, hd), cuda_device, torch.float32).requires_grad_()
+    w = _uniform(84, (B, H, S, hd), cuda_device, torch.float32)
+    reset_launches()
+    out = ops.flash_attention(qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2),
+                              window=40, q_offset=5)
+    got = torch.autograd.grad((out * w).sum(), (qm, km, vm))
+    torch.cuda.synchronize()
+    assert launches["flash_attention"] == launches["flash_attention_bwd"] == 1
+    ref = flash_attention_ref(qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2),
+                              True, 40, 5)
+    want = torch.autograd.grad((ref * w).sum(), (qm, km, vm))
+    assert _rel_err(out, ref) <= FLASH_TOL[torch.float32]
+    for g, r in zip(got, want):
+        assert _rel_err(g, r) <= FLASH_TOL[torch.float32], _rel_err(g, r)
+    buf = _uniform(85, (B * H * S * hd + 1,), cuda_device, torch.float32)
+    q = buf[1:].view(B, H, S, hd)
+    k, v = km.detach().transpose(1, 2), vm.detach().transpose(1, 2)
+    do = w
+    o, lse = ops.flash_attention(q, k, v, return_lse=True)
+    assert _rel_err(o, flash_attention_ref(q, k, v)) <= FLASH_TOL[torch.float32]
+    for g, r in zip(ops.flash_attention_bwd(q, k, v, o, lse, do),
+                    flash_attention_bwd_ref(q, k, v, o, lse, do)):
+        assert _rel_err(g, r) <= FLASH_TOL[torch.float32], _rel_err(g, r)
