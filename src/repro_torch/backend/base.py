@@ -77,6 +77,10 @@ class BlockBackend:
         # flight recorder (core.trace): when set, compiled backends record
         # compile-cache hits/misses and fallbacks at dispatch time
         self.tracer = None
+        # profiler spans (core.trace): set by the executor's and scheduler's
+        # spans while a profiler records; compiled backends then open one
+        # span per block op
+        self.spans = False
 
     # -- storage ------------------------------------------------------------
     def from_host(self, arr: np.ndarray, placement: Tuple[int, int]):

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph_array import apply_chain
+from repro_torch.core.trace import BACKEND_SPANS, COMPILE_SPANS, NO_SPAN, span
 
 from .base import BlockBackend
 from .compile_cache import GLOBAL_COMPILE_CACHE, CompileCache, structural_key
@@ -124,7 +125,16 @@ class TorchBackend(BlockBackend):
                   inputs: Sequence[Any], placement: Tuple[int, int],
                   build: Callable[[str, Dict[str, Any]], Optional[Callable]]):
         """The one memoized dispatch protocol (shared with subclasses that
-        contribute their own callables under a different ``salt``)."""
+        contribute their own callables under a different ``salt``): one span
+        per op while ``spans`` is set."""
+        if self.spans:
+            with span(BACKEND_SPANS[op]):
+                return self._dispatch_op(salt, op, meta, inputs, placement, build)
+        return self._dispatch_op(salt, op, meta, inputs, placement, build)
+
+    def _dispatch_op(self, salt: str, op: str, meta: Dict[str, Any],
+                     inputs: Sequence[Any], placement: Tuple[int, int],
+                     build: Callable[[str, Dict[str, Any]], Optional[Callable]]):
         self.stats.dispatches += 1
         inputs = self._colocate(inputs, placement)
         key = structural_key(salt, op, meta, self._signature(inputs))
@@ -138,13 +148,14 @@ class TorchBackend(BlockBackend):
                     tr.dropped += 1
                 ev.append(("compile_hit", op, placement, perf_counter()))
             return fn(*inputs)
-        fn = build(op, meta)
-        if fn is None:
-            raise KeyError(f"unknown block op {op!r}")
-        t0 = perf_counter()
-        self.stats.jit_calls += 1
-        out = fn(*inputs)
-        self.wait(out)  # charge build + first run to compile_s
+        with span(COMPILE_SPANS[op]) if self.spans else NO_SPAN:
+            fn = build(op, meta)
+            if fn is None:
+                raise KeyError(f"unknown block op {op!r}")
+            t0 = perf_counter()
+            self.stats.jit_calls += 1
+            out = fn(*inputs)
+            self.wait(out)  # charge build + first run to compile_s
         self._cache.put(key, fn, compile_seconds=perf_counter() - t0)
         if tr is not None:
             tr.record("compile_miss", op, placement[0], placement[1],

@@ -38,6 +38,20 @@ from .plan import (
     structure_counts,
 )
 from .schedulers import SchedulerBase, make_scheduler
+from .trace import (
+    COLLECTOR,
+    NO_SPAN,
+    SCHED_FINGERPRINT,
+    SCHED_LSHS,
+    SCHED_REPLAY,
+    LayerSpan,
+    profiling,
+    span,
+)
+
+#: ``loads()`` keys of the port that the reference has not: host seconds
+#: inside the backend's ``execute`` and inside Python's cyclic collector
+PORT_LOADS = ("execute_s", "pycollect_s")
 
 
 class ArrayContext:
@@ -176,6 +190,8 @@ class ArrayContext:
 
         self.metrics = MetricsRegistry()
         self._register_metrics()
+        COLLECTOR.install()
+        self._pycollect0 = COLLECTOR.seconds
 
     def _install_tracer(self, rec) -> None:
         self.tracer = rec
@@ -209,6 +225,8 @@ class ArrayContext:
                 "sched_overhead_s": st.scheduling_overhead_s,
                 "dispatch_s": st.dispatch_s,
                 "drain_s": st.drain_s,
+                "execute_s": self.executor.stats.execute_s,
+                "pycollect_s": COLLECTOR.seconds - self._pycollect0,
                 "reshards": st.reshards,
                 "reshard_moved": st.reshard_moved_elements,
             }
@@ -332,14 +350,17 @@ class ArrayContext:
         # (structure, load state), so on structurally repeating loops a cold
         # re-schedule repeats the recorded plan's decisions exactly (see
         # plan.py).  With the cache off, only the count-based summary is
-        # needed — the full token stream is skipped.
+        # needed — the full token stream is skipped.  While a profiler
+        # records, each phase below is a span (core/trace.py).
+        spans = profiling()
         t0 = perf_counter()
-        if self.plan_cache is not None:
-            fp = fingerprint(roots, forced, self.state, self._config_sig)
-            rng_key = fp.rng_key
-        else:
-            fp = None
-            rng_key = structure_counts(roots)
+        with span(SCHED_FINGERPRINT) if spans else NO_SPAN:
+            if self.plan_cache is not None:
+                fp = fingerprint(roots, forced, self.state, self._config_sig)
+                rng_key = fp.rng_key
+            else:
+                fp = None
+                rng_key = structure_counts(roots)
         stats.fingerprint_s += perf_counter() - t0
         rng = random.Random(rng_key ^ (self._seed * 2654435761))
         self.state.begin_schedule((rng_key >> 7) % self.cluster.workers_per_node)
@@ -347,7 +368,8 @@ class ArrayContext:
             cached = self.plan_cache.get(fp.key)
             if cached is not None:
                 t1 = perf_counter()
-                replay_plan(cached, fp.verts, self.state, self.executor, stats=stats)
+                with LayerSpan(SCHED_REPLAY, self.executor.backend) if spans else NO_SPAN:
+                    replay_plan(cached, fp.verts, self.state, self.executor, stats=stats)
                 stats.replay_s += perf_counter() - t1
                 stats.plan_hits += 1
                 if self.tracer is not None:
@@ -361,8 +383,9 @@ class ArrayContext:
         for root in roots:
             self._annotate_dest(root, forced[root.vid][0])
         t1 = perf_counter()
-        self.scheduler.schedule(roots, forced, self.state, self.executor, rng,
-                                recorder=recorder, stats=stats)
+        with LayerSpan(SCHED_LSHS, self.executor.backend) if spans else NO_SPAN:
+            self.scheduler.schedule(roots, forced, self.state, self.executor, rng,
+                                    recorder=recorder, stats=stats)
         stats.sched_cold_s += perf_counter() - t1
         if recorder is not None:
             self.plan_cache.put(fp.key, recorder.plan())
@@ -569,6 +592,7 @@ class ArrayContext:
             self.executor.backend.stats.reset()
         self.executor.memory.stats.reset()
         self.sched_stats.reset()
+        self._pycollect0 = COLLECTOR.seconds
         if self.tracer is not None:
             self.tracer.clear()
 

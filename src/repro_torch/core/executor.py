@@ -52,6 +52,7 @@ import numpy as np
 
 from .graph_array import GraphArray, infer_shape
 from .memory import MemoryManager
+from .trace import EXEC_DRAIN, LayerSpan, profiling
 
 _MODES = ("numpy", "sim", "torch", "cuda")
 
@@ -91,6 +92,8 @@ class ExecStats:
     peak_queue: int = 0     # max total ops pending at once
     dispatch_s: float = 0.0  # wall time inside run_op — the γ term in seconds
     drain_s: float = 0.0    # wall time inside flush() — pipelined queue drain
+    execute_s: float = 0.0  # wall time inside backend.execute() — drain_s less
+    #                         execute_s is the executor's own bookkeeping
 
     def reset(self) -> None:
         self.n_rfc = 0
@@ -101,6 +104,7 @@ class ExecStats:
         self.peak_queue = 0
         self.dispatch_s = 0.0
         self.drain_s = 0.0
+        self.execute_s = 0.0
 
 
 class Executor:
@@ -331,17 +335,18 @@ class Executor:
         # operands flow to the backend in their resident representation
         # (numpy arrays / torch device tensors) — no host round-trip here
         ins = [self.get(i) for i in in_ids]
+        w0 = perf_counter()
+        out = self.backend.execute(op, meta, ins, placement)
+        w1 = perf_counter()
+        self.stats.execute_s += w1 - w0
         if tr is not None:
             # measured wall time per op: the calibration/drift signal.
             # profile_sync blocks async backends so the window covers the
             # kernel, not just its dispatch.
-            w0 = perf_counter()
-            out = self.backend.execute(op, meta, ins, placement)
             if self.profile_sync:
                 self.backend.wait(out)
-            wall_s = perf_counter() - w0
-        else:
-            out = self.backend.execute(op, meta, ins, placement)
+                w1 = perf_counter()
+            wall_s = w1 - w0
         self.stats.elements_computed += out_elements
         self.store[out_id] = out
         self.memory.on_materialize(out_id, placement[0], out_elements)
@@ -392,12 +397,18 @@ class Executor:
         Wall time spent draining accumulates in ``stats.drain_s`` — kept
         separate from ``dispatch_s`` (enqueue-side ``run_op`` overhead) so
         the scheduler-vs-dispatch overhead split in ``bench_overhead``
-        accounts pipelined queue time instead of under-reporting it."""
+        accounts pipelined queue time instead of under-reporting it.
+
+        While a profiler records, the outermost drain is the span
+        ``repro_torch.exec.drain`` and the backend opens one per op."""
         if not self._pending_ids:
             return 0
         t_drain = perf_counter()
         self._flush_depth += 1
         try:
+            if self._flush_depth == 1 and profiling():
+                with LayerSpan(EXEC_DRAIN, self.backend):
+                    return self._flush_inner()
             return self._flush_inner()
         finally:
             self._flush_depth -= 1

@@ -68,11 +68,38 @@ Summarize from the shell with::
 
 which prints the critical path and the makespan decomposition
 (compute / transfer / queue-stall / retry / eviction-stall per node).
+
+Spans on the profiler's timeline
+--------------------------------
+Beside the recorder, and independent of it, the runtime opens ranges on
+``torch.profiler``'s own timeline while a profiler session records (and
+only then), so that a device trace's idle gaps name the layer the host was
+in.  The layers read :func:`profiling` once on entry (``ArrayContext.compute``,
+``Executor.flush``); the backend learns the answer through its ``spans``
+flag, so an op pays one branch:
+
+=====================================  =====================================
+span                                   opened around
+=====================================  =====================================
+``repro_torch.sched.fingerprint``      the plan-cache fingerprint (``compute``)
+``repro_torch.sched.replay``           a cached plan's replay
+``repro_torch.sched.lshs``             a cold schedule (``scheduler.schedule``)
+``repro_torch.exec.drain``             the outermost ``Executor.flush``
+``repro_torch.backend.<op>``           one block op (``TorchBackend._dispatch``)
+``repro_torch.backend.compile.<op>``   a compile-cache miss: build, first run
+``repro_torch.pycollect.gen<N>``       one pass of Python's cyclic collector
+=====================================  =====================================
+
+The collector's seconds are also summed, always, into ``COLLECTOR.seconds``
+(``pycollect_s`` in ``ArrayContext.loads()``).
 """
 from __future__ import annotations
 
+import gc
 import math
+import sys
 from collections import deque
+from contextlib import nullcontext
 from time import perf_counter
 from typing import Any, Dict, Iterable, List, Optional
 
@@ -265,3 +292,119 @@ def _gc_free_event(raw, epoch: float) -> TraceEvent:
 #: (kind, tuple length) -> decoder; ``record`` always appends 8 values
 _COMPACT = {("dispatch", 4): _dispatch_event, ("retire", 9): _retire_event,
             ("compile_hit", 4): _compile_hit_event, ("gc_free", 5): _gc_free_event}
+
+
+# -- spans on the profiler's timeline ------------------------------------------
+
+SCHED_FINGERPRINT = "repro_torch.sched.fingerprint"
+SCHED_REPLAY = "repro_torch.sched.replay"
+SCHED_LSHS = "repro_torch.sched.lshs"
+EXEC_DRAIN = "repro_torch.exec.drain"
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` session is recording (none can be where
+    torch was never imported)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
+_RANGE = None
+
+
+def _range_type():
+    """The cheapest range the installed torch offers: ``_RecordFunctionFast``
+    (about 0.5 us a range with no profiler, ``record_function`` about 15)."""
+    global _RANGE
+    if _RANGE is None:
+        try:
+            from torch._C._profiler import _RecordFunctionFast as rng
+        except ImportError:  # an older torch
+            from torch.profiler import record_function as rng
+        _RANGE = rng
+    return _RANGE
+
+
+def span(name: str):
+    """A context manager that records the range ``name`` on the profiler's
+    timeline (a host event; nothing on the device's)."""
+    return _range_type()(name)
+
+
+#: what a layer enters in place of a span while no profiler records
+NO_SPAN = nullcontext()
+
+
+class LayerSpan:
+    """The span ``name``, during which ``backend`` (when given) opens a span
+    per block op as well."""
+
+    __slots__ = ("_range", "_backend", "_was")
+
+    def __init__(self, name: str, backend=None):
+        self._range = span(name)
+        self._backend = backend
+        self._was = False
+
+    def __enter__(self):
+        self._range.__enter__()
+        be = self._backend
+        if be is not None:
+            self._was, be.spans = be.spans, True
+        return None
+
+    def __exit__(self, *exc):
+        if self._backend is not None:
+            self._backend.spans = self._was
+        return self._range.__exit__(*exc)
+
+
+class _SpanNames(dict):
+    """``prefix + key``, built once per key (so no hot path builds a string)."""
+
+    def __init__(self, prefix: str):
+        super().__init__()
+        self.prefix = prefix
+
+    def __missing__(self, key) -> str:
+        name = self[key] = f"{self.prefix}{key}"
+        return name
+
+
+BACKEND_SPANS = _SpanNames("repro_torch.backend.")
+COMPILE_SPANS = _SpanNames("repro_torch.backend.compile.")
+PYCOLLECT_SPANS = _SpanNames("repro_torch.pycollect.gen")
+
+
+class CollectorClock:
+    """A ``gc.callbacks`` hook: sums the seconds Python's cyclic collector
+    runs, and opens a ``repro_torch.pycollect.gen<N>`` span over each pass
+    while a profiler records.  One per process (:data:`COLLECTOR`), so a pass
+    counts once however many contexts are alive."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._t0 = None
+        self._range = None
+
+    def __call__(self, phase: str, info) -> None:
+        if phase == "start":
+            if profiling():
+                self._range = span(PYCOLLECT_SPANS[info["generation"]])
+                self._range.__enter__()
+            self._t0 = perf_counter()
+            return
+        if self._t0 is not None:
+            self.seconds += perf_counter() - self._t0
+            self._t0 = None
+        if self._range is not None:
+            rng, self._range = self._range, None
+            rng.__exit__(None, None, None)
+
+    def install(self) -> None:
+        """Add the hook to ``gc.callbacks`` unless it is there already."""
+        if not any(cb is self for cb in gc.callbacks):
+            gc.callbacks.append(self)
+
+
+COLLECTOR = CollectorClock()

@@ -23,6 +23,7 @@ from repro_torch.backend import (
 )
 from repro_torch.backend.torch_backend import TorchBackend
 from repro_torch.core import ArrayContext, ClusterSpec
+from repro_torch.core.context import PORT_LOADS
 from repro_torch.core.executor import Executor
 
 CPU = ["cpu"]
@@ -275,7 +276,8 @@ def test_compile_counters_surface_in_loads():
 
 def test_loads_key_schema_matches_reference():
     """``ctx.loads()`` of the port's torch/cuda contexts carries exactly the
-    reference jax context's keys, in the same order."""
+    reference jax context's keys, in the same order, once the port's own
+    ``PORT_LOADS`` (present) are taken out."""
     ref = RefContext(cluster=RefClusterSpec(2, 2), node_grid=(2, 1),
                      backend="jax", seed=0)
     A = ref.random((16, 16), grid=(2, 2))
@@ -285,7 +287,9 @@ def test_loads_key_schema_matches_reference():
         ctx = _ctx(backend, dtype=None)
         B = ctx.random((16, 16), grid=(2, 2))
         (B @ B + 1.0).compute()
-        assert list(ctx.loads()) == want
+        keys = list(ctx.loads())
+        assert set(PORT_LOADS) <= set(keys)
+        assert [k for k in keys if k not in PORT_LOADS] == want
 
 
 def test_global_cache_shared_across_contexts():

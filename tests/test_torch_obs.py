@@ -19,6 +19,7 @@ import repro.obs as RO
 import repro_torch.core as P
 import repro_torch.obs as PO
 from repro.launch.workloads import logreg_newton_loop as r_newton_loop
+from repro_torch.core.context import PORT_LOADS
 from repro_torch.launch.workloads import logreg_newton_loop as p_newton_loop
 
 BACKENDS = ["numpy", "torch", "cuda"]
@@ -199,7 +200,9 @@ def test_drift_report_pairs_every_timed_op(backend):
 @pytest.mark.parametrize("feature", ["base", "budget", "chaos"])
 def test_loads_schema_equals_reference(backend, feature):
     """``ctx.loads()``'s key sequence per feature set is the reference's
-    (the golden lists in ``tests/test_obs.py``), chaos keys included."""
+    (the golden lists in ``tests/test_obs.py``), chaos keys included, once
+    the port's own keys are taken out: the backend's compile cache and
+    ``PORT_LOADS`` (execute and collector seconds), each present."""
     def run(pkg, be):
         kw = {"mem_capacity": 1e5} if feature == "budget" else {}
         ctx = make_ctx(pkg, be, **kw)
@@ -212,6 +215,8 @@ def test_loads_schema_equals_reference(backend, feature):
 
     ctx, ref = run(P, backend), run(R, "numpy")
     keys = list(ctx.loads())
+    assert set(PORT_LOADS) <= set(keys)
+    keys = [k for k in keys if k not in PORT_LOADS]
     if backend != "numpy":
         # the torch backends' callable cache, as the reference's jax backend
         # reports its compile cache

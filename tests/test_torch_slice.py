@@ -25,12 +25,14 @@ import repro.launch.workloads as ref_workloads
 import repro_torch.core as P
 import repro_torch.glm as port_glm
 import repro_torch.launch.workloads as port_workloads
+from repro_torch.core.context import PORT_LOADS
 from repro_torch.interop import carry_arrays
 from repro_torch.kernels import launches, reset_launches
 
 RTOL = 1e-6
-#: wall-clock keys of ``ctx.loads()``: the only ones allowed to differ
-WALL_KEYS = {"sched_overhead_s", "dispatch_s", "drain_s"}
+#: wall-clock keys of ``ctx.loads()``: the only ones allowed to differ (the
+#: port's own ``PORT_LOADS`` are wall-clock seconds the reference has not)
+WALL_KEYS = {"sched_overhead_s", "dispatch_s", "drain_s", *PORT_LOADS}
 
 
 def _ref_ctx(backend="numpy", k=4, r=2, ng=(2, 2), **kw):
