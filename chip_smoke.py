@@ -179,7 +179,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_ref, kv_splits,
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.glm_fused import glm_fused_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref  # noqa: E402
-from repro_torch.kernels.matmul import loaders, matmul_ref  # noqa: E402
+from repro_torch.kernels.matmul import loaders, matmul_ref, tiles  # noqa: E402
 from repro_torch.launch import chaos as chaos_driver  # noqa: E402
 from repro_torch.launch.chaos import _newton_iteration  # noqa: E402
 from repro_torch.launch.serve import serve_demo  # noqa: E402
@@ -545,6 +545,7 @@ def matmul_case(name, a, b):
     reset_launches()
     got = ops.matmul(a, b)
     loader = next((k for k, n in loaders.items() if n), "none")  # the launch's loader
+    block_tile = next((k for k, n in tiles.items() if n), None)  # f64 wide: its block tile
     again = ops.matmul(a, b)
     ref = matmul_ref(a, b)
     sync()
@@ -556,7 +557,8 @@ def matmul_case(name, a, b):
     bound_ms, bound_by = bound(2.0 * M * N * K,
                                (M * K + K * N + M * N) * a.element_size(), dtype)
     case = dict(case=name, dtype=str(dtype).replace("torch.", ""), shape=[M, K, N],
-                loader=loader, max_abs_err=err, rel_err=rel, tol=MATMUL_TOL[dtype],
+                loader=loader, tile=block_tile, max_abs_err=err, rel_err=rel,
+                tol=MATMUL_TOL[dtype],
                 ms=time_ms(lambda: ops.matmul(a, b)),
                 plain_ms=time_ms(lambda: matmul_ref(a, b)),
                 library_ms=time_ms(lambda: torch.matmul(a, b)),
@@ -601,6 +603,11 @@ def kernel_phase(dev):
     sq = [torch.randn(4096, 4096, device=dev, generator=g) for _ in range(2)]
     matmul_cases.append(matmul_case("square bf16", sq[0].bfloat16(), sq[1].bfloat16()))
     matmul_cases.append(matmul_case("DGEMM tile f32", sq[0], sq[1]))
+    sq = [x.double() for x in sq]
+    # the DGEMM cells' tiles (16384^2 on 4 x 4 and 16 x 16 grids)
+    matmul_cases.append(matmul_case("DGEMM tile f64 4096^3", sq[0], sq[1]))
+    sq = [x[:1024, :1024].contiguous() for x in sq]
+    matmul_cases.append(matmul_case("DGEMM tile f64 1024^3", sq[0], sq[1]))
     del sq
     scalar = [c["case"] for c in matmul_cases if c["dtype"] != "bfloat16"
               and c["loader"] != "vector"]

@@ -12,8 +12,8 @@
 // one-block-per-output-tile kernel would occupy a few of 132 SMs.  X^T (w*X)
 // is bound by operations (f64: 17 GFLOP a block product, 0.26 ms at the
 // FP64 tensor cores' 67 TFLOP/s); X @ beta and X^T (mu-y) (N = 1) are bound
-// by the bytes of X (268 MB, 0.08 ms); a 4096^3 f32 DGEMM tile by FP32
-// operations (2.05 ms).
+// by the bytes of X (268 MB, 0.08 ms); a DGEMM tile of 4096^3 by operations
+// (2.05 ms in f64 on the tensor cores, 2.05 ms in f32 on the FMA units).
 //
 // What the design does about it.
 //  * Split-K: blockIdx.z walks a slice of K, so tiles x slices fill the card.
@@ -23,14 +23,34 @@
 //    every run (the runtime's pipelined==sync and plan-cache on==off
 //    contracts rely on that).
 //  * f64, wide outputs (N > 8): dmma_kernel runs the FP64 tensor cores
-//    (mma.sync m16n8k8 f64, DMMA) on 128x64 block tiles over four warps of
-//    64x32, 16 deep, in a ring of four stages.  f32, wide: sgemm_kernel,
-//    IEEE fmaf on 128x128 block tiles, 8x8 outputs a thread, operands read
-//    from shared memory as float4, three stages.  Both fill their rings by
-//    16-byte cp.async copies a few k steps ahead of the one computed, each
-//    tile kept in shared memory along its operand's unit-stride axis (so
-//    global reads stay coalesced in either orientation), rows padded so
-//    that the fragment reads hit distinct banks.
+//    (mma.sync m16n8k8 f64, DMMA; Hopper's wgmma has no f64 form).  Its warps
+//    each own 64x32 of the output (64 f64 accumulators a thread, the most
+//    the registers hold beside the fragments).  The first version (128x64
+//    block tiles, fragments read element by element from padded rows) ran a
+//    4096^3 tile at 36% of the bound; the same loop with the copies from
+//    global memory left out ran at 78%.  Each thread's share of a step's
+//    16-byte copies had been a loop whose trip count was known only at run
+//    time, recomputing 64-bit addresses and bounds for every chunk: some 200
+//    instructions a thread a step, against 32 DMMAs a warp, issued between
+//    the barrier and the first DMMA.  Now a thread copies the same chunk of
+//    every RS-th row (load_tile), so the copy loop unrolls and its pointer
+//    steps by a constant (64% of the bound at 4096^3).  Fragments are read
+//    as double2: k is permuted inside each k8 step, the same way for A and
+//    B, so that a lane's two k (or, where a tile is stored along m or n, its
+//    two rows or columns) are neighbours, and the tiles are dense with their
+//    16-byte chunks swizzled (Swizzled) so that those reads and the copies
+//    hit distinct banks.  Two block tiles, picked by the wrapper from the
+//    shape and orientation: 128x64 over four warps, 16 deep, a ring of four
+//    stages, two blocks an SM (DTileNarrow); 128x128 over eight warps, 32
+//    deep, three stages, one block an SM (DTileWide), which stages two
+//    thirds of the bytes a flop and took the products whose A is read along
+//    m (Newton's X^T (w*X)) 5-11% faster on an H100.
+//  * f32, wide: sgemm_kernel, IEEE fmaf on 128x128 block tiles, 8x8 outputs
+//    a thread, operands read from shared memory as float4 out of padded rows,
+//    three stages.  Both kernels fill their rings by 16-byte cp.async copies
+//    a few k steps ahead of the one computed, each tile kept in shared memory
+//    along its operand's unit-stride axis (so global reads stay coalesced in
+//    either orientation).
 //  * f64 and f32, skinny outputs (N <= 8, matrix-vector products): bound by
 //    the bytes of A, so skinny_*_kernel streams A with 16-byte loads along
 //    its unit-stride axis (skinny_mfast_kernel for X^T r read as the view
@@ -101,95 +121,98 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One operand tile into shared memory, stored dst[slow][fast] with rows of
-// LD elements, "fast" being the operand's unit-stride axis.  Tile element
-// (s, f) is the operand's element (s0 + s, f0 + f), at base + (s0 + s) *
-// s_stride + (f0 + f) * f_stride, and is zero unless s0 + s < s_end and
-// f0 + f < f_end.  VEC: 16-byte copies along the fast axis (f_stride is 1,
-// base, s_stride and f0 are 16-byte aligned); otherwise one copy an element.
-template <typename T, int SLOW, int FAST, int LD, int NTHREADS, bool VEC>
+// Where tile element (s, f) sits in shared memory, in elements.  Padded: rows
+// of LD elements.  Swizzled (f64 only): dense rows of FAST elements in 16-byte
+// chunks of two, whose order within a row is permuted (the chunk index XOR a
+// function of the row) so that dmma_kernel's double2 fragment reads hit
+// distinct banks: rows of k (a tile stored along m or n) XOR 2 * ((s / 2) % 4),
+// rows of m or n (stored along k) XOR 4 * (s % 2).  A chunk stays inside its
+// aligned run of eight, so a warp's 16-byte copies into a row stay
+// conflict-free too.
+template <int LD>
+struct Padded {
+  __device__ __forceinline__ static int at(int s, int f) { return s * LD + f; }
+};
+template <int FAST, bool ROWS_OF_K>
+struct Swizzled {
+  static_assert(FAST >= 16, "a row holds at least eight 16-byte chunks");
+  __device__ __forceinline__ static int at(int s, int f) {
+    const int x = ROWS_OF_K ? ((s >> 1) & 3) << 1 : (s & 1) << 2;
+    return s * FAST + ((((f >> 1) ^ x) << 1) | (f & 1));
+  }
+};
+
+// One operand tile into shared memory at the layout L, "fast" being the
+// operand's unit-stride axis.  Tile element (s, f) is the operand's element
+// (s0 + s, f0 + f), at base + (s0 + s) * s_stride + (f0 + f) * f_stride, and is
+// zero unless s0 + s < s_end and f0 + f < f_end.  VEC: 16-byte copies along
+// the fast axis (f_stride is 1, base, s_stride and f0 are 16-byte aligned), a
+// thread copying the same chunk of every RS-th row, so that its pointer steps
+// by a constant and the loop unrolls; otherwise one copy an element.
+template <typename T, int SLOW, int FAST, typename L, int NTHREADS, bool VEC>
 __device__ __forceinline__ void load_tile(T* dst, const T* base, int64_t s0, int64_t f0,
                                           int64_t s_end, int64_t f_end, int64_t s_stride,
                                           int64_t f_stride, int tid) {
   if constexpr (VEC) {
     constexpr int E = 16 / sizeof(T);
-    constexpr int CPR = FAST / E;  // chunks per row
+    constexpr int CPR = FAST / E, RS = NTHREADS / CPR;  // chunks a row, rows a pass
+    static_assert(NTHREADS % CPR == 0 && SLOW % RS == 0, "whole rows of chunks a pass");
+    const int c = tid % CPR, s1 = tid / CPR;
+    const int64_t gf = f0 + c * E;
+    const int rows = static_cast<int>(max(min(s_end - s0 - s1, static_cast<int64_t>(SLOW)),
+                                          static_cast<int64_t>(0)));
+    const int bytes = static_cast<int>(max(min(static_cast<int64_t>(E), f_end - gf),
+                                           static_cast<int64_t>(0)) * sizeof(T));
+    const T* src = base + (s0 + s1) * s_stride + gf;
 #pragma unroll
-    for (int idx = tid; idx < SLOW * CPR; idx += NTHREADS) {
-      const int s = idx / CPR, c = idx % CPR;
-      const int64_t gs = s0 + s, gf = f0 + c * E;
-      const int64_t n = gs < s_end ? min(static_cast<int64_t>(E), f_end - gf) : 0;
-      const T* src = n > 0 ? base + gs * s_stride + gf : base;
-      cp_async16(dst + s * LD + c * E, src, n > 0 ? static_cast<int>(n * sizeof(T)) : 0);
-    }
+    for (int it = 0; it < SLOW / RS; ++it, src += RS * s_stride)  // 0 bytes: reads nothing
+      cp_async16(dst + L::at(s1 + it * RS, c * E), src, it * RS < rows ? bytes : 0);
   } else {
 #pragma unroll 4
     for (int idx = tid; idx < SLOW * FAST; idx += NTHREADS) {
       const int s = idx / FAST, f = idx % FAST;
       const int64_t gs = s0 + s, gf = f0 + f;
       const bool ok = gs < s_end && gf < f_end;
-      cp_async_elem(dst + s * LD + f, ok ? base + gs * s_stride + gf * f_stride : base, ok);
+      cp_async_elem(dst + L::at(s, f), ok ? base + gs * s_stride + gf * f_stride : base, ok);
     }
   }
 }
 
 // The A tile (BM x BK at (m0, k0)) and the B tile (BK x BN at (k0, n0)) of
-// one k step.  A_KFAST: A's unit stride is along k, stored [m][k] (rows of
-// LDK); else [k][m] (rows of LDM).  B_KFAST: [n][k] (LDK); else [k][n] (LDN).
-template <typename T, int BM, int BN, int BK, int LDM, int LDN, int LDK, int NTHREADS,
+// one k step, at layouts LA and LB.  A_KFAST: A's unit stride is along k,
+// stored [m][k]; else [k][m].  B_KFAST: [n][k]; else [k][n].
+template <typename T, int BM, int BN, int BK, typename LA, typename LB, int NTHREADS,
           bool A_KFAST, bool B_KFAST, bool VEC>
 __device__ __forceinline__ void load_step(T* As, T* Bs, const MatArgs<T>& p, int64_t m0,
                                           int64_t n0, int64_t k0, int64_t k_end, int tid) {
   if constexpr (A_KFAST)
-    load_tile<T, BM, BK, LDK, NTHREADS, VEC>(As, p.A, m0, k0, p.M, k_end, p.sam, p.sak, tid);
+    load_tile<T, BM, BK, LA, NTHREADS, VEC>(As, p.A, m0, k0, p.M, k_end, p.sam, p.sak, tid);
   else
-    load_tile<T, BK, BM, LDM, NTHREADS, VEC>(As, p.A, k0, m0, k_end, p.M, p.sak, p.sam, tid);
+    load_tile<T, BK, BM, LA, NTHREADS, VEC>(As, p.A, k0, m0, k_end, p.M, p.sak, p.sam, tid);
   if constexpr (B_KFAST)
-    load_tile<T, BN, BK, LDK, NTHREADS, VEC>(Bs, p.B, n0, k0, p.N, k_end, p.sbn, p.sbk, tid);
+    load_tile<T, BN, BK, LB, NTHREADS, VEC>(Bs, p.B, n0, k0, p.N, k_end, p.sbn, p.sbk, tid);
   else
-    load_tile<T, BK, BN, LDN, NTHREADS, VEC>(Bs, p.B, k0, n0, k_end, p.N, p.sbk, p.sbn, tid);
+    load_tile<T, BK, BN, LB, NTHREADS, VEC>(Bs, p.B, k0, n0, k_end, p.N, p.sbk, p.sbn, tid);
 }
 
-// Shared memory of a STAGES-deep ring of (A, B) tiles, in elements
-template <int BM, int BN, int BK, bool A_KFAST, bool B_KFAST>
-struct Ring {
-  static constexpr int LDM = BM + 4, LDN = BN + 4, LDK = BK + 4;  // padded rows
-  static constexpr int A_SIZE = A_KFAST ? BM * LDK : BK * LDM;
-  static constexpr int B_SIZE = B_KFAST ? BN * LDK : BK * LDN;
-};
-
 // The k loop of a block: a ring of STAGES tiles in shared memory, filled
-// STAGES - 1 steps ahead of the step that compute(a_tile, b_tile) consumes,
-// one barrier a step (the slot refilled at step st was consumed at st - 1).
-template <typename T, int BM, int BN, int BK, int STAGES, int NTHREADS, bool A_KFAST,
-          bool B_KFAST, bool VEC, typename F>
-__device__ __forceinline__ void k_loop(T* smem, const MatArgs<T>& p, int64_t m0, int64_t n0,
-                                       int64_t k_begin, int64_t k_end, int tid, F&& compute) {
-  using R = Ring<BM, BN, BK, A_KFAST, B_KFAST>;
-  T* As = smem;
-  T* Bs = smem + STAGES * R::A_SIZE;
-  const int steps = static_cast<int>((k_end - k_begin + BK - 1) / BK);
+// STAGES - 1 steps ahead of the step being computed, one barrier a step (the
+// slot refilled at step st was consumed at st - 1).  load(slot, step) issues
+// one step's copies into a slot; compute(slot) consumes one.
+template <int STAGES, typename L, typename F>
+__device__ __forceinline__ void k_loop(int steps, L&& load, F&& compute) {
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < steps)
-      load_step<T, BM, BN, BK, R::LDM, R::LDN, R::LDK, NTHREADS, A_KFAST, B_KFAST, VEC>(
-          As + st * R::A_SIZE, Bs + st * R::B_SIZE, p, m0, n0,
-          k_begin + static_cast<int64_t>(st) * BK, k_end, tid);
+    if (st < steps) load(st, st);
     cp_async_commit();
   }
   for (int st = 0; st < steps; ++st) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // step st has landed; every thread is done with step st - 1
     const int ahead = st + STAGES - 1;
-    if (ahead < steps) {
-      const int slot = ahead % STAGES;
-      load_step<T, BM, BN, BK, R::LDM, R::LDN, R::LDK, NTHREADS, A_KFAST, B_KFAST, VEC>(
-          As + slot * R::A_SIZE, Bs + slot * R::B_SIZE, p, m0, n0,
-          k_begin + static_cast<int64_t>(ahead) * BK, k_end, tid);
-    }
+    if (ahead < steps) load(ahead % STAGES, ahead);
     cp_async_commit();
-    const int slot = st % STAGES;
-    compute(As + slot * R::A_SIZE, Bs + slot * R::B_SIZE);
+    compute(st % STAGES);
   }
 }
 
@@ -210,73 +233,124 @@ __device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4], const
       : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
 }
 
-// block tile 128x64, 16 deep; four warps of 64x32 (4 x 4 m16n8 tiles)
-constexpr int DM_BM = 128, DM_BN = 64, DM_BK = 16, DM_THREADS = 128, DM_STAGES = 4;
-constexpr int DM_MI = 4, DM_NJ = 4;
+__device__ __forceinline__ double2 ld2(const double* p) {
+  return *reinterpret_cast<const double2*>(p);
+}
 
-template <bool A_KFAST, bool B_KFAST, bool VEC>
-__global__ void __launch_bounds__(DM_THREADS, 1) dmma_kernel(const MatArgs<double> p) {
-  constexpr int BK = DM_BK;
-  using R = Ring<DM_BM, DM_BN, DM_BK, A_KFAST, B_KFAST>;
+// An f64 block tile: BM x BN outputs over WM x WN warps of 64 x 32 (4 x 4
+// m16n8 tiles each), BK deep, in a ring of STAGES.
+template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_>
+struct DTile {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_, WM = WM_, WN = WN_;
+  static constexpr int THREADS = 32 * WM * WN, MI = BM / (16 * WM), NJ = BN / (8 * WN);
+  static constexpr int A_SIZE = BM * BK, B_SIZE = BN * BK;  // elements of a stage
+  static constexpr int SMEM = STAGES * (A_SIZE + B_SIZE) * static_cast<int>(sizeof(double));
+  static_assert(MI * 16 * WM == BM && NJ * 8 * WN == BN && NJ % 2 == 0, "whole warp tiles");
+  static_assert(BK % 8 == 0 && STAGES >= 2, "whole k8 steps, a ring");
+};
+
+template <class D, bool A_KFAST, bool B_KFAST, bool VEC>
+__global__ void __launch_bounds__(D::THREADS, 1) dmma_kernel(const MatArgs<double> p) {
+  constexpr int BK = D::BK, MI = D::MI, NJ = D::NJ;
+  using LA = std::conditional_t<A_KFAST, Swizzled<BK, false>, Swizzled<D::BM, true>>;
+  using LB = std::conditional_t<B_KFAST, Swizzled<BK, false>, Swizzled<D::BN, true>>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* const As = reinterpret_cast<double*>(smem_raw);
+  double* const Bs = As + D::STAGES * D::A_SIZE;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
-  const int wm = (warp / 2) * (16 * DM_MI), wn = (warp % 2) * (8 * DM_NJ);  // this warp's tile
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * DM_BM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.y) * DM_BN;
+  const int wm = (warp / D::WN) * (16 * MI), wn = (warp % D::WN) * (8 * NJ);  // this warp's tile
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * D::BM;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.y) * D::BN;
   const int64_t k_begin = static_cast<int64_t>(blockIdx.z) * p.k_chunk;
   const int64_t k_end = min(k_begin + p.k_chunk, p.K);
 
-  double acc[DM_MI][DM_NJ][4];  // [m16 tile][n8 tile][fragment]
+  double acc[MI][NJ][4];  // [m16 tile][n8 tile][fragment]
 #pragma unroll
-  for (int i = 0; i < DM_MI; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < DM_NJ; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
 
-  k_loop<double, DM_BM, DM_BN, DM_BK, DM_STAGES, DM_THREADS, A_KFAST, B_KFAST, VEC>(
-      reinterpret_cast<double*>(smem_raw), p, m0, n0, k_begin, k_end, tid,
-      [&](const double* a_s, const double* b_s) {
-        auto at = [&](int m, int k) { return A_KFAST ? a_s[m * R::LDK + k] : a_s[k * R::LDM + m]; };
-        auto bt = [&](int k, int n) { return B_KFAST ? b_s[n * R::LDK + k] : b_s[k * R::LDN + n]; };
+  // The fragments of the k8 step at kk.  k is permuted inside the step, the
+  // same way for both operands (the step's sum is unchanged): mma k slot t is
+  // k = kk + 2t and slot t + 4 is kk + 2t + 1, so a lane reads its two k as
+  // one double2 where the operand is stored along k.  Where A is stored along
+  // m, mma row g of an m16 tile is m = 2g and row g + 8 is 2g + 1; where B is
+  // stored along n, column g of the first n8 tile of a pair is n = 2g and of
+  // the second 2g + 1: a lane reads two neighbouring m (n) as one double2.
+  auto fragments = [&](const double* a_s, const double* b_s, int kk, double (&a)[MI][4],
+                       double (&b)[NJ][2]) {
+    const int k = kk + 2 * t;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      if constexpr (A_KFAST) {
+        const int r = wm + 16 * i + g;
+        const double2 x = ld2(a_s + LA::at(r, k)), y = ld2(a_s + LA::at(r + 8, k));
+        a[i][0] = x.x; a[i][1] = y.x; a[i][2] = x.y; a[i][3] = y.y;
+      } else {
+        const int m = wm + 16 * i + 2 * g;
+        const double2 x = ld2(a_s + LA::at(k, m)), y = ld2(a_s + LA::at(k + 1, m));
+        a[i][0] = x.x; a[i][1] = x.y; a[i][2] = y.x; a[i][3] = y.y;
+      }
+    }
+    if constexpr (B_KFAST) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const double2 x = ld2(b_s + LB::at(wn + 8 * j + g, k));
+        b[j][0] = x.x; b[j][1] = x.y;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < NJ / 2; ++q) {
+        const int n = wn + 16 * q + 2 * g;
+        const double2 x = ld2(b_s + LB::at(k, n)), y = ld2(b_s + LB::at(k + 1, n));
+        b[2 * q][0] = x.x; b[2 * q + 1][0] = x.y; b[2 * q][1] = y.x; b[2 * q + 1][1] = y.y;
+      }
+    }
+  };
+
+  const int steps = static_cast<int>((k_end - k_begin + BK - 1) / BK);
+  k_loop<D::STAGES>(
+      steps,
+      [&](int slot, int st) {
+        load_step<double, D::BM, D::BN, BK, LA, LB, D::THREADS, A_KFAST, B_KFAST, VEC>(
+            As + slot * D::A_SIZE, Bs + slot * D::B_SIZE, p, m0, n0,
+            k_begin + static_cast<int64_t>(st) * BK, k_end, tid);
+      },
+      [&](int slot) {
+        const double* a_s = As + slot * D::A_SIZE;
+        const double* b_s = Bs + slot * D::B_SIZE;
 #pragma unroll
         for (int kk = 0; kk < BK; kk += 8) {
-          double a[DM_MI][4], b[DM_NJ][2];
+          double a[MI][4], b[NJ][2];
+          fragments(a_s, b_s, kk, a, b);
 #pragma unroll
-          for (int i = 0; i < DM_MI; ++i) {
-            const int m = wm + i * 16 + g;
-            a[i][0] = at(m, kk + t);
-            a[i][1] = at(m + 8, kk + t);
-            a[i][2] = at(m, kk + t + 4);
-            a[i][3] = at(m + 8, kk + t + 4);
-          }
+          for (int i = 0; i < MI; ++i)
 #pragma unroll
-          for (int j = 0; j < DM_NJ; ++j) {
-            const int n = wn + j * 8 + g;
-            b[j][0] = bt(kk + t, n);
-            b[j][1] = bt(kk + t + 4, n);
-          }
-#pragma unroll
-          for (int i = 0; i < DM_MI; ++i)
-#pragma unroll
-            for (int j = 0; j < DM_NJ; ++j) dmma(acc[i][j], a[i], b[j]);
+            for (int j = 0; j < NJ; ++j) dmma(acc[i][j], a[i], b[j]);
         }
       });
 
+  // fragment (h, e) is mma row g + 8h, column 2t + e; a split writes its slice
+  double* const out = p.part ? p.part + static_cast<int64_t>(blockIdx.z) * p.M * p.N : p.C;
 #pragma unroll
-  for (int i = 0; i < DM_MI; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int e2 = 0; e2 < 2; ++e2) {
-      const int64_t m = m0 + wm + i * 16 + g + e2 * 8;
+    for (int h = 0; h < 2; ++h) {
+      const int64_t m = m0 + wm + 16 * i + (A_KFAST ? g + 8 * h : 2 * g + h);
       if (m >= p.M) continue;
+      double* const row = out + m * p.N + n0 + wn;
+      const int n_left = static_cast<int>(min(p.N - n0 - wn, static_cast<int64_t>(8 * NJ)));
 #pragma unroll
-      for (int j = 0; j < DM_NJ; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int64_t n = n0 + wn + j * 8 + 2 * t + e;
-          if (n < p.N) store_out(p, m, n, acc[i][j][2 * e2 + e]);
+          const int c = 2 * t + e;
+          const int n = B_KFAST ? 8 * j + c : 16 * (j / 2) + 2 * c + j % 2;
+          if (n < n_left) row[n] = acc[i][j][2 * h + e];
         }
     }
 }
@@ -286,6 +360,16 @@ __global__ void __launch_bounds__(DM_THREADS, 1) dmma_kernel(const MatArgs<doubl
 // ---------------------------------------------------------------------------
 
 constexpr int SG_BM = 128, SG_BN = 128, SG_BK = 16, SG_THREADS = 256, SG_STAGES = 3;
+
+// Shared memory of a STAGES-deep ring of padded (A, B) tiles, in elements
+template <int BM, int BN, int BK, bool A_KFAST, bool B_KFAST>
+struct Ring {
+  static constexpr int LDM = BM + 4, LDN = BN + 4, LDK = BK + 4;  // padded rows
+  static constexpr int A_SIZE = A_KFAST ? BM * LDK : BK * LDM;
+  static constexpr int B_SIZE = B_KFAST ? BN * LDK : BK * LDN;
+  using LA = Padded<A_KFAST ? LDK : LDM>;
+  using LB = Padded<B_KFAST ? LDK : LDN>;
+};
 
 template <bool A_KFAST, bool B_KFAST, bool VEC>
 __global__ void __launch_bounds__(SG_THREADS) sgemm_kernel(const MatArgs<float> p) {
@@ -310,9 +394,19 @@ __global__ void __launch_bounds__(SG_THREADS) sgemm_kernel(const MatArgs<float> 
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 
-  k_loop<float, SG_BM, SG_BN, SG_BK, SG_STAGES, SG_THREADS, A_KFAST, B_KFAST, VEC>(
-      reinterpret_cast<float*>(smem_raw), p, m0, n0, k_begin, k_end, tid,
-      [&](const float* a_s, const float* b_s) {
+  float* const As = reinterpret_cast<float*>(smem_raw);
+  float* const Bs = As + SG_STAGES * R::A_SIZE;
+  const int steps = static_cast<int>((k_end - k_begin + BK - 1) / BK);
+  k_loop<SG_STAGES>(
+      steps,
+      [&](int slot, int st) {
+        load_step<float, SG_BM, SG_BN, BK, typename R::LA, typename R::LB, SG_THREADS, A_KFAST,
+                  B_KFAST, VEC>(As + slot * R::A_SIZE, Bs + slot * R::B_SIZE, p, m0, n0,
+                                k_begin + static_cast<int64_t>(st) * BK, k_end, tid);
+      },
+      [&](int slot) {
+        const float* a_s = As + slot * R::A_SIZE;
+        const float* b_s = Bs + slot * R::B_SIZE;
 #pragma unroll
         for (int k4 = 0; k4 < BK; k4 += 4) {
           float a[8][4], b[8][4];  // [row or column][k]
@@ -648,9 +742,26 @@ void with_flags(bool x, bool y, bool z, F&& f) {
 
 unsigned cdiv(int64_t a, int64_t b) { return static_cast<unsigned>((a + b - 1) / b); }
 
-// config 0: wide outputs, 1: N <= 8
+// The f64 block tiles (kernels/matmul.py::F64_TILES picks one by shape)
+using DTileNarrow = DTile<128, 64, 16, 4, 2, 2>;
+using DTileWide = DTile<128, 128, 32, 3, 2, 4>;
+
+template <class D>
+void launch_dmma(bool vec, const MatArgs<double>& p, int splits, cudaStream_t s) {
+  const dim3 grid(cdiv(p.M, D::BM), cdiv(p.N, D::BN), splits);
+  with_flags(p.sak == 1, p.sbn != 1, vec, [&](auto AK, auto BK, auto V) {
+    auto kernel = dmma_kernel<D, decltype(AK)::value, decltype(BK)::value, decltype(V)::value>;
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM) ==
+        cudaSuccess)
+      kernel<<<grid, D::THREADS, D::SMEM, s>>>(p);
+  });
+}
+
+// config 0: wide outputs (f64: the BM x BN block tile), 1: N <= 8; false
+// where f64 names no tile this file has
 template <typename T>
-void launch_main(int config, bool vec, const MatArgs<T>& p, int splits, cudaStream_t s) {
+bool launch_main(int config, int bm, int bn, bool vec, const MatArgs<T>& p, int splits,
+                 cudaStream_t s) {
   const bool a_kfast = p.sak == 1, b_kfast = p.sbn != 1;
   if (config == 1) {
     constexpr int E = 16 / sizeof(T);
@@ -669,16 +780,12 @@ void launch_main(int config, bool vec, const MatArgs<T>& p, int splits, cudaStre
       });
     }
   } else if constexpr (std::is_same<T, double>::value) {
-    const dim3 grid(cdiv(p.M, DM_BM), cdiv(p.N, DM_BN), splits);
-    with_flags(a_kfast, b_kfast, vec, [&](auto AK, auto BK, auto V) {
-      constexpr bool ak = decltype(AK)::value, bk = decltype(BK)::value;
-      using R = Ring<DM_BM, DM_BN, DM_BK, ak, bk>;
-      constexpr int bytes = DM_STAGES * (R::A_SIZE + R::B_SIZE) * sizeof(double);
-      auto kernel = dmma_kernel<ak, bk, decltype(V)::value>;
-      if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) ==
-          cudaSuccess)
-        kernel<<<grid, DM_THREADS, bytes, s>>>(p);
-    });
+    if (bm == DTileNarrow::BM && bn == DTileNarrow::BN)
+      launch_dmma<DTileNarrow>(vec, p, splits, s);
+    else if (bm == DTileWide::BM && bn == DTileWide::BN)
+      launch_dmma<DTileWide>(vec, p, splits, s);
+    else
+      return false;
   } else {
     const dim3 grid(cdiv(p.M, SG_BM), cdiv(p.N, SG_BN), splits);
     with_flags(a_kfast, b_kfast, vec, [&](auto AK, auto BK, auto V) {
@@ -691,6 +798,7 @@ void launch_main(int config, bool vec, const MatArgs<T>& p, int splits, cudaStre
         kernel<<<grid, SG_THREADS, bytes, s>>>(p);
     });
   }
+  return true;
 }
 
 void launch_bf16(int config, const MatArgs<__nv_bfloat16>& p, int splits, cudaStream_t s) {
@@ -707,46 +815,57 @@ void launch_bf16(int config, const MatArgs<__nv_bfloat16>& p, int splits, cudaSt
   }
 }
 
+// Sum the split-K partials of a launch that wrote them (splits > 1).
 template <typename T>
-int launch(int config, int vec, const void* A, const void* B, void* C, void* part, int64_t M,
-           int64_t N, int64_t K, int64_t sam, int64_t sak, int64_t sbk, int64_t sbn,
-           int64_t k_chunk, int splits, cudaStream_t stream) {
+int reduce_splits(const MatArgs<T>& p, int splits, cudaStream_t stream) {
+  const int64_t MN = p.M * p.N;
+  const int threads = 256;
+  const int64_t want = (MN + threads - 1) / threads;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  splitk_reduce_kernel<T><<<blocks, threads, 0, stream>>>(p.part, p.C, MN, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(int config, int bm, int bn, int vec, const void* A, const void* B, void* C,
+           void* part, int64_t M, int64_t N, int64_t K, int64_t sam, int64_t sak, int64_t sbk,
+           int64_t sbn, int64_t k_chunk, int splits, cudaStream_t stream) {
   using Acc = typename AccOf<T>::type;
   Acc* pt = splits > 1 ? static_cast<Acc*>(part) : nullptr;
   const MatArgs<T> p{static_cast<const T*>(A), static_cast<const T*>(B), static_cast<T*>(C), pt,
                      M, N, K, sam, sak, sbk, sbn, k_chunk};
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) launch_bf16(config, p, splits, stream);
-  else launch_main<T>(config, vec != 0, p, splits, stream);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    launch_bf16(config, p, splits, stream);
+  } else if (!launch_main<T>(config, bm, bn, vec != 0, p, splits, stream)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const int64_t MN = M * N;
-  const int threads = 256;
-  const int64_t want = (MN + threads - 1) / threads;
-  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-  splitk_reduce_kernel<T><<<blocks, threads, 0, stream>>>(pt, static_cast<T*>(C), MN, splits);
-  return static_cast<int>(cudaGetLastError());
+  return reduce_splits(p, splits, stream);
 }
 
 }  // namespace
 
-// vec: 1 if both operands take 16-byte copies along their unit-stride axis
-// (the wrapper checks base and leading-stride alignment), else 0: the
-// element-by-element loader.  bf16 ignores it.
-extern "C" int repro_matmul(int dtype, int config, int vec, const void* A, const void* B,
-                            void* C, void* part, int64_t M, int64_t N, int64_t K, int64_t sam,
-                            int64_t sak, int64_t sbk, int64_t sbn, int64_t k_chunk, int splits,
-                            void* stream) {
+// config: 0 wide outputs (N > 8), 1 skinny (N <= 8).  bm, bn: the f64 wide
+// block tile (128 x 64 or 128 x 128); other launches ignore them.  vec: 1 if
+// both operands take 16-byte copies along their unit-stride axis (the wrapper
+// checks base and leading-stride alignment), else 0: the element-by-element
+// loader.  bf16 ignores it.
+extern "C" int repro_matmul(int dtype, int config, int bm, int bn, int vec, const void* A,
+                            const void* B, void* C, void* part, int64_t M, int64_t N, int64_t K,
+                            int64_t sam, int64_t sak, int64_t sbk, int64_t sbn, int64_t k_chunk,
+                            int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case REPRO_F32:
-      return launch<float>(config, vec, A, B, C, part, M, N, K, sam, sak, sbk, sbn, k_chunk,
-                           splits, s);
+      return launch<float>(config, bm, bn, vec, A, B, C, part, M, N, K, sam, sak, sbk, sbn,
+                           k_chunk, splits, s);
     case REPRO_F64:
-      return launch<double>(config, vec, A, B, C, part, M, N, K, sam, sak, sbk, sbn, k_chunk,
-                            splits, s);
+      return launch<double>(config, bm, bn, vec, A, B, C, part, M, N, K, sam, sak, sbk, sbn,
+                            k_chunk, splits, s);
     case REPRO_BF16:
-      return launch<__nv_bfloat16>(config, vec, A, B, C, part, M, N, K, sam, sak, sbk, sbn,
-                                   k_chunk, splits, s);
+      return launch<__nv_bfloat16>(config, bm, bn, vec, A, B, C, part, M, N, K, sam, sak, sbk,
+                                   sbn, k_chunk, splits, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

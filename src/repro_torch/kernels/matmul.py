@@ -27,18 +27,33 @@ from . import build
 #: N <= 8.  Keep in step with csrc/matmul.cu.  For N <= 8 in f64 and f32, BM
 #: is 32 rows where A's unit stride is along k (eight warps of four rows)
 #: and 32 x (16 bytes / element) where it is along m (a warp's 16-byte reads).
-_WIDE = {torch.float64: (128, 64, 16), torch.float32: (128, 128, 16),
-         torch.bfloat16: (64, 64, 16)}
+#: f64 with N > 8 takes one of F64_TILES by shape (``f64_tile``).
+_WIDE = {torch.float32: (128, 128, 16), torch.bfloat16: (64, 64, 16)}
 _SKINNY_BF16 = (128, 8, 32)
-#: split-K aims for at most this many thread blocks: two per SM of an H100's
-#: 132, so that the split grid runs in one wave.  A constant (not the
-#: queried SM count) keeps the summation order, and so the result bits, the
-#: same on every card.
-TARGET_BLOCKS = 264
+#: an H100's SMs.  Split-K aims for at most one wave of thread blocks (SMS x
+#: the blocks of the tile an SM holds), so that the split grid runs with no
+#: straggling block.  A constant (not the queried SM count) keeps the
+#: summation order, and so the result bits, the same on every card.
+SMS = 132
 #: dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+
+class F64Tile(NamedTuple):
+    bm: int
+    bn: int
+    bk: int
+    stages: int  # depth of the ring of (A, B) tiles in shared memory
+    per_sm: int  # blocks an SM holds at once
+
+
+#: dmma_kernel's block tiles (csrc/matmul.cu's DTileNarrow and DTileWide):
+#: 128 x 64 over four warps, 128 x 128 over eight
+F64_TILES = {"128x64": F64Tile(128, 64, 16, 4, 2), "128x128": F64Tile(128, 128, 32, 3, 1)}
 #: launches by the loader they took since the last ``reset_loaders``
 loaders: Dict[str, int] = {"vector": 0, "scalar": 0}
+#: f64 wide launches by the block tile they took since the last ``reset_loaders``
+tiles: Dict[str, int] = {name: 0 for name in F64_TILES}
 
 
 class Plan(NamedTuple):
@@ -48,13 +63,24 @@ class Plan(NamedTuple):
     bk: int
     k_chunk: int  # K per split, a multiple of bk
     splits: int
+    wave: int     # blocks of the tile the card runs at once: the split's limit
 
 
-def tile(dtype: torch.dtype, N: int, kfast: bool) -> Tuple[int, int, int, int]:
-    """(config, BM, BN, BK) of the kernel that takes an (M, K) @ (K, N)
-    product of ``dtype`` whose A has its unit stride along k (``kfast``) or
-    along m."""
+def f64_tile(M: int, N: int, kfast: bool) -> str:
+    """The f64 block tile of an (M, K) @ (K, N) product with N > 8: 128 x 128
+    where A is read along m (a transposed view, as in Newton's X^T (w * X))
+    and both output sides exceed 64, else 128 x 64.  Measured on an H100
+    (PERF.md): each is the faster on its side, and 128 x 64 leaves less of a
+    narrow output's tile empty."""
+    return "128x128" if not kfast and M > 64 and N > 64 else "128x64"
+
+
+def tile(dtype: torch.dtype, M: int, N: int, kfast: bool) -> Tuple[int, int, int, int]:
+    """(config, BM, BN, BK) of the kernel that takes an (M, K) @ (K, N) product
+    of ``dtype`` whose A has its unit stride along k (``kfast``) or along m."""
     if N > 8:
+        if dtype == torch.float64:
+            return (0, *F64_TILES[f64_tile(M, N, kfast)][:3])
         return (0, *_WIDE[dtype])
     if dtype == torch.bfloat16:
         return (1, *_SKINNY_BF16)
@@ -62,8 +88,9 @@ def tile(dtype: torch.dtype, N: int, kfast: bool) -> Tuple[int, int, int, int]:
 
 
 def reset_loaders() -> None:
-    for name in loaders:
-        loaders[name] = 0
+    for counts in (loaders, tiles):
+        for name in counts:
+            counts[name] = 0
 
 
 _fn = None
@@ -83,12 +110,14 @@ def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def split_plan(M: int, N: int, K: int, dtype: torch.dtype = torch.float64,
                kfast: bool = True) -> Plan:
     """The tile and the split of K for an (M, K) @ (K, N) product."""
-    config, bm, bn, bk = tile(dtype, N, kfast)
-    tiles = math.ceil(M / bm) * math.ceil(N / bn)
+    config, bm, bn, bk = tile(dtype, M, N, kfast)
+    wave = SMS * (F64_TILES[f"{bm}x{bn}"].per_sm if dtype == torch.float64 and config == 0
+                  else 2)
+    n_tiles = math.ceil(M / bm) * math.ceil(N / bn)
     k_steps = math.ceil(K / bk)
-    splits = min(max(1, TARGET_BLOCKS // tiles), k_steps)  # one wave: no straggling block
+    splits = min(max(1, wave // n_tiles), k_steps)  # one wave: no straggling block
     k_chunk = math.ceil(k_steps / splits) * bk
-    return Plan(config, bm, bn, bk, k_chunk, math.ceil(K / k_chunk))
+    return Plan(config, bm, bn, bk, k_chunk, math.ceil(K / k_chunk), wave)
 
 
 def a_kfast(a: torch.Tensor) -> bool:
@@ -118,7 +147,7 @@ def _kernel():
     if _fn is None:
         fn = build.load("matmul").repro_matmul
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
                        + [ctypes.c_int64] * 8 + [ctypes.c_int, ctypes.c_void_p])
         _fn = fn
     return _fn
@@ -136,11 +165,14 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             if plan.splits > 1 else None)
     with torch.cuda.device(a.device):
         err = _kernel()(
-            DTYPE_CODES[a.dtype], plan.config, int(vec), a.data_ptr(), b.data_ptr(),
+            DTYPE_CODES[a.dtype], plan.config, plan.bm, plan.bn, int(vec), a.data_ptr(),
+            b.data_ptr(),
             out.data_ptr(), part.data_ptr() if part is not None else None,
             M, N, K, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
             plan.k_chunk, plan.splits, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
     loaders["vector" if vec else "scalar"] += 1
+    if a.dtype == torch.float64 and plan.config == 0:
+        tiles[f"{plan.bm}x{plan.bn}"] += 1
     return out

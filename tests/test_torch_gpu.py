@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_ref, flash_atte
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref
 from repro_torch.kernels.glm_fused import glm_fused_ref
 from repro_torch.kernels.mamba_scan import checkpoint_shape, mamba_scan_bwd_ref, mamba_scan_ref
-from repro_torch.kernels.matmul import loaders, matmul_ref
+from repro_torch.kernels.matmul import loaders, matmul_ref, tiles, vector_loads
 from repro_torch.launch.workloads import logreg_newton_loop
 
 pytestmark = pytest.mark.gpu
@@ -399,11 +399,12 @@ def test_matmul_kernel_both_orientations_ragged_vs_numpy(cuda_device, m, k, n, t
     assert err <= TOL[dtype], err
 
 
-@pytest.mark.parametrize("n", [1, 60], ids=["skinny", "wide"])
+@pytest.mark.parametrize("n", [1, 60, 100], ids=["skinny", "wide", "wide-n100"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
 def test_matmul_kernel_misaligned_view_takes_the_scalar_loader(cuda_device, n, dtype):
     """An operand 8 (or 4) bytes past an aligned base: the same kernels copy
-    element by element, and the product is still right."""
+    element by element, and the product is still right (at n = 100 in f64
+    the view read along m takes the 128 x 128 tile, along k the 128 x 64)."""
     buf = _uniform(13, (1200 * 96 + 1,), cuda_device, dtype)
     for A in (buf[1:].view(1200, 96), buf[1:].view(96, 1200).mT):
         B = _uniform(14, (96, n), cuda_device, dtype)
@@ -413,6 +414,35 @@ def test_matmul_kernel_misaligned_view_takes_the_scalar_loader(cuda_device, n, d
         assert loaders == {"vector": 0, "scalar": 1}
         want = _np_product(A, B)
         assert np.abs(got.double().cpu().numpy() - want).max() <= TOL[dtype] * np.abs(want).max()
+
+
+F64_TILE_SHAPES = [(4096, 4096, 4096), (1024, 1024, 1024), (1000, 1000, 1000),
+                   (4100, 4099, 4097)]
+
+
+@pytest.mark.parametrize("m,k,n", F64_TILE_SHAPES, ids=str)
+@pytest.mark.parametrize("ta,tb", [(False, False), (True, False), (False, True), (True, True)],
+                         ids=["nn", "tn", "nt", "tt"])
+def test_f64_block_tiles_vs_numpy_in_every_orientation(cuda_device, m, k, n, ta, tb):
+    """dmma_kernel's two block tiles, taken by shape and orientation (128 x
+    128 where A is read along m, else 128 x 64): numpy's product to 1e-10,
+    the same bits on three more launches, and the launch counted under the
+    tile that ran.  Odd leading strides (4099, 4097) take the scalar loader."""
+    a = _uniform(21, (k, m) if ta else (m, k), cuda_device, torch.float64)
+    b = _uniform(22, (n, k) if tb else (k, n), cuda_device, torch.float64)
+    A, B = (a.mT if ta else a), (b.mT if tb else b)
+    vec = vector_loads(A, B)
+    reset_launches()
+    got = ops.matmul(A, B)
+    torch.cuda.synchronize()
+    want_tile = "128x128" if ta else "128x64"
+    assert tiles == {name: int(name == want_tile) for name in tiles}
+    assert loaders == {"vector": int(vec), "scalar": int(not vec)}
+    assert vec == ((m if ta else k) % 2 == 0 and (k if tb else n) % 2 == 0)
+    assert all(torch.equal(got, ops.matmul(A, B)) for _ in range(3))
+    want = _np_product(A, B)
+    err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
+    assert err <= 1e-10, err
 
 
 @pytest.mark.parametrize("shape", [(256, 131072, 256), (256, 131072, 1), (131072, 256, 1)],

@@ -22,8 +22,8 @@ import torch
 from repro.kernels import glm_fused as ref_glm_fused
 from repro.kernels import matmul as ref_matmul
 from repro_torch.kernels import build, launches, ops, reset_launches
-from repro_torch.kernels.matmul import (a_kfast, matmul_ref, split_plan, tile,
-                                        vector_loads)
+from repro_torch.kernels.matmul import (F64_TILES, SMS, a_kfast, matmul_ref, split_plan,
+                                        tile, vector_loads)
 
 SHAPES = [(128, 128, 128), (256, 128, 384), (384, 256, 128), (100, 96, 60)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -109,18 +109,25 @@ class TestMatmul:
         (256, 256, 131072, False),   # X^T (w * X)
         (4096, 4096, 4096, True),    # a DGEMM tile
         (100, 60, 96, True), (1, 1, 1, True), (3, 300, 7, False),
+        (1024, 1024, 1024, True),    # a DGEMM tile of the 16 x 16 grid
+        (256, 256, 1 << 21, False),  # X^T (w * X) at 4 row blocks
+        (4096, 4096, 4096, False),   # a transposed view's DGEMM tile
+        (131072, 40, 256, True),     # rSVD's A @ Omega
+        (256, 40, 131072, False),    # rSVD's A^T Q
     ])
     def test_split_plan_covers_k(self, M, N, K, kfast, dtype):
         plan = split_plan(M, N, K, dtype, kfast)
-        assert (plan.config, plan.bm, plan.bn, plan.bk) == tile(dtype, N, kfast)
+        assert (plan.config, plan.bm, plan.bn, plan.bk) == tile(dtype, M, N, kfast)
         assert plan.config == (1 if N <= 8 else 0)
         assert plan.k_chunk % plan.bk == 0 and plan.splits >= 1
         assert (plan.splits - 1) * plan.k_chunk < K <= plan.splits * plan.k_chunk
         tiles = math.ceil(M / plan.bm) * math.ceil(N / plan.bn)
-        if tiles <= 132 and K > plan.bk:
+        wave = plan.wave
+        assert wave == (132 if (dtype, plan.bm, plan.bn) == (torch.float64, 128, 128) else 264)
+        if tiles <= wave // 2 and K > plan.bk:
             assert plan.splits > 1   # few output tiles: the contraction is split
         if plan.splits > 1:
-            assert tiles * plan.splits <= 264   # ... into one wave of blocks
+            assert tiles * plan.splits <= wave   # ... into one wave of the tile's blocks
         # slices start on whole 16-byte runs of k, as the vector loader needs
         assert (plan.k_chunk * torch.empty(0, dtype=dtype).element_size()) % 16 == 0
 
@@ -132,8 +139,36 @@ class TestMatmul:
     def test_skinny_tile_follows_the_unit_stride(self, dtype, kfast, bm):
         """N <= 8: a block holds 8 warps x 4 rows where A is read along k,
         and a warp's 32 x 16 bytes of m where it is read along m."""
-        assert tile(dtype, 8, kfast) == (1, bm, 8, 32)
-        assert tile(dtype, 9, kfast)[0] == 0
+        assert tile(dtype, 4096, 8, kfast) == (1, bm, 8, 32)
+        assert tile(dtype, 4096, 9, kfast)[0] == 0
+
+    @pytest.mark.parametrize("M,N,K,kfast,name", [
+        (4096, 4096, 4096, True, "128x64"),       # dgemm-tile4096's products
+        (1024, 1024, 1024, True, "128x64"),       # dgemm-tile1024's, split in two
+        (4096, 4096, 4096, False, "128x128"),     # the same through a transposed A
+        (256, 256, 1 << 18, False, "128x128"),    # X^T (w * X), 32 row blocks
+        (256, 256, 1 << 21, False, "128x128"),    # ... 4 row blocks
+        (131072, 40, 256, True, "128x64"),        # rSVD's A @ Omega: N of 40
+        (256, 40, 131072, False, "128x64"),       # rSVD's A^T Q
+        (64, 4096, 4096, False, "128x64"),        # a short output
+        (100, 60, 96, True, "128x64"),
+    ])
+    def test_f64_wide_tile_follows_the_shape(self, M, N, K, kfast, name):
+        """f64 with N > 8 takes its block tile from the shape and orientation
+        alone: 128 x 128 where A is read along m and both output sides exceed
+        64, else 128 x 64."""
+        bm, bn, bk = F64_TILES[name][:3]
+        assert tile(torch.float64, M, N, kfast) == (0, bm, bn, bk)
+        assert split_plan(M, N, K, torch.float64, kfast)[:4] == (0, bm, bn, bk)
+
+    @pytest.mark.parametrize("name", sorted(F64_TILES))
+    def test_f64_tile_ring_fits_shared_memory(self, name):
+        """A block's ring of (A, B) stages fits the 227 KB of shared memory an
+        H100 block may have, and the blocks a wave holds fit 132 SMs' 228 KB."""
+        bm, bn, bk, stages, per_sm = F64_TILES[name]
+        ring = stages * (bm + bn) * bk * 8
+        assert ring <= 232448 and per_sm * (ring + 1024) <= 233472
+        assert split_plan(4096, 4096, 4096, torch.float64, bm != bn).wave == SMS * per_sm
 
     def test_main_path_operands_take_the_vector_loader(self):
         X = torch.zeros(4096, 256, dtype=torch.float64)
