@@ -5,7 +5,9 @@ file of its own, found by the names in ``BENCHMARK.json``:
 
 - ``BENCHMARK.json`` names each configuration's file; the file's ``kind``
   names ``kinds/<kind>.py`` (the driver: inputs, set-up, the window, the
-  comparison) and ``reference/<kind>.py`` (the plain PyTorch reference);
+  comparison; it exports ``KIND_PROTOCOL``, and its ``Job`` has
+  ``JOB_PROTOCOL``) and ``reference/<kind>.py`` (the plain PyTorch
+  reference);
 - a cell's ``traffic`` names ``traffic/<traffic>.json``, the parameters its
   kind reads;
 - each metric, end to end or per layer, is ``metrics/<name>.py`` (or, for a
@@ -33,8 +35,9 @@ from typing import Dict, Iterable, List, Optional, Tuple
 PACKAGE = "portbench"
 #: top-level modules that no run may load: the JAX package and JAX itself
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
-#: the precision one step below the configuration's: the control's
-CONTROL_DTYPE = {"float64": "float32"}
+#: what a kind's module exports, and the methods of its ``Job`` (README.md)
+KIND_PROTOCOL = ("SMALL", "control", "step_flops", "step_products", "check", "Job")
+JOB_PROTOCOL = ("window", "answers", "close", "loads", "trace_ranges")
 #: kernel and build caches of the libraries the port may use, inside the
 #: checkout (the port builds its own kernels under build/repro_torch)
 CACHE_DIRS = {"TORCH_EXTENSIONS_DIR": "torch_extensions", "TRITON_CACHE_DIR": "triton",
@@ -113,14 +116,29 @@ def resolve(root: Path, workload: str, overrides: Optional[Dict] = None) -> Cell
     overrides = overrides or {}
     config.update(overrides.get("config", {}))
     traffic.update(overrides.get("traffic", {}))
+    kind_path = bench / "kinds" / f"{config['kind']}.py"
+    kind = load_module(kind_path)
+    missing = missing_protocol(kind)
+    if missing:
+        raise ImportError(f"{kind_path.relative_to(root)} lacks the kind protocol's "
+                          f"{', '.join(missing)}")
     return Cell(
-        name=workload, chips=entry["chips"], config=config, traffic=traffic,
-        kind=load_module(bench / "kinds" / f"{config['kind']}.py"),
+        name=workload, chips=entry["chips"], config=config, traffic=traffic, kind=kind,
         reference=load_module(bench / "reference" / f"{config['kind']}.py"),
         end_to_end=[(m, load_module(reader_path(bench, m["name"])))
                     for m in spec["end_to_end"] if _applies(m, workload)],
         per_layer=[(m, load_module(reader_path(bench, m["name"])))
                    for m in spec["per_layer"] if _applies(m, workload)])
+
+
+def missing_protocol(kind) -> List[str]:
+    """The names of the kind protocol that the module ``kind`` lacks."""
+    missing = [name for name in KIND_PROTOCOL if not hasattr(kind, name)]
+    job = getattr(kind, "Job", None)
+    if job is not None:
+        missing += [f"Job.{name}" for name in JOB_PROTOCOL
+                    if not callable(getattr(job, name, None))]
+    return missing
 
 
 def reader_path(bench: Path, name: str) -> Path:
@@ -162,18 +180,18 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
         activities = [torch.profiler.ProfilerActivity.CPU]
         if cuda:
             activities.append(torch.profiler.ProfilerActivity.CUDA)
-        _layer_ranges(job.ctx)
+        job.trace_ranges()
         with torch.profiler.profile(activities=activities) as prof:
             job.window(0.0)  # one step under the profiler first: its own start-up
-            loads0, launches0 = _numeric(job.ctx.loads()), dict(ops.launches)
+            loads0, launches0 = _numeric(job.loads()), dict(ops.launches)
             with torch.profiler.record_function(WINDOW_RANGE):
                 win = job.window(seconds)
         dtrace = DeviceTrace.from_profiler(prof)
         del prof
     else:
-        loads0, launches0 = _numeric(job.ctx.loads()), dict(ops.launches)
+        loads0, launches0 = _numeric(job.loads()), dict(ops.launches)
         win = job.window(seconds)
-    loads = _delta(job.ctx.loads(), loads0)
+    loads = _delta(job.loads(), loads0)
     launches = {k: v - launches0.get(k, 0) for k, v in ops.launches.items()}
     memory_peak = int(torch.cuda.max_memory_allocated(device)) if cuda else 0
     answers = job.answers()
@@ -219,27 +237,6 @@ def _number(value: float):
     return value if math.isfinite(value) else repr(value)
 
 
-def _layer_ranges(ctx) -> None:
-    """Open a profiler range around each call into the port's layers, so
-    that the trace names what the host was doing: the scheduler's
-    ``compute``, the executor's ``flush`` and the backend's ``execute``
-    (instance attributes; the traced run only)."""
-    import torch
-
-    def ranged(obj, attr, label):
-        call = getattr(obj, attr)
-
-        def inner(*args, **kwargs):
-            with torch.profiler.record_function(label):
-                return call(*args, **kwargs)
-
-        setattr(obj, attr, inner)
-
-    ranged(ctx, "compute", "scheduler: ArrayContext.compute")
-    ranged(ctx.executor, "flush", "executor: Executor.flush")
-    ranged(ctx.executor.backend, "execute", "backend: execute")
-
-
 def forbidden_modules(names: Optional[Iterable[str]] = None) -> List[str]:
     """Top-level names among ``names`` (``sys.modules`` by default) that no
     run may hold, compared whole (``repro_torch`` is not ``repro``)."""
@@ -254,9 +251,9 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     p.add_argument("--control", action="store_true",
-                   help="run the port's own path one precision below the configuration's "
-                        "(the control of `correct`, which must come out false); the "
-                        "benchmark's runs never pass it")
+                   help="run the cell's control, as its kind's `control` sets it (the port's "
+                        "own path one precision below the configuration's), which must come "
+                        "out not correct; the benchmark's runs never pass it")
     return p.parse_args(argv)
 
 
@@ -269,9 +266,7 @@ def main(argv: Optional[List[str]], root: Path, t_start: float) -> int:
         os.environ[var] = str(root / "build" / PACKAGE / sub)
     cell = resolve(root, args.workload)
     if args.control:
-        context = cell.config["context"]
-        control = {**context, "dtype": CONTROL_DTYPE[context["dtype"]]}
-        cell = resolve(root, args.workload, {"config": {"context": control}})
+        cell = resolve(root, args.workload, {"config": cell.kind.control(cell.config)})
 
     import torch
 

@@ -16,8 +16,16 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from portbench.runtime import (Phases, Window, host_copy, make_context, release, reset_peak,
-                               sync)
+from portbench.runtime import (Phases, Window, host_copy, layer_ranges, lower_precision,
+                               make_context, release, reset_peak, sync)
+
+#: the sizes at which the CPU tests run this kind in seconds
+SMALL = {"dim": 256}
+
+
+def control(config: Dict) -> Dict:
+    """The port's own path one precision below the configuration's."""
+    return lower_precision(config)
 
 
 def make_inputs(config: Dict, seed: int, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -88,6 +96,12 @@ class Job:
             times.append(perf_counter() - ts)
         t1 = perf_counter()
         return Window(steps=len(times), window_s=t1 - t0, step_times=times)
+
+    def loads(self) -> Dict:
+        return self.ctx.loads()
+
+    def trace_ranges(self) -> None:
+        layer_ranges(self.ctx)
 
     def answers(self) -> Dict[Tuple[int, int], torch.Tensor]:
         """Every block of the last product, as the tensors on the card."""

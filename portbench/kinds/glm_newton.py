@@ -23,8 +23,16 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from portbench.runtime import (Phases, Window, host_copy, make_context, release, reset_peak,
-                               sync)
+from portbench.runtime import (Phases, Window, host_copy, layer_ranges, lower_precision,
+                               make_context, release, reset_peak, sync)
+
+#: the sizes at which the CPU tests run this kind in seconds
+SMALL = {"n_rows": 1 << 13, "reference_block_rows": 1 << 11}
+
+
+def control(config: Dict) -> Dict:
+    """The port's own path one precision below the configuration's."""
+    return lower_precision(config)
 
 
 def make_inputs(config: Dict, seed: int, device: str) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,6 +142,12 @@ class Job:
         bounds = [t0, *self.clock.marks[1:], t1]
         times = [b - a for a, b in zip(bounds, bounds[1:])]
         return Window(steps=len(times), window_s=t1 - t0, step_times=times)
+
+    def loads(self) -> Dict:
+        return self.ctx.loads()
+
+    def trace_ranges(self) -> None:
+        layer_ranges(self.ctx)
 
     def answers(self) -> List[Fit]:
         return list(self.fits)

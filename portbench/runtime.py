@@ -1,6 +1,8 @@
-"""What every kind of cell shares: the port's block context built from a
-configuration's ``context`` group, the device barrier, freeing, host
-copies, the set-up's phases, and the record of one measured window."""
+"""What the kinds of cell share: the record of one measured window, the
+device barrier, freeing, host copies and the set-up's phases; and, for the
+kinds that run the port's block runtime, its context built from a
+configuration's ``context`` group, the control's precision and the
+profiler ranges around the runtime's layers."""
 from __future__ import annotations
 
 import gc
@@ -30,6 +32,38 @@ def make_context(context: Dict, device: str):
         backend=context["backend"], dtype=context["dtype"], pipeline=context["pipeline"],
         plan_cache=context["plan_cache"], gc=context["gc"], seed=context["seed"],
         device=device)
+
+
+#: the precision one step below a block configuration's: its control's
+_LOWER_DTYPE = {"float64": "float32"}
+
+
+def lower_precision(config: Dict) -> Dict:
+    """The configuration overrides of a block kind's control: the port's
+    own path one precision below ``context.dtype``."""
+    context = config["context"]
+    return {"context": {**context, "dtype": _LOWER_DTYPE[context["dtype"]]}}
+
+
+def layer_ranges(ctx) -> None:
+    """Open a profiler range around each call into the port's layers, so
+    that the trace names what the host was doing: the scheduler's
+    ``compute``, the executor's ``flush`` and the backend's ``execute``
+    (instance attributes; the traced run only)."""
+    import torch
+
+    def ranged(obj, attr, label):
+        call = getattr(obj, attr)
+
+        def inner(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return call(*args, **kwargs)
+
+        setattr(obj, attr, inner)
+
+    ranged(ctx, "compute", "scheduler: ArrayContext.compute")
+    ranged(ctx.executor, "flush", "executor: Executor.flush")
+    ranged(ctx.executor.backend, "execute", "backend: execute")
 
 
 def sync(device: str) -> None:

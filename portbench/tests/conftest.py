@@ -14,23 +14,16 @@ for _path in (str(ROOT / "src"), str(ROOT)):
     if _path not in sys.path:
         sys.path.insert(0, _path)
 
-#: small sizes of each configuration kind, at which a run takes seconds here
-SMALL = {
-    "glm_newton": {"n_rows": 1 << 13, "reference_block_rows": 1 << 11},
-    "block_matmul": {"dim": 256},
-}
-
 
 def small_cell(workload: str, root: Path = ROOT, control: bool = False, **config):
-    """The cell ``workload`` at its kind's small size (and ``config``
-    overrides); ``control`` swaps in the control's precision."""
+    """The cell ``workload`` at its kind's small size (the kind's ``SMALL``,
+    then ``config`` overrides); ``control`` applies the kind's ``control``."""
     from portbench import harness
 
     cell = harness.resolve(root, workload)
-    over = {**SMALL[cell.config["kind"]], **config}
+    over = {**cell.kind.SMALL, **config}
     if control:
-        ctx = cell.config["context"]
-        over["context"] = {**ctx, "dtype": harness.CONTROL_DTYPE[ctx["dtype"]]}
+        over.update(cell.kind.control({**cell.config, **over}))
     return harness.resolve(root, workload, {"config": copy.deepcopy(over)})
 
 
