@@ -3,7 +3,9 @@ and every architecture of the reference's LM zoo: the hybrid
 ``hymba-1.5b``, the SSM ``falcon-mamba-7b``, the dense and VLM decoders
 (``gemma3-4b``, ``gemma-7b``, ``nemotron-4-15b``, ``command-r-35b``,
 ``qwen2-vl-7b``), the MoE decoders (``qwen3-moe-235b-a22b``,
-``phi3.5-moe-42b-a6.6b``) and the encoder-decoder ``whisper-small``.
+``phi3.5-moe-42b-a6.6b``) and the encoder-decoder ``whisper-small``; and
+the port's own ``jamba2-mini`` (Mamba-1, attention and MoE layers by a
+layer schedule), which the reference's zoo lacks.
 
 Each module exports ``CONFIG`` (exact published sizes).  ``get_config(id)``
 and ``list_archs()`` are the programmatic API, as in ``repro.configs``.
@@ -23,6 +25,7 @@ _MODULES = {
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "phi3.5-moe-42b-a6.6b": "phi3p5_moe_42b_a6p6b",
     "whisper-small": "whisper_small",
+    "jamba2-mini": "jamba2_mini",
     "glm_logreg": "glm_logreg",
 }
 

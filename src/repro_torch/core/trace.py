@@ -88,10 +88,19 @@ span                                   opened around
 ``repro_torch.backend.<op>``           one block op (``TorchBackend._dispatch``)
 ``repro_torch.backend.compile.<op>``   a compile-cache miss: build, first run
 ``repro_torch.pycollect.gen<N>``       one pass of Python's cyclic collector
+``repro_torch.lm.mamba``               an LM layer's SSM mixer (``models``)
+``repro_torch.lm.attention``           an LM layer's self-attention
+``repro_torch.lm.moe``                 an LM layer's MoE channel
+``repro_torch.lm.mlp``                 an LM layer's dense MLP
+``repro_torch.lm.head``                the final norm and the logits
+``repro_torch.serve.prefill``          an admission's (chunked) prefill
+``repro_torch.serve.step``             a batched decode step
 =====================================  =====================================
 
-The collector's seconds are also summed, always, into ``COLLECTOR.seconds``
-(``pycollect_s`` in ``ArrayContext.loads()``).
+The LM path asks :func:`profiling` once per pass over the stack and opens
+its spans through :func:`maybe_span`.  The collector's seconds are also
+summed, always, into ``COLLECTOR.seconds`` (``pycollect_s`` in
+``ArrayContext.loads()`` and ``ContinuousBatcher.loads()``).
 """
 from __future__ import annotations
 
@@ -300,6 +309,13 @@ SCHED_FINGERPRINT = "repro_torch.sched.fingerprint"
 SCHED_REPLAY = "repro_torch.sched.replay"
 SCHED_LSHS = "repro_torch.sched.lshs"
 EXEC_DRAIN = "repro_torch.exec.drain"
+LM_MAMBA = "repro_torch.lm.mamba"
+LM_ATTENTION = "repro_torch.lm.attention"
+LM_MOE = "repro_torch.lm.moe"
+LM_MLP = "repro_torch.lm.mlp"
+LM_HEAD = "repro_torch.lm.head"
+SERVE_PREFILL = "repro_torch.serve.prefill"
+SERVE_STEP = "repro_torch.serve.step"
 
 
 def profiling() -> bool:
@@ -333,6 +349,12 @@ def span(name: str):
 
 #: what a layer enters in place of a span while no profiler records
 NO_SPAN = nullcontext()
+
+
+def maybe_span(on: bool, name: str):
+    """The span ``name`` where ``on`` (a :func:`profiling` answer the caller
+    read once), else :data:`NO_SPAN`."""
+    return span(name) if on else NO_SPAN
 
 
 class LayerSpan:

@@ -3,7 +3,7 @@ MoE decoders (M-RoPE too) and the whisper-style encoder-decoder, for
 training and serving, with attention and the scan through the hand-written
 kernels (forward and backward), sharded by logical-axis rules over a
 DeviceMesh (``partitioning``)."""
-from .config import ModelConfig, MoEConfig, SSMConfig
+from .config import ModelConfig, MoEConfig, ScheduledModelConfig, SSMConfig
 from .partitioning import Rules, constrain, use_rules
 from .transformer import decode_step, forward, init_params, param_shapes, prefill
 
@@ -12,6 +12,7 @@ __all__ = [
     "MoEConfig",
     "Rules",
     "SSMConfig",
+    "ScheduledModelConfig",
     "constrain",
     "decode_step",
     "forward",

@@ -13,8 +13,9 @@ in behaviour so that configurations, ``reduced()``, ``is_local_layer`` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import ClassVar, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -79,6 +80,9 @@ class ModelConfig:
     embed_inputs: bool = False
     max_seq_len: int = 131072
     dtype: str = "bfloat16"
+    #: whether the layers differ in kind (``ScheduledModelConfig``), so that
+    #: layer leaves and caches are stacked per kind
+    scheduled: ClassVar[bool] = False
 
     # -- derived -------------------------------------------------------------
     @property
@@ -107,38 +111,75 @@ class ModelConfig:
             return True
         return (layer_idx + 1) % (self.local_global_ratio + 1) != 0
 
+    # Every layer alike: the parts the config has are in every layer.
+    def is_attention_layer(self, layer_idx: int) -> bool:
+        return not self.attention_free
+
+    def is_ssm_layer(self, layer_idx: int) -> bool:
+        return self.ssm is not None
+
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        return self.moe is not None
+
+    def is_mlp_layer(self, layer_idx: int) -> bool:
+        return bool(self.d_ff) and not self.is_moe_layer(layer_idx)
+
+    def layer_kinds(self, layer_idx: int) -> Tuple[str, ...]:
+        """The parts of layer ``layer_idx``, of "attn", "ssm", "moe" and
+        "mlp", in that order."""
+        return tuple(kind for kind, has in (
+            ("attn", self.is_attention_layer(layer_idx)), ("ssm", self.is_ssm_layer(layer_idx)),
+            ("moe", self.is_moe_layer(layer_idx)), ("mlp", self.is_mlp_layer(layer_idx)))
+            if has)
+
+    def layer_slots(self) -> Tuple[Dict[str, int], ...]:
+        """For each layer, each of its parts' index among the layers that
+        have that part: the row of its stacked leaves and caches.  Without a
+        schedule every part's index is the layer's own.  Worked out once per
+        config (the decode path asks every step)."""
+        return _layer_slots(self)
+
+    def layer_count(self, kind: str) -> int:
+        """How many layers have the part ``kind``."""
+        return sum(kind in self.layer_kinds(i) for i in range(self.n_layers))
+
+    def part_params(self) -> Dict[str, int]:
+        """Parameters of one layer's part of each kind ("attn", "ssm", "moe",
+        "mlp"; norms aside) that the config has."""
+        d, hd = self.d_model, self.resolved_head_dim
+        fmul = 3 if self.gated_mlp else 2
+        parts: Dict[str, int] = {}
+        if not self.attention_free:
+            parts["attn"] = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
+        if self.ssm is not None:
+            s = self.ssm
+            di, dtr = s.d_inner(d), s.resolved_dt_rank(d)
+            parts["ssm"] = (d * 2 * di                 # in_proj (x, z)
+                            + di * s.d_conv             # conv (its bias uncounted,
+                                                        # as in the reference's count)
+                            + di * (dtr + 2 * s.d_state)  # x_proj
+                            + dtr * di + di             # dt_proj
+                            + di * s.d_state + di       # A_log, D
+                            + di * d)                   # out_proj
+            if getattr(self, "ssm_inner_norms", False):
+                parts["ssm"] += dtr + 2 * s.d_state
+        if self.moe is not None:
+            e = self.moe
+            parts["moe"] = d * e.num_experts + e.num_experts * fmul * d * e.d_ff_expert
+        if self.d_ff:
+            parts["mlp"] = fmul * d * self.d_ff
+        return parts
+
     def param_count(self) -> int:
-        """Analytic parameter count (embeddings + blocks + head)."""
+        """Analytic parameter count (embeddings + blocks + head), each layer
+        counted by its parts."""
         d, L = self.d_model, self.n_layers
-        hd = self.resolved_head_dim
         total = self.vocab * d  # embedding
         if not self.tie_embeddings:
             total += self.vocab * d
-        per_layer = 0
-        if not self.attention_free:
-            q = d * self.n_heads * hd
-            kv = 2 * d * self.n_kv_heads * hd
-            o = self.n_heads * hd * d
-            per_layer += q + kv + o
-        if self.ssm is not None:
-            di = self.ssm.d_inner(d)
-            dtr = self.ssm.resolved_dt_rank(d)
-            per_layer += d * 2 * di                 # in_proj (x, z)
-            per_layer += di * self.ssm.d_conv       # conv
-            per_layer += di * (dtr + 2 * self.ssm.d_state)  # x_proj
-            per_layer += dtr * di + di              # dt_proj
-            per_layer += di * self.ssm.d_state + di  # A_log, D
-            per_layer += di * d                      # out_proj
-        if self.moe is not None:
-            e = self.moe
-            per_layer += d * e.num_experts           # router
-            fmul = 3 if self.gated_mlp else 2
-            per_layer += e.num_experts * fmul * d * e.d_ff_expert
-        elif self.d_ff:
-            fmul = 3 if self.gated_mlp else 2
-            per_layer += fmul * d * self.d_ff
-        per_layer += 2 * d  # norms
-        total += L * per_layer
+        parts = self.part_params()
+        for i in range(L):
+            total += sum(parts[kind] for kind in self.layer_kinds(i)) + 2 * d  # norms
         if self.encdec:
             enc_layer = 4 * d * d + (3 if self.gated_mlp else 2) * d * self.d_ff + 2 * d
             cross = 4 * d * d + d
@@ -149,13 +190,10 @@ class ModelConfig:
         """Activated params per token (MoE: top_k of num_experts)."""
         if self.moe is None:
             return self.param_count()
-        dense = dataclasses.replace(self, moe=None)
-        d = self.d_model
+        e = self.moe
         fmul = 3 if self.gated_mlp else 2
-        active_ff = self.n_layers * (
-            d * self.moe.num_experts + self.moe.top_k * fmul * d * self.moe.d_ff_expert
-        )
-        return int(dense.param_count() + active_ff)
+        idle = (e.num_experts - e.top_k) * fmul * self.d_model * e.d_ff_expert
+        return int(self.param_count() - self.layer_count("moe") * idle)
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family/topology, tiny sizes."""
@@ -182,3 +220,54 @@ class ModelConfig:
         if self.window is not None:
             kw["window"] = 16
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ScheduledModelConfig(ModelConfig):
+    """A config whose layers differ in kind by a schedule (Jamba), with the
+    options its parts take.  Layer i is attention iff ``i %
+    attn_layer_period == attn_layer_offset`` (else SSM), and MoE iff ``i %
+    expert_layer_period == expert_layer_offset`` (else the dense MLP).
+    ``moe_renormalize``: the top-k gates divided by their sum (GShard,
+    Mixtral), or left as the softmax over all experts gave them.
+    ``moe_dropless``: every (token, choice) pair reaches its expert
+    (``moe.moe_block``'s grouped route), with no capacity.
+    ``ssm_inner_norms``: RMSNorms on dt, B and C after ``x_proj``.  The
+    zoo's other configs lack these options: ``moe.py`` and ``ssm.py`` read
+    them where a config has them."""
+    attn_layer_period: int = 1
+    attn_layer_offset: int = 0
+    expert_layer_period: int = 1
+    expert_layer_offset: int = 0
+    moe_renormalize: bool = True
+    moe_dropless: bool = False
+    ssm_inner_norms: bool = False
+    scheduled: ClassVar[bool] = True
+
+    def is_attention_layer(self, layer_idx: int) -> bool:
+        return (not self.attention_free
+                and layer_idx % self.attn_layer_period == self.attn_layer_offset)
+
+    def is_ssm_layer(self, layer_idx: int) -> bool:
+        return self.ssm is not None and not self.is_attention_layer(layer_idx)
+
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        return (self.moe is not None
+                and layer_idx % self.expert_layer_period == self.expert_layer_offset)
+
+    def reduced(self) -> "ScheduledModelConfig":
+        """Tiny sizes, keeping one whole period of the layers."""
+        period = max(2, self.attn_layer_period, self.expert_layer_period)
+        return dataclasses.replace(super().reduced(), n_layers=min(self.n_layers, period))
+
+
+@functools.lru_cache(maxsize=64)
+def _layer_slots(cfg: ModelConfig) -> Tuple[Dict[str, int], ...]:
+    seen: Dict[str, int] = {}
+    slots = []
+    for i in range(cfg.n_layers):
+        kinds = cfg.layer_kinds(i)
+        slots.append({kind: seen.get(kind, 0) if cfg.scheduled else i for kind in kinds})
+        for kind in kinds:
+            seen[kind] = seen.get(kind, 0) + 1
+    return tuple(slots)

@@ -9,16 +9,29 @@ expert's capacity is dropped.  Two dispatch modes, as in the reference:
   * "einsum"  -- dense one-hot dispatch and combine products (GShard);
   * "gather"  -- routing by a scatter of slot -> token index and gathers.
 
+A config with ``moe_dropless`` set (Jamba, ``ScheduledModelConfig``) routes
+without groups or capacity instead: every (token, choice) pair is sorted by
+expert, each expert's MLP runs over exactly its rows as grouped products over
+offsets on the device (``torch._grouped_mm``), and the outputs return to
+their tokens by an inverse permutation.  Nothing is dropped, and on the card
+nothing waits for the host (on the CPU a loop over experts takes the place
+of the grouped products).
+
 The router runs in float32; the gates are the top-k probabilities,
-renormalised; the Switch load-balancing loss (its eq. 4) times
-``load_balance_coef`` is returned beside the output.  The expert products
-are plain batched products (``torch.bmm``), as the reference's are ``jnp``
-einsums: no Pallas kernel of the reference covers this layer.
+renormalised (the dropless route only where the config's ``moe_renormalize``
+is on: Jamba keeps them as the softmax over all experts gave them); the
+Switch load-balancing loss (its eq. 4) times ``load_balance_coef`` is
+returned beside the output.  The
+expert products of the capacity routes are plain batched products
+(``torch.bmm``), as the reference's are ``jnp`` einsums: no Pallas kernel of
+the reference covers this layer.  ``route_tap``, when given, is called with
+each call's (N, K) expert choices and its (E,) tokens per expert (device
+tensors).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,14 +62,64 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _expert_counts(choices: torch.Tensor, experts: int) -> torch.Tensor:
+    """Pairs routed to each expert, (E,) int64, from any shape of choices
+    (a scatter-add: ``bincount`` would read the largest index on the host)."""
+    flat = choices.reshape(-1)
+    return torch.zeros(experts, dtype=torch.int64, device=flat.device).scatter_add_(
+        0, flat, torch.ones_like(flat))
+
+
+def _grouped_mlp(params: Dict, xs: torch.Tensor, offs: torch.Tensor, cfg) -> torch.Tensor:
+    """Each expert's MLP over its rows of ``xs`` (rows grouped by expert;
+    ``offs`` (E,) int32 the end of each group): grouped products on the
+    card; on the CPU one product an expert over the host's counts (the CPU's
+    grouped fallback is slower, and there is no device to wait for)."""
+    act = _ACT[cfg.act]
+    if xs.device.type == "cpu":
+        outs, start = [], 0
+        for e, end in enumerate(offs.tolist()):
+            rows = xs[start:end]
+            h = act(rows @ params["w_gate"][e]) * (rows @ params["w_up"][e]) \
+                if cfg.gated_mlp else act(rows @ params["w_up"][e])
+            outs.append(h @ params["w_down"][e])
+            start = end
+        return torch.cat(outs)
+    if cfg.gated_mlp:
+        h = act(torch._grouped_mm(xs, params["w_gate"], offs=offs)) \
+            * torch._grouped_mm(xs, params["w_up"], offs=offs)
+    else:
+        h = act(torch._grouped_mm(xs, params["w_up"], offs=offs))
+    return torch._grouped_mm(h, params["w_down"], offs=offs)
+
+
+def _dropless(params: Dict, x: torch.Tensor, cfg, gate_vals: torch.Tensor,
+              gate_idx: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """x (N, D) through the top-K experts of each token with no capacity:
+    the N*K pairs sorted by expert (stably, so by token within an expert),
+    the grouped MLP, then each token's K outputs gathered back and summed
+    with their gates."""
+    N, D = x.shape
+    K = gate_idx.shape[1]
+    order = torch.argsort(gate_idx.reshape(-1), stable=True)          # (N*K,)
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    ys = _grouped_mlp(params, x[order // K], offs, cfg)                # (N*K, D)
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(order.numel(), device=order.device))
+    y = ys[inv].reshape(N, K, D)
+    return torch.sum(y * gate_vals[..., None].to(x.dtype), dim=1)
+
+
 def moe_block(
     params: Dict,
     x: torch.Tensor,          # (B, S, D)
     cfg,
     capacity_factor: float = 1.25,
     dispatch_mode: str = "einsum",
+    route_tap: Optional[Callable[[torch.Tensor, torch.Tensor], None]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (output (B, S, D), aux loss: an f32 scalar)."""
+    """Returns (output (B, S, D), aux loss: an f32 scalar).  A dropless
+    config ignores ``capacity_factor`` and ``dispatch_mode``."""
     if dispatch_mode not in DISPATCH_MODES:
         raise ValueError(f"moe_block: dispatch_mode must be one of {DISPATCH_MODES}, "
                          f"got {dispatch_mode!r}")
@@ -64,6 +127,20 @@ def moe_block(
     B, S, D = x.shape
     E, K = e.num_experts, e.top_k
     N = B * S
+    if getattr(cfg, "moe_dropless", False):
+        xf = x.reshape(N, D)
+        logits = xf.float() @ params["router"].float()
+        probs = torch.softmax(logits, dim=-1)                      # (N, E)
+        gate_vals, gate_idx = _top_k(probs, K)                     # (N, K)
+        if cfg.moe_renormalize:
+            gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+        counts = _expert_counts(gate_idx, E)
+        if route_tap is not None:
+            route_tap(gate_idx, counts)
+        first = _expert_counts(gate_idx[:, 0], E).float() / N
+        aux = E * torch.sum(probs.mean(dim=0) * first) * e.load_balance_coef
+        out = _dropless(params, xf, cfg, gate_vals, gate_idx, counts).reshape(B, S, D)
+        return constrain(out, "batch", "seq", "embed"), aux
     # group tokens: G groups of Sg tokens (Sg divides N by construction)
     Sg = min(_GROUP_TOKENS, N)
     while N % Sg:
@@ -77,6 +154,8 @@ def moe_block(
 
     gate_vals, gate_idx = _top_k(probs, K)                         # (G, Sg, K)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    if route_tap is not None:
+        route_tap(gate_idx.reshape(N, K), _expert_counts(gate_idx, E))
 
     # Switch aux loss over the whole batch
     me = probs.mean(dim=(0, 1))                                    # (E,)

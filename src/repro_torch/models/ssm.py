@@ -10,7 +10,11 @@ decoding continues from.  The plain route (``impl="plain"``) is
 that kernel's plain version, ``kernels.mamba_scan.mamba_scan_ref``, called
 directly: the reference's ``ssm_scan`` followed by the C contraction, without
 keeping every h_t.  Decode (S == 1) carries (conv_state, ssm_state) and does
-one torch step.
+one torch step.  A config with ``ssm_inner_norms`` (Jamba) applies an
+RMSNorm to each of dt, B and C after ``x_proj`` (leaves ``dt_norm``,
+``b_norm``, ``c_norm``).  A prefill in chunks (``transformer.prefill``) passes
+each chunk the conv and SSM state the one before left in the cache, so dA
+and dBx are built for one chunk at a time.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.mamba_scan import mamba_scan_ref
-from .layers import IMPLS
+from .layers import IMPLS, rmsnorm
 from .partitioning import constrain, local_call
 
 
@@ -52,6 +56,10 @@ def _ssm_core(params, xz, cfg, conv_state=None, ssm_state=None, impl: str = "ker
     # split it before dt, B and C are used
     proj = constrain(x @ params["x_proj"], "batch", "seq", None)
     dt, Bm, Cm = torch.split(proj, [R, N, N], dim=-1)
+    if getattr(cfg, "ssm_inner_norms", False):
+        dt = rmsnorm(dt, params["dt_norm"], cfg.norm_eps)
+        Bm = rmsnorm(Bm, params["b_norm"], cfg.norm_eps)
+        Cm = rmsnorm(Cm, params["c_norm"], cfg.norm_eps)
     dt = F.softplus(dt @ params["dt_proj"] + params["dt_bias"])   # (B, S, DI)
     A = -torch.exp(params["A_log"].float())               # (DI, N)
     dA = torch.exp(dt[..., None].float() * A[None, None])  # (B, S, DI, N)

@@ -6,6 +6,12 @@ Parameters are a nested dict of tensors in the reference's layout: layer
 leaves are stacked with a leading L dimension, and the stack is a Python
 loop over layers (the reference's ``lax.scan``), so each layer's attention
 gets its own window: ``cfg.window`` on local layers, none on global ones.
+A config with a layer schedule (``ModelConfig.scheduled``: Jamba's attention
+and Mamba layers, MoE and dense MLPs) stacks each part over the layers that
+have it (``layers["attn"]`` over the attention layers, ``layers["ssm"]`` over
+the SSM layers, ...; the norms over all L), and its serving caches likewise:
+keys and values for the attention layers, conv and SSM state for the SSM
+layers (``ModelConfig.layer_slots`` maps a layer to its rows).
 
 Three entry points share all code paths:
     forward(params, batch, cfg, remat)       -> logits, aux  [training]
@@ -27,7 +33,11 @@ projects each layer's cross keys and values once into the cache (``ck``,
 ``cv``), which decoding reads.  An MoE model's channel sublayer is
 ``moe.moe_block`` (``dispatch_mode`` and ``capacity_factor`` are keywords
 of all three entry points); its load-balancing loss, summed over layers in
-f32, is ``forward``'s aux.
+f32, is ``forward``'s aux.  ``prefill`` takes ``chunk`` (the prompt in pieces
+that each continue the state) and ``caches`` (write into given caches, such
+as one slot's views of a batcher's pool); ``prefill`` and ``decode_step``
+take ``counters`` (``models.counters.LMCounters``).  While ``torch.profiler``
+records, each sublayer opens its span (``repro_torch.lm.*``, ``core/trace.py``).
 """
 from __future__ import annotations
 
@@ -41,6 +51,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as torch_checkpoint
 from torch.distributed.tensor import distribute_tensor
 
+from ..core.trace import (LM_ATTENTION, LM_HEAD, LM_MAMBA, LM_MLP, LM_MOE, maybe_span,
+                          profiling)
 from .config import ModelConfig
 from .layers import CausalMask, apply_norm, attention_block, mlp_block, softcap_logits
 from .moe import moe_block
@@ -94,7 +106,7 @@ def _ssm_shapes(cfg) -> Dict[str, tuple]:
     D = cfg.d_model
     DI = s.d_inner(D)
     N, R = s.d_state, s.resolved_dt_rank(D)
-    return {
+    shapes = {
         "in_proj": (D, 2 * DI),
         "conv_w": (s.d_conv, DI),
         "conv_b": (DI,),
@@ -105,6 +117,14 @@ def _ssm_shapes(cfg) -> Dict[str, tuple]:
         "D": (DI,),
         "out_proj": (DI, D),
     }
+    if getattr(cfg, "ssm_inner_norms", False):
+        shapes.update({"dt_norm": (R,), "b_norm": (N,), "c_norm": (N,)})
+    return shapes
+
+
+#: a layer's parts, each stacked over the layers that have it under a schedule
+_PART_SHAPES = {"attn": _attn_shapes, "ssm": _ssm_shapes, "moe": _moe_shapes,
+                "mlp": _mlp_shapes}
 
 
 def decoder_layer_shapes(cfg) -> Dict[str, Any]:
@@ -149,12 +169,30 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
+def _layer_tree_shapes(cfg) -> Dict[str, Any]:
+    """Every layer leaf stacked over all L, or under a schedule each part
+    over the layers that have it and the norms over all L."""
+    L = cfg.n_layers
+    if not cfg.scheduled:
+        return _tree_map(lambda s: (L,) + s, decoder_layer_shapes(cfg))
+    if cfg.encdec:
+        raise NotImplementedError("a layer schedule is for decoder-only models")
+    tree: Dict[str, Any] = {"norm1": _tree_map(lambda s: (L,) + s, _norm_shape(cfg))}
+    if cfg.moe is not None or cfg.d_ff:
+        tree["norm2"] = _tree_map(lambda s: (L,) + s, _norm_shape(cfg))
+    for kind, shapes in _PART_SHAPES.items():
+        n = cfg.layer_count(kind)
+        if n:
+            tree[kind] = _tree_map(lambda s, n=n: (n,) + s, shapes(cfg))
+    return tree
+
+
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     D, V = cfg.d_model, cfg.vocab
     tree: Dict[str, Any] = {
         "embed": (V, D),
         "final_norm": _norm_shape(cfg),
-        "layers": _tree_map(lambda s: (cfg.n_layers,) + s, decoder_layer_shapes(cfg)),
+        "layers": _layer_tree_shapes(cfg),
     }
     if not cfg.tie_embeddings:
         tree["lm_head"] = (V, D)
@@ -216,25 +254,28 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl):
-    """Token-mixing sublayer: attention / SSM / both in parallel (hymba)."""
+def _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl, spans=False):
+    """Token-mixing sublayer: attention / SSM / both in parallel (hymba), as
+    the layer's parameters hold them."""
     h = apply_norm(x, lp["norm1"], cfg.norm, cfg.norm_eps)
     outs = []
     new_cache: Dict[str, Any] = {}
-    if not cfg.attention_free:
+    if "attn" in lp:
         kv_cache = None
         if cache is not None:
             kv_cache = {"k": cache["k"], "v": cache["v"], "pos": cache_pos}
-        a_out, a_cache = attention_block(lp["attn"], h, cfg, positions, mask, kv_cache,
-                                         impl=impl)
+        with maybe_span(spans, LM_ATTENTION):
+            a_out, a_cache = attention_block(lp["attn"], h, cfg, positions, mask, kv_cache,
+                                             impl=impl)
         outs.append(a_out)
         if a_cache is not None:
             new_cache.update({"k": a_cache["k"], "v": a_cache["v"]})
-    if cfg.ssm is not None:
+    if "ssm" in lp:
         s_cache = None
         if cache is not None:
             s_cache = {"conv": cache["conv"], "ssm": cache["ssm"]}
-        s_out, s_cache_new = ssm_block(lp["ssm"], h, cfg, s_cache, impl)
+        with maybe_span(spans, LM_MAMBA):
+            s_out, s_cache_new = ssm_block(lp["ssm"], h, cfg, s_cache, impl)
         outs.append(s_out)
         if s_cache_new is not None:
             new_cache.update(s_cache_new)
@@ -242,28 +283,36 @@ def _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl):
     return x + mixed, (new_cache if cache is not None else None)
 
 
-def _channel(cfg, lp, x, dispatch_mode, capacity_factor):
-    """Channel-mixing sublayer: dense MLP or MoE.  Returns the new x and the
-    layer's aux loss (None without MoE, its one source)."""
-    if cfg.moe is not None:
+def _channel(cfg, lp, x, dispatch_mode, capacity_factor, spans=False, route_tap=None):
+    """Channel-mixing sublayer: dense MLP or MoE, as the layer's parameters
+    hold them.  Returns the new x and the layer's aux loss (None without
+    MoE, its one source)."""
+    if "moe" in lp:
         h = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
-        out, aux = moe_block(lp["moe"], h, cfg, capacity_factor, dispatch_mode)
+        with maybe_span(spans, LM_MOE):
+            out, aux = moe_block(lp["moe"], h, cfg, capacity_factor, dispatch_mode,
+                                 route_tap)
         return x + out, aux
-    if cfg.d_ff:
+    if "mlp" in lp:
         h = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
-        return x + mlp_block(lp["mlp"], h, cfg), None
+        with maybe_span(spans, LM_MLP):
+            out = mlp_block(lp["mlp"], h, cfg)
+        return x + out, None
     return x, None
 
 
 def decoder_layer(cfg, lp, x, positions, mask, cache, cache_pos, impl="kernel",
-                  enc_out=None, dispatch_mode="einsum", capacity_factor=1.25):
+                  enc_out=None, dispatch_mode="einsum", capacity_factor=1.25,
+                  spans=False, route_tap=None):
     """Self-attention and/or SSM, then (encoder-decoder) cross-attention over
     ``enc_out``, or at decode (``enc_out`` None) over the cache's static
-    ``ck``, ``cv``, then the MLP or MoE.  Returns (x, new cache, aux), aux
-    None without MoE.  Under sharding rules the layer's weights are
-    gathered over their FSDP axes first (``gather_weights``)."""
+    ``ck``, ``cv``, then the MLP or MoE: the parts ``lp`` holds.  Returns
+    (x, new cache, aux), aux None without MoE.  Under sharding rules the
+    layer's weights are gathered over their FSDP axes first
+    (``gather_weights``).  ``spans``: open the sublayers' profiler spans;
+    ``route_tap``: the MoE router's tap (``moe.moe_block``)."""
     lp = gather_weights(lp)
-    x, new_cache = _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl)
+    x, new_cache = _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl, spans)
     if cfg.encdec:
         h = apply_norm(x, lp["norm_cross"], cfg.norm, cfg.norm_eps)
         c_cache = None
@@ -272,7 +321,7 @@ def decoder_layer(cfg, lp, x, positions, mask, cache, cache_pos, impl="kernel",
         c_out, _ = attention_block(lp["cross"], h, cfg, None, None, c_cache, kv_x=enc_out,
                                    cross=True, impl=impl)
         x = x + c_out
-    x, aux = _channel(cfg, lp, x, dispatch_mode, capacity_factor)
+    x, aux = _channel(cfg, lp, x, dispatch_mode, capacity_factor, spans, route_tap)
     return x, new_cache, aux
 
 
@@ -294,9 +343,33 @@ def _dots_saveable():
     return functools.partial(torch_checkpoint.create_selective_checkpoint_contexts, policy)
 
 
+#: the cache leaves of each layer part; any other leaf (cross-attention's
+#: ``ck``, ``cv``) has a row per layer
+_CACHE_PART = {"k": "attn", "v": "attn", "conv": "ssm", "ssm": "ssm"}
+
+
+def _layer_params(per_layer, slots, i):
+    """Layer ``i``'s parameters from the unbound stacked leaves: each part
+    its row (``slots``), the norms and any other leaf row ``i``."""
+    return {name: _tree_map(lambda parts, j=slots.get(name, i): parts[j], sub)
+            for name, sub in per_layer.items()
+            if name in slots or name not in _PART_SHAPES}
+
+
+def _layer_cache(caches, slots, i):
+    out = {}
+    for name, t in caches.items():
+        part = _CACHE_PART.get(name)
+        if part is None:
+            out[name] = t[i]
+        elif part in slots:
+            out[name] = t[slots[part]]
+    return out
+
+
 def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
                   cache_pos, impl="kernel", remat: str = "none", enc_out=None,
-                  dispatch_mode="einsum", capacity_factor=1.25):
+                  dispatch_mode="einsum", capacity_factor=1.25, counters=None):
     """Apply every layer in turn; returns (x, caches, aux), aux the layers'
     MoE losses summed in f32 from zero.  ``mask`` is the global layers' mask; a
     local layer takes it with ``cfg.window``.  Each layer's new cache state
@@ -305,6 +378,7 @@ def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
     reference's ``jax.checkpoint`` of its scan body does; it needs
     ``caches`` None.  ``enc_out`` is the encoder's output that every layer's
     cross-attention reads (encoder-decoder, training and prefill).
+    ``counters`` (``LMCounters``) receives each MoE layer's routing.
 
     The stacked (L, ...) leaves are split once with ``unbind``: indexing
     ``t[i]`` per layer would make every layer's backward allocate a zero
@@ -315,11 +389,12 @@ def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
         raise ValueError("decoder_stack: remat is for training; the serving caches "
                          "are written in place")
     context_fn = _dots_saveable() if remat == "dots" else None
-    moe_kw = dict(dispatch_mode=dispatch_mode, capacity_factor=capacity_factor)
+    moe_kw = dict(dispatch_mode=dispatch_mode, capacity_factor=capacity_factor,
+                  spans=profiling())
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     per_layer = _tree_map(lambda t: t.unbind(0), layers)
-    for i in range(cfg.n_layers):
-        lp = _tree_map(lambda parts: parts[i], per_layer)
+    for i, slots in enumerate(cfg.layer_slots()):
+        lp = _layer_params(per_layer, slots, i)
         layer_mask = mask
         if mask is not None and cfg.is_local_layer(i):
             layer_mask = dataclasses.replace(mask, window=cfg.window)
@@ -333,15 +408,19 @@ def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
             x, a = torch_checkpoint.checkpoint(run, x, lp, enc_out, use_reentrant=False,
                                                **kw)
         else:
-            cache_l = None if caches is None else {k: t[i] for k, t in caches.items()}
+            cache_l = None if caches is None else _layer_cache(caches, slots, i)
+            tap = None
+            if counters is not None and "moe" in slots:
+                tap = functools.partial(counters.routed, slots["moe"])
             x, new_cache, a = decoder_layer(cfg, lp, x, positions, layer_mask, cache_l,
-                                            cache_pos, impl, enc_out, **moe_kw)
+                                            cache_pos, impl, enc_out, route_tap=tap,
+                                            **moe_kw)
         if a is not None:
             aux = aux + a
         if caches is not None:
             for k in ("conv", "ssm"):  # k and v were written in place
                 if k in new_cache:
-                    caches[k][i].copy_(new_cache[k])
+                    caches[k][slots["ssm"]].copy_(new_cache[k])
     return x, caches, aux
 
 
@@ -429,9 +508,10 @@ def _lm_logits(cfg, params, x):
 
 
 def _make_caches(cfg, B, max_len, dtype, device):
-    """Zeroed serving caches; under sharding rules, DTensors split as the
-    rules split the batch, the kv heads and d_inner."""
-    L = cfg.n_layers
+    """Zeroed serving caches: keys and values with a row per attention layer,
+    conv and SSM state with a row per SSM layer (every layer of a config
+    without a schedule); under sharding rules, DTensors split as the rules
+    split the batch, the kv heads and d_inner."""
     rules = get_rules()
 
     def zeros(shape, dt, *names):
@@ -447,13 +527,15 @@ def _make_caches(cfg, B, max_len, dtype, device):
         # sliding-window-only model's cache at the window and then overflows
         # it past that many tokens: ROADMAP Queue 3 (f).)
         kv = (None, "batch", None, "kv_heads", None)
-        per["k"] = zeros((L, B, max_len, KV, hd), dtype, *kv)
-        per["v"] = zeros((L, B, max_len, KV, hd), dtype, *kv)
+        La = cfg.layer_count("attn")
+        per["k"] = zeros((La, B, max_len, KV, hd), dtype, *kv)
+        per["v"] = zeros((La, B, max_len, KV, hd), dtype, *kv)
     if cfg.ssm is not None:
         s = cfg.ssm
         DI = s.d_inner(cfg.d_model)
-        per["conv"] = zeros((L, B, s.d_conv - 1, DI), dtype, None, "batch", None, "ff")
-        per["ssm"] = zeros((L, B, DI, s.d_state), torch.float32, None, "batch", "ff", None)
+        Ls = cfg.layer_count("ssm")
+        per["conv"] = zeros((Ls, B, s.d_conv - 1, DI), dtype, None, "batch", None, "ff")
+        per["ssm"] = zeros((Ls, B, DI, s.d_state), torch.float32, None, "batch", "ff", None)
     return per
 
 
@@ -476,44 +558,80 @@ def forward(params, batch, cfg: ModelConfig, remat: str = "none", impl: str = "k
         enc_out = encoder_stack(cfg, params["encoder"], batch["frames"], remat, impl)
     x, _, aux = decoder_stack(cfg, params["layers"], x, positions, CausalMask(S, S), None,
                               None, impl, remat, enc_out, dispatch_mode, capacity_factor)
-    x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    return _lm_logits(cfg, params, x), aux
+    return _head(cfg, params, x), aux
+
+
+def _head(cfg, params, x):
+    """The final norm and the logits, in the span ``repro_torch.lm.head``."""
+    with maybe_span(profiling(), LM_HEAD):
+        x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+        return _lm_logits(cfg, params, x)
 
 
 @torch.no_grad()
 def prefill(params, batch, cfg: ModelConfig, max_len: int, impl: str = "kernel",
-            dispatch_mode: str = "einsum", capacity_factor: float = 1.25):
+            dispatch_mode: str = "einsum", capacity_factor: float = 1.25, *,
+            chunk: Optional[int] = None, caches: Optional[Dict[str, Any]] = None,
+            counters=None):
     """Process the prompt, returning last-position logits + serving cache
     (with an encoder-decoder model, the encoder's output's cross keys and
-    values too)."""
-    x = _embed_inputs(cfg, params, batch)
-    B, S = x.shape[0], x.shape[1]
-    positions = batch.get("positions")
-    if positions is None and cfg.rope != "none":
-        positions = _positions(B, S, 0, x.device)
-    caches = _make_caches(cfg, B, max_len, getattr(torch, cfg.dtype), x.device)
+    values too).
+
+    ``chunk``: take the prompt in pieces of at most ``chunk`` positions, in
+    order; each continues the conv and SSM state the one before left in the
+    cache and writes its keys and values at its offset, so no piece's
+    activations (the scan's (B, S, DI, N) dA and dBx among them) are built
+    for more than ``chunk`` positions.  ``caches``: write into these, of B
+    rows, in place of fresh zeroed ones of ``max_len`` positions (their conv
+    and SSM state must be zero: the state before the first position).
+    ``counters``: an ``LMCounters``, which counts the chunks, the tokens and
+    the routing."""
+    key = "embeds" if "embeds" in batch else "tokens"
+    B, S = batch[key].shape[0], batch[key].shape[1]
+    if chunk is not None and chunk < 1:
+        raise ValueError(f"prefill: chunk must be None or >= 1, got {chunk!r}")
+    step = S if chunk is None else chunk
+    dev = params["embed"].device
+    if caches is None:
+        caches = _make_caches(cfg, B, max_len, getattr(torch, cfg.dtype), dev)
     enc_out = None
     if cfg.encdec:
         enc_out = encoder_stack(cfg, params["encoder"], batch["frames"], impl=impl)
         caches["ck"], caches["cv"] = _cross_kv(cfg, params["layers"], enc_out)
     S_kv = caches["k"].shape[2] if "k" in caches else S
-    x, caches, _ = decoder_stack(cfg, params["layers"], x, positions, CausalMask(S, S_kv),
-                                 caches, 0, impl, enc_out=enc_out, dispatch_mode=dispatch_mode,
-                                 capacity_factor=capacity_factor)
-    x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    logits = _lm_logits(cfg, params, x[:, -1:])
+    given = batch.get("positions")
+    if counters is not None:
+        counters.decoding = False
+    for off in range(0, S, step):
+        c = min(step, S - off)
+        whole = c == S  # the prompt as given (a sharded batch is not sliced)
+        x = _embed_inputs(cfg, params, {key: batch[key] if whole else batch[key][:, off:off + c],
+                                        "pos_offset": off})
+        positions = given if given is None or whole else given[..., off:off + c]
+        if positions is None and cfg.rope != "none":
+            positions = _positions(B, c, off, dev)
+        x, caches, _ = decoder_stack(cfg, params["layers"], x, positions,
+                                     CausalMask(c, S_kv, q_offset=off), caches, off, impl,
+                                     enc_out=enc_out, dispatch_mode=dispatch_mode,
+                                     capacity_factor=capacity_factor, counters=counters)
+        if counters is not None:
+            counters.prefill_chunks += 1
+            counters.prefill_tokens += B * c
+    logits = _head(cfg, params, x[:, -1:])
     return logits, {"layers": caches, "pos": S}
 
 
 @torch.no_grad()
 def decode_step(params, tokens, cache, cfg: ModelConfig, impl: str = "kernel",
-                dispatch_mode: str = "einsum", capacity_factor: float = 1.25):
+                dispatch_mode: str = "einsum", capacity_factor: float = 1.25,
+                counters=None):
     """One serving step: tokens (B, 1) -> logits (B, 1, V), updated cache.
     ``cache["pos"]`` is a host int that every row shares, or a sequence of B
     host ints, one per row: row b's token then sits at its own position for
     the position embedding, the cache write and the causal mask.  The
     per-row positions go to the device once, as one (B,) int32 tensor that
-    every layer shares."""
+    every layer shares.  ``counters``: an ``LMCounters``, which counts the
+    step and its routing."""
     pos = cache["pos"]
     B = tokens.shape[0]
     dev = params["embed"].device
@@ -534,10 +652,13 @@ def decode_step(params, tokens, cache, cfg: ModelConfig, impl: str = "kernel",
     if "k" in layers_cache:
         mask = CausalMask(1, layers_cache["k"].shape[2], q_offset=pos,
                           offsets=offsets if per_row else None)
+    if counters is not None:
+        counters.decoding = True
     x, layers_cache, _ = decoder_stack(cfg, params["layers"], x, positions, mask,
                                        layers_cache, pos, impl, dispatch_mode=dispatch_mode,
-                                       capacity_factor=capacity_factor)
-    x = apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
-    logits = _lm_logits(cfg, params, x)
+                                       capacity_factor=capacity_factor, counters=counters)
+    logits = _head(cfg, params, x)
+    if counters is not None:
+        counters.decode_steps += 1
     new_pos = tuple(p + 1 for p in pos) if per_row else pos + 1
     return logits, {"layers": layers_cache, "pos": new_pos}

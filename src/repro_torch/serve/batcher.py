@@ -21,11 +21,19 @@ Implementation notes:
     next admission overwrites the slot whole.  (The reference lets an idle
     slot's position run on and clamps its writes at the cache's end; the
     port raises past the end, ROADMAP Queue 3 (f).)
-  * admission prefills one prompt (B = 1) with the pool's ``max_len`` and
-    copies its k, v, conv and ssm state into the slot.
+  * admission prefills one prompt (B = 1) straight into the slot's own rows
+    of the pooled caches (views; the slot's conv and SSM state zeroed first),
+    in chunks of at most ``prefill_chunk`` positions when one is given
+    (``models.transformer.prefill``): no cache of B = 1 is made or copied.
   * a step synchronises with the device once: one copy to the host of every
     slot's new token, and of the first tokens (from prefill) of the slots
     admitted in that step.
+  * with ``counters=True`` an ``LMCounters`` (``models.counters``) counts
+    decode steps, prefill chunks and tokens, and each MoE layer's routing on
+    the device (a few launches a MoE layer, so off by default); ``loads()``
+    reads them (one sync) with the collector's seconds.  While
+    ``torch.profiler`` records, an admission's prefill opens the span
+    ``repro_torch.serve.prefill`` and a decode step ``repro_torch.serve.step``.
 """
 from __future__ import annotations
 
@@ -37,8 +45,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.trace import COLLECTOR, SERVE_PREFILL, SERVE_STEP, maybe_span, profiling
 from ..models import decode_step, prefill
 from ..models.config import ModelConfig
+from ..models.counters import LMCounters
 from ..models.transformer import _make_caches
 
 
@@ -59,18 +69,29 @@ class ContinuousBatcher:
     time, admissions and active slots (``"steps"``), each request's time from
     ``submit`` to its first token on the host (``"ttft_s"``) and, when
     ``run`` returns, each request's logits, one row per token
-    (``"logits"``, rid -> (n, V) f32 numpy)."""
+    (``"logits"``, rid -> (n, V) f32 numpy).  ``prefill_chunk`` bounds the
+    positions an admission's prefill takes at once (None: the whole prompt).
+    On the device stay ``logits``, the last decode step's (max_slots, V),
+    and ``prompt_logits[slot]``, the slot's request's (V,) at its last
+    prompt position."""
 
     def __init__(self, cfg: ModelConfig, params, max_slots: int = 4, max_len: int = 256,
                  eos_id: Optional[int] = None, *, impl: str = "kernel",
-                 record: Optional[Dict[str, Any]] = None):
+                 record: Optional[Dict[str, Any]] = None,
+                 prefill_chunk: Optional[int] = None, counters: bool = False):
         self.cfg = cfg
         self.params = params
         self.max_slots = max_slots
         self.max_len = max_len
         self.eos_id = eos_id
         self.impl = impl
+        self.prefill_chunk = prefill_chunk
         self.device = params["embed"].device
+        self.counters = LMCounters(cfg, self.device) if counters else None
+        COLLECTOR.install()
+        self._pycollect0 = COLLECTOR.seconds
+        self.logits: Optional[torch.Tensor] = None
+        self.prompt_logits: List[Optional[torch.Tensor]] = [None] * max_slots
         self._queue: deque = deque()
         self._active: Dict[int, Request] = {}   # slot -> request
         self._next_rid = 0
@@ -110,10 +131,20 @@ class ContinuousBatcher:
             slot = free.pop(0)
             req = self._queue.popleft()
             tokens = torch.as_tensor(req.prompt[None], device=self.device)
-            logits, cache1 = prefill(self.params, {"tokens": tokens}, self.cfg,
-                                     max_len=self.max_len, impl=self.impl)
-            for name, pooled in self.cache.items():
-                pooled[:, slot].copy_(cache1["layers"][name][:, 0])
+            rows = {name: pooled[:, slot:slot + 1] for name, pooled in self.cache.items()}
+            for name in ("conv", "ssm"):  # the state before the first position
+                if name in rows:
+                    rows[name].zero_()
+            if self.counters is not None:
+                self.counters.slot = slot
+            with maybe_span(profiling(), SERVE_PREFILL):
+                logits, cache1 = prefill(self.params, {"tokens": tokens}, self.cfg,
+                                         max_len=self.max_len, impl=self.impl,
+                                         chunk=self.prefill_chunk, caches=rows,
+                                         counters=self.counters)
+            if self.counters is not None:
+                self.counters.slot = None
+            self.prompt_logits[slot] = logits[0, -1]
             self.cur_tokens[slot, 0] = torch.argmax(logits[0, -1])  # read at the step
             self.pos[slot] = cache1["pos"]
             self._active[slot] = req
@@ -129,12 +160,14 @@ class ContinuousBatcher:
             self._t_step = None
             return []
         inputs = self.cur_tokens
-        logits, _ = decode_step(self.params, inputs,
-                                {"layers": self.cache, "pos": tuple(self.pos)}, self.cfg,
-                                impl=self.impl)
-        next_tok = torch.argmax(logits[:, -1], dim=-1)
-        self.cur_tokens = next_tok[:, None]
-        first, new = torch.stack([inputs[:, 0], next_tok]).cpu().tolist()  # the one sync
+        with maybe_span(profiling(), SERVE_STEP):
+            logits, _ = decode_step(self.params, inputs,
+                                    {"layers": self.cache, "pos": tuple(self.pos)}, self.cfg,
+                                    impl=self.impl, counters=self.counters)
+            self.logits = logits[:, -1]
+            next_tok = torch.argmax(self.logits, dim=-1)
+            self.cur_tokens = next_tok[:, None]
+            first, new = torch.stack([inputs[:, 0], next_tok]).cpu().tolist()  # the one sync
         t1 = time.perf_counter()
         fresh, self._fresh = self._fresh, []
         for slot in fresh:
@@ -160,6 +193,13 @@ class ContinuousBatcher:
                 del self._active[slot]   # slot freed -> next admit reuses it
                 self.pos[slot] = 0       # parked until then
         return emitted
+
+    def loads(self) -> Dict[str, float]:
+        """``pycollect_s``, the seconds Python's collector ran since this
+        batcher was made, and with ``counters`` the serving path's counts
+        (``LMCounters.loads``, one sync)."""
+        counts = self.counters.loads() if self.counters is not None else {}
+        return {**counts, "pycollect_s": COLLECTOR.seconds - self._pycollect0}
 
     def run(self) -> Dict[int, List[int]]:
         """Drain queue + active slots; returns rid -> generated tokens."""
