@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the six hand-written Hopper kernels from ``src/repro_torch/csrc``
-(``matmul``, ``glm_fused``, ``flash_attention``, ``flash_attention_bwd``,
-``mamba_scan``, ``mamba_scan_bwd``; one ``nvcc`` each, all at once), holds
+Builds the seven hand-written Hopper kernel libraries from
+``src/repro_torch/csrc`` (``matmul``, ``glm_fused``, ``flash_attention``,
+``flash_attention_bwd``, ``mamba_scan``, ``mamba_scan_bwd``, ``mamba_step``;
+one ``nvcc`` each, all at once), holds
 each against its plain PyTorch version at its main path's shapes and times
 both (CUDA events), then drives the main paths at full width:
 
@@ -179,6 +180,7 @@ from repro_torch.kernels.flash_attention import (flash_attention_ref, kv_splits,
 from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref  # noqa: E402
 from repro_torch.kernels.glm_fused import glm_fused_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref  # noqa: E402
+from repro_torch.kernels.mamba_step import conv_step_ref, state_step_ref  # noqa: E402
 from repro_torch.kernels.matmul import loaders, matmul_ref, tiles  # noqa: E402
 from repro_torch.launch import chaos as chaos_driver  # noqa: E402
 from repro_torch.launch.chaos import _newton_iteration  # noqa: E402
@@ -425,14 +427,23 @@ FLASH_BWD_SRC = ("src/repro_torch/csrc/flash_attention_bwd.cu",
 #: by jax autodiff of its associative scan
 SCAN_BWD_SRC = ("src/repro_torch/csrc/mamba_scan_bwd.cu",
                 "src/repro/kernels/mamba_scan.py:43 (its gradient; no Pallas kernel)")
+#: replaces no TPU kernel: the reference's Mamba decode step is plain JAX
+STEP_SRC = ("src/repro_torch/csrc/mamba_step.cu",
+            "none (the reference's decode step, src/repro/models/ssm.py, is plain JAX)")
+#: the Mamba decode step at jamba-decode-32's shapes: 32 rows, Jamba's widths
+#: (DI 8192, N 16, dt_rank 256, the dt/B/C norms), bf16; kernels against the
+#: plain versions relative to the largest plain value, as
+#: tests/test_torch_mamba_step.py holds them (the plain versions round to
+#: bf16 where the kernels keep f32)
+STEP = dict(arch="jamba2-mini", batch=32, tol={"y": 3e-2, "ssm": 1e-2})
 #: the libraries whose kernels were redesigned for Hopper (tensor cores,
 #: asynchronous copies, split-KV, the scan's checkpoints); their ptxas report
 #: must show no register spills
 REDESIGNED = ("matmul", "flash_attention", "flash_attention_bwd", "mamba_scan",
-              "mamba_scan_bwd")
+              "mamba_scan_bwd", "mamba_step")
 #: every kernel library, built at once
 KERNELS = ["matmul", "glm_fused", "flash_attention", "flash_attention_bwd", "mamba_scan",
-           "mamba_scan_bwd"]
+           "mamba_scan_bwd", "mamba_step"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -748,6 +759,66 @@ def scan_case(name, dA, dBx, C):
     return case
 
 
+def step_case(dev, g):
+    """The Mamba decode step at STEP's shapes: the two kernels around the
+    x_proj product against the plain versions on copies of one cache row;
+    device time of each kernel, the whole step's CUDA-event time on both
+    routes, and the kernels' byte bound (the SSM state read and written,
+    dt_proj, the conv state, x, z and y; the x_proj product is not theirs)."""
+    cfg = get_config(STEP["arch"])
+    s, B, D = cfg.ssm, STEP["batch"], cfg.d_model
+    DI, N, K, R = s.d_inner(D), s.d_state, s.d_conv, s.resolved_dt_rank(D)
+
+    def u(*shape, scale=1.0, dtype=torch.bfloat16):
+        return ((torch.rand(shape, device=dev, generator=g) * 2 - 1) * scale).to(dtype)
+
+    p = {"conv_w": u(K, DI, scale=0.5), "conv_b": u(DI, scale=0.3),
+         "x_proj": u(DI, R + 2 * N, scale=DI ** -0.5), "dt_proj": u(R, DI, scale=R ** -0.5),
+         "dt_bias": u(DI, scale=0.5) - 4.6, "D": torch.ones(DI, device=dev).bfloat16(),
+         "A_log": torch.log(torch.arange(1, N + 1, device=dev).float()).expand(DI, N)
+         .contiguous().bfloat16(),
+         "norms": [u(R, scale=0.3), u(N, scale=0.3), u(N, scale=0.3)]}
+    xz = u(B, 1, 2 * DI)
+    conv0, ssm0 = u(B, K - 1, DI), u(B, DI, N, dtype=torch.float32)
+
+    def step(conv, state, plain=False):
+        conv_step, state_step = ((conv_step_ref, state_step_ref) if plain
+                                 else (ops.mamba_conv_step, ops.mamba_state_step))
+        x, z = torch.chunk(xz, 2, dim=-1)
+        x, _ = conv_step(x, conv, p["conv_w"], p["conv_b"])
+        y, _ = state_step(x @ p["x_proj"], x, z, state, p["dt_proj"], p["dt_bias"],
+                          p["A_log"], p["D"], *p["norms"], eps=cfg.norm_eps)
+        return y
+
+    kern = {"conv": conv0.clone(), "ssm": ssm0.clone()}
+    plain = {"conv": conv0.clone(), "ssm": ssm0.clone()}
+    reset_launches()
+    y, y_ref = step(kern["conv"], kern["ssm"]), step(plain["conv"], plain["ssm"], plain=True)
+    sync()
+    check(launches["mamba_step"] == 1, f"mamba_step launches {launches['mamba_step']}")
+    check(torch.equal(kern["conv"], plain["conv"]), "mamba_step: the conv states differ")
+    err = {"y": ((y.float() - y_ref.float()).abs().max() / y_ref.float().abs().max()).item(),
+           "ssm": ((kern["ssm"] - plain["ssm"]).abs().max()
+                   / plain["ssm"].abs().max()).item()}
+    state_bytes = (8 * B * DI * N + 2 * (R * DI + DI * N + 3 * B * DI + B * (R + 2 * N)))
+    conv_bytes = 2 * (2 * B * (K - 1) * DI + 2 * B * DI + K * DI)
+    # f32 arithmetic off the tensor cores: dt's product over R, then ~12 a lane
+    bound_ms, bound_by = bound(B * DI * (2.0 * R + 12 * N), state_bytes + conv_bytes,
+                               torch.float32)
+    device = device_ms_by_kernel(lambda: step(kern["conv"], kern["ssm"]),
+                                 {"conv": "conv_step_kernel", "state": "state_step_kernel"})
+    case = dict(case=f"decode B {B} DI {DI} N {N} R {R} bf16", dtype="bfloat16",
+                shape=[B, DI, N, R], max_abs_err=max(err.values()), rel_err=err,
+                tol=STEP["tol"], ms=device["conv"] + device["state"], device_ms=device,
+                step_ms=time_ms(lambda: step(kern["conv"], kern["ssm"])),
+                plain_ms=time_ms(lambda: step(plain["conv"], plain["ssm"], plain=True)),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                peak=PEAK_NAME[torch.float32])
+    emit("kernel_case", kernel="mamba_step", **case)
+    check(all(err[k] <= STEP["tol"][k] for k in err), f"mamba_step: rel err {err}")
+    return case
+
+
 def ragged_decode_cases(dev, g):
     """A continuous-batching decode step of hymba-1.5b: 8 slots, each at its
     own position in a cache of RAGGED["max_len"], global and local."""
@@ -795,7 +866,7 @@ def serve_kernel_phase(dev):
     scan = [scan_case(f"prefill {list(dA.shape)} f32", dA, dBx, C)]
     del dA, dBx, C
     _release()
-    return flash, scan
+    return flash, scan, [step_case(dev, g)]
 
 
 def dense_kernel_cases(dev):
@@ -1907,10 +1978,11 @@ def serve_phase(dev):
     plain = serve_run(dev, cfg, params, "plain", forced=kern["tokens"])
     check(serve_compare("bf16", kern, plain, SERVE_TOL["bfloat16"]),
           "serve bf16: kernel and plain routes part")
-    want = {"flash_attention": L * SERVE["gen"], "mamba_scan": L}
+    want = {"flash_attention": L * SERVE["gen"], "mamba_scan": L,
+            "mamba_step": L * (SERVE["gen"] - 1)}
     got = {k: kern["launches"][k] for k in want}
     check(got == want, f"serve bf16 kernel launches {got} != {want}")
-    check(plain["launches"]["flash_attention"] == plain["launches"]["mamba_scan"] == 0,
+    check(all(plain["launches"][k] == 0 for k in want),
           f"serve bf16 plain route launched kernels: {plain['launches']}")
     main_launches = kern["launches"]
     planted_faults(dev, cfg, params, plain)
@@ -1925,7 +1997,8 @@ def serve_phase(dev):
           "serve f32: kernel and plain routes part")
     check(np.array_equal(kern["tokens"], plain["tokens"]),
           "serve f32: greedy tokens differ between the routes")
-    want = {"flash_attention": cfg32.n_layers * SERVE["gen"], "mamba_scan": cfg32.n_layers}
+    want = {"flash_attention": cfg32.n_layers * SERVE["gen"], "mamba_scan": cfg32.n_layers,
+            "mamba_step": cfg32.n_layers * (SERVE["gen"] - 1)}
     check({k: kern["launches"][k] for k in want} == want,
           f"serve f32 kernel launches {kern['launches']} != {want}")
     del params, kern, plain
@@ -2384,14 +2457,16 @@ def batched_summary(cfg, spec, rec) -> dict:
                 mean_active_slots=float(np.mean([st["active"] for st in steps])),
                 admissions=sum(st["admitted"] for st in steps), steps=len(steps),
                 max_memory_allocated=rec["max_memory_allocated"],
-                launches={k: rec["launches"][k] for k in ("flash_attention", "mamba_scan")})
+                launches={k: rec["launches"][k]
+                          for k in ("flash_attention", "mamba_scan", "mamba_step")})
 
 
 def batched_launch_check(cfg, rec) -> None:
     L, steps = cfg.n_layers, len(rec["steps"])
     admissions = sum(st["admitted"] for st in rec["steps"])
     flash = 0 if cfg.attention_free else L * (admissions + steps)
-    want = {"flash_attention": flash, "mamba_scan": L * admissions}
+    want = {"flash_attention": flash, "mamba_scan": L * admissions,
+            "mamba_step": cfg.layer_count("ssm") * steps}
     got = {k: rec["launches"][k] for k in want}
     check(got == want, f"serve_batched {cfg.name} launches {got} != {want}")
 
@@ -2477,7 +2552,7 @@ def serve_batched_phase(dev):
     """Continuous batching on the card: each SERVE_BATCHED model in bf16 at
     its published configuration, then the f32 check.  Returns the bf16
     runs' launches, summed."""
-    main = {"flash_attention": 0, "mamba_scan": 0}
+    main = {"flash_attention": 0, "mamba_scan": 0, "mamba_step": 0}
     for spec in SERVE_BATCHED:
         launched = serve_batched_model(dev, spec)
         for k in main:
@@ -3067,7 +3142,7 @@ def main() -> int:
 
     matmul_cases, glm_cases = kernel_phase(dev)
     _release()
-    flash_cases, scan_cases = serve_kernel_phase(dev)
+    flash_cases, scan_cases, step_cases = serve_kernel_phase(dev)
     flash_cases += dense_kernel_cases(dev)
     flash_cases += whisper_kernel_cases(dev)
     flash_cases += moe_kernel_cases(dev)
@@ -3174,6 +3249,7 @@ def main() -> int:
                           + whisper_train_launches[k] + spmd_launches[k]
                           for k in ("flash_attention", "mamba_scan")})
     main_launches["flash_attention"] += whisper_launches["flash_attention"]
+    main_launches["mamba_step"] = serve_launches["mamba_step"] + batched_launches["mamba_step"]
     main_launches.update({k: train_launches[k] + dense_train_launches[k]
                           + whisper_train_launches[k] + spmd_launches[k]
                           for k in ("flash_attention_bwd", "mamba_scan_bwd")})
@@ -3194,6 +3270,8 @@ def main() -> int:
                      "train-global bf16", main_launches["flash_attention_bwd"]),
         kernel_entry("mamba_scan_bwd", SCAN_BWD_SRC, scan_bwd_cases,
                      scan_bwd_cases[0]["case"], main_launches["mamba_scan_bwd"]),
+        kernel_entry("mamba_step", STEP_SRC, step_cases, step_cases[0]["case"],
+                     main_launches["mamba_step"]),
     ]}, default=float), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

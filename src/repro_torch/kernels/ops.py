@@ -12,6 +12,10 @@ Attention and the scan are differentiable: when an input requires grad
 ``flash_attention_bwd`` and ``mamba_scan_bwd`` here, so the backward routes
 by device too (the hand-written backward kernels on the card, their plain
 versions on the CPU).
+
+The Mamba decode step (``mamba_conv_step``, then the caller's ``x_proj``
+product, then ``mamba_state_step``) updates the serving cache in place on
+both routes and returns the cache tensors it was given.
 """
 from __future__ import annotations
 
@@ -31,12 +35,15 @@ from .glm_fused import glm_fused_cuda, glm_fused_ref
 from .matmul import DTYPE_CODES as _MATMUL_DTYPES
 from .mamba_scan import (STATE_DIMS, MambaScan, checkpoint_shape, mamba_scan_bwd_cuda,
                          mamba_scan_bwd_ref, mamba_scan_cuda, mamba_scan_ref)
+from .mamba_step import CONV_WIDTH, MAX_DT_RANK
+from .mamba_step import DTYPE_CODES as _STEP_DTYPES
+from .mamba_step import conv_step_cuda, conv_step_ref, state_step_cuda, state_step_ref
 from .matmul import a_kfast, matmul_cuda, matmul_ref, reset_loaders, split_plan
 
 #: kernel launches per wrapper since the last ``reset_launches``
 launches: Dict[str, int] = {"matmul": 0, "glm_fused": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "mamba_scan": 0,
-                            "mamba_scan_bwd": 0}
+                            "mamba_scan_bwd": 0, "mamba_step": 0}
 
 _GRID_LIMIT = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
@@ -330,3 +337,100 @@ def mamba_scan_bwd(dA: torch.Tensor, dBx: torch.Tensor, C: torch.Tensor,
     _check_scan_launch("mamba_scan_bwd", *given)
     launches["mamba_scan_bwd"] += 1
     return mamba_scan_bwd_cuda(dA, dBx, C, dy, dh, checkpoints)
+
+
+def _check_same_dtype(name: str, *tensors: torch.Tensor) -> None:
+    dt = tensors[0].dtype
+    if dt not in _STEP_DTYPES or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{name}: dtypes {[str(t.dtype) for t in tensors]}; need one of "
+                        f"{sorted(map(str, _STEP_DTYPES))} on all")
+
+
+def _check_step_launch(name: str, B: int, DI: int, contiguous, unit_stride) -> None:
+    if 0 in (B, DI):
+        raise ValueError(f"{name}: empty input")
+    if not all(t.is_contiguous() for t in contiguous):
+        raise ValueError(f"{name}: the kernel needs a contiguous cache row and parameters")
+    if any(t.stride(-1) != 1 for t in unit_stride):
+        raise ValueError(f"{name}: the kernel needs a unit stride on the channel dim")
+    if B > _GRID_LIMIT or DI >= 2**31:
+        raise ValueError(f"{name}: B={B}, DI={DI} exceed the kernel's range")
+
+
+def mamba_conv_step(x: torch.Tensor, conv_state: torch.Tensor, conv_w: torch.Tensor,
+                    conv_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba decode step's causal conv: x (B, 1, DI), the x half of
+    in_proj's output (a view; its channel dim contiguous), over the carried
+    conv_state (B, d_conv - 1, DI), which shifts one position and takes x in
+    place; conv_w (d_conv, DI), conv_b (DI,), all of one dtype (f32 or
+    bf16).  Returns (silu(conv) (B, 1, DI), conv_state).  Its launch is
+    counted with ``mamba_state_step``'s, as one ``mamba_step``."""
+    if x.ndim != 3 or x.shape[1] != 1 or conv_state.ndim != 3:
+        raise ValueError(f"mamba_conv_step: need x (B, 1, DI) and conv_state (B, d_conv - 1, "
+                         f"DI), got {tuple(x.shape)} and {tuple(conv_state.shape)}")
+    B, _, DI = x.shape
+    K = conv_state.shape[1] + 1
+    if (conv_state.shape[0] != B or conv_state.shape[2] != DI
+            or tuple(conv_w.shape) != (K, DI) or tuple(conv_b.shape) != (DI,)):
+        raise ValueError(f"mamba_conv_step: conv_state {tuple(conv_state.shape)}, conv_w "
+                         f"{tuple(conv_w.shape)}, conv_b {tuple(conv_b.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    if K != CONV_WIDTH:
+        raise ValueError(f"mamba_conv_step: conv width {K}; the kernel takes {CONV_WIDTH}")
+    _check_same_dtype("mamba_conv_step", x, conv_state, conv_w, conv_b)
+    if _device_kind("mamba_conv_step", x, conv_state, conv_w, conv_b) == "cpu":
+        return conv_step_ref(x, conv_state, conv_w, conv_b)
+    _check_step_launch("mamba_conv_step", B, DI, (conv_state, conv_w, conv_b), (x,))
+    return conv_step_cuda(x, conv_state, conv_w, conv_b)
+
+
+def mamba_state_step(proj: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                     ssm_state: torch.Tensor, dt_proj: torch.Tensor, dt_bias: torch.Tensor,
+                     A_log: torch.Tensor, D: torch.Tensor,
+                     dt_norm: Optional[torch.Tensor] = None,
+                     b_norm: Optional[torch.Tensor] = None,
+                     c_norm: Optional[torch.Tensor] = None, *, eps: float = 1e-6
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rest of the Mamba decode step after ``x_proj``: proj (B, 1, R + 2N)
+    is x_proj's output (dt_low | B | C), x (B, 1, DI) the conv's output, z
+    (B, 1, DI) the gate half of in_proj's (a view; its channel dim
+    contiguous); the carried ssm_state (B, DI, N) f32 is updated in place.
+    dt_proj (R, DI), dt_bias and D (DI,), A_log (DI, N), and the RMSNorm
+    scales dt_norm (R,), b_norm and c_norm (N,) where the model has them (all
+    three or none), all in x's dtype (f32 or bf16).  Returns (y (B, 1, DI),
+    ssm_state).  On the card one call counts one ``mamba_step``: this
+    kernel and the conv kernel before it."""
+    norms = (dt_norm, b_norm, c_norm)
+    given = [t is not None for t in norms]
+    if any(given) and not all(given):
+        raise ValueError("mamba_state_step: give dt_norm, b_norm and c_norm together or none")
+    if ssm_state.ndim != 3 or proj.ndim != 3 or proj.shape[1] != 1:
+        raise ValueError(f"mamba_state_step: need ssm_state (B, DI, N) and proj (B, 1, R + 2N), "
+                         f"got {tuple(ssm_state.shape)} and {tuple(proj.shape)}")
+    B, DI, N = ssm_state.shape
+    if N not in STATE_DIMS:
+        raise ValueError(f"mamba_state_step: state width {N} not in {STATE_DIMS}")
+    R = proj.shape[2] - 2 * N
+    want = {"proj": (B, 1, R + 2 * N), "x": (B, 1, DI), "z": (B, 1, DI), "dt_proj": (R, DI),
+            "dt_bias": (DI,), "A_log": (DI, N), "D": (DI,)}
+    if all(given):
+        want.update(dt_norm=(R,), b_norm=(N,), c_norm=(N,))
+    got = dict(proj=proj, x=x, z=z, dt_proj=dt_proj, dt_bias=dt_bias, A_log=A_log, D=D,
+               dt_norm=dt_norm, b_norm=b_norm, c_norm=c_norm)
+    bad = {k: tuple(got[k].shape) for k, shape in want.items() if tuple(got[k].shape) != shape}
+    if R < 1 or bad:
+        raise ValueError(f"mamba_state_step: shapes {bad} do not fit ssm_state "
+                         f"{tuple(ssm_state.shape)} and dt_rank {R}; need {want}")
+    if ssm_state.dtype != torch.float32:
+        raise TypeError(f"mamba_state_step: the SSM state must be f32, got {ssm_state.dtype}")
+    params = [t for t in (dt_proj, dt_bias, A_log, D) + norms if t is not None]
+    _check_same_dtype("mamba_state_step", x, proj, z, *params)
+    if _device_kind("mamba_state_step", proj, x, z, ssm_state, *params) == "cpu":
+        return state_step_ref(proj, x, z, ssm_state, dt_proj, dt_bias, A_log, D, *norms,
+                              eps=eps)
+    if R > MAX_DT_RANK:
+        raise ValueError(f"mamba_state_step: dt_rank {R} > {MAX_DT_RANK}, the most the "
+                         "kernel's shared memory holds")
+    _check_step_launch("mamba_state_step", B, DI, [x, ssm_state, *params], (proj, z))
+    launches["mamba_step"] += 1
+    return state_step_cuda(proj, x, z, ssm_state, dt_proj, dt_bias, A_log, D, norms, eps)

@@ -9,12 +9,16 @@ backward kernel — which also returns the final carry h_S, the SSM state
 decoding continues from.  The plain route (``impl="plain"``) is
 that kernel's plain version, ``kernels.mamba_scan.mamba_scan_ref``, called
 directly: the reference's ``ssm_scan`` followed by the C contraction, without
-keeping every h_t.  Decode (S == 1) carries (conv_state, ssm_state) and does
-one torch step.  A config with ``ssm_inner_norms`` (Jamba) applies an
-RMSNorm to each of dt, B and C after ``x_proj`` (leaves ``dt_norm``,
-``b_norm``, ``c_norm``).  A prefill in chunks (``transformer.prefill``) passes
-each chunk the conv and SSM state the one before left in the cache, so dA
-and dBx are built for one chunk at a time.
+keeping every h_t.  Decode (S == 1 with a cache) is one step on the
+carried (conv_state, ssm_state): ``kernels.ops.mamba_conv_step``, the
+``x_proj`` product, then ``kernels.ops.mamba_state_step`` on the kernel
+route (their plain versions, called directly, on the plain route), which
+update the cache's conv and SSM state in place and hand the same tensors
+back, so the caller has nothing to copy.  A config with ``ssm_inner_norms``
+(Jamba) applies an RMSNorm to each of dt, B and C after ``x_proj`` (leaves
+``dt_norm``, ``b_norm``, ``c_norm``).  A prefill in chunks
+(``transformer.prefill``) passes each chunk the conv and SSM state the one
+before left in the cache, so dA and dBx are built for one chunk at a time.
 """
 from __future__ import annotations
 
@@ -25,14 +29,41 @@ import torch.nn.functional as F
 
 from ..kernels import ops
 from ..kernels.mamba_scan import mamba_scan_ref
+from ..kernels.mamba_step import conv_step_ref, state_step_ref
 from .layers import IMPLS, rmsnorm
 from .partitioning import constrain, local_call
+
+
+#: the norms' leaves, in the order the decode step takes them
+_INNER_NORMS = ("dt_norm", "b_norm", "c_norm")
+
+
+def _decode_step(params, xz, cfg, conv_state, ssm_state, impl):
+    """S == 1 on a carried cache: (y, conv_state, ssm_state), the states
+    updated in place; under sharding rules each kernel runs on the local
+    shards (batch rows and d_inner are independent), and x_proj's sum over
+    d_inner between them is the DTensor product's."""
+    x, z = torch.chunk(xz, 2, dim=-1)                     # (B, 1, DI) each
+    conv, step = ((ops.mamba_conv_step, ops.mamba_state_step) if impl == "kernel"
+                  else (conv_step_ref, state_step_ref))
+    x, new_conv = local_call(conv, (x, conv_state, params["conv_w"], params["conv_b"]),
+                             ((0, 2), (0, 2), (None, 1), (None, 0)), ((0, 2), (0, 2)))
+    proj = constrain(x @ params["x_proj"], "batch", "seq", None)
+    norms = _INNER_NORMS if getattr(cfg, "ssm_inner_norms", False) else ()
+    args = (proj, x, z, ssm_state, params["dt_proj"], params["dt_bias"], params["A_log"],
+            params["D"], *(params[k] for k in norms))
+    dims = ((0, None), (0, 2), (0, 2), (0, 1), (None, 1), (None, 0), (None, 0),
+            (None, 0)) + ((None, None),) * len(norms)
+    y, new_ssm = local_call(step, args, dims, ((0, 2), (0, 1)), eps=cfg.norm_eps)
+    return y, new_conv, new_ssm
 
 
 def _ssm_core(params, xz, cfg, conv_state=None, ssm_state=None, impl: str = "kernel"):
     """xz: (B, S, 2*DI) projected input.  Returns (y, new_conv, new_ssm)."""
     if impl not in IMPLS:
         raise ValueError(f"_ssm_core: impl must be one of {IMPLS}, got {impl!r}")
+    if ssm_state is not None and xz.shape[1] == 1:
+        return _decode_step(params, xz, cfg, conv_state, ssm_state, impl)
     s = cfg.ssm
     B, S, _ = xz.shape
     N = s.d_state
@@ -65,19 +96,13 @@ def _ssm_core(params, xz, cfg, conv_state=None, ssm_state=None, impl: str = "ker
     dA = torch.exp(dt[..., None].float() * A[None, None])  # (B, S, DI, N)
     dBx = (dt[..., None] * Bm[:, :, None, :] * x[..., None]).float()
 
-    C32 = Cm.float()
-    if ssm_state is not None and S == 1:
-        h = dA * ssm_state[:, None] + dBx                 # (B, 1, DI, N)
-        new_ssm = h[:, 0]
-        y = torch.einsum("bsdn,bsn->bsd", h, C32)
-    else:
-        if ssm_state is not None:  # continue a scan from carried state
-            dBx[:, 0] += dA[:, 0] * ssm_state
-        scan = ops.mamba_scan if impl == "kernel" else mamba_scan_ref
-        # on each rank's shard of the batch and of d_inner
-        y, new_ssm = local_call(lambda *t: scan(*(a.contiguous() for a in t)),
-                                (dA, dBx, C32), ((0, 2), (0, 2), (0, None)),
-                                ((0, 2), (0, 1)))
+    if ssm_state is not None:  # continue a scan from carried state
+        dBx[:, 0] += dA[:, 0] * ssm_state
+    scan = ops.mamba_scan if impl == "kernel" else mamba_scan_ref
+    # on each rank's shard of the batch and of d_inner
+    y, new_ssm = local_call(lambda *t: scan(*(a.contiguous() for a in t)),
+                            (dA, dBx, Cm.float()), ((0, 2), (0, 2), (0, None)),
+                            ((0, 2), (0, 1)))
     y = y.to(x.dtype)
     y = y + params["D"][None, None, :] * x
     y = y * F.silu(z)

@@ -418,8 +418,10 @@ def decoder_stack(cfg, layers, x, positions, mask: Optional[CausalMask], caches,
         if a is not None:
             aux = aux + a
         if caches is not None:
-            for k in ("conv", "ssm"):  # k and v were written in place
-                if k in new_cache:
+            # k and v were written in place, and so was a decode step's conv
+            # and SSM state, which the layer hands back as the cache's own rows
+            for k in ("conv", "ssm"):
+                if k in new_cache and new_cache[k] is not cache_l[k]:
                     caches[k][slots["ssm"]].copy_(new_cache[k])
     return x, caches, aux
 
