@@ -207,11 +207,12 @@ from repro_torch.train import (AdamConfig, DataConfig, TokenPipeline,  # noqa: E
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.transformer import _leaves  # noqa: E402
 
-#: published peaks of one H100 SXM (dense, at the full 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {torch.float64: 67e12, torch.float32: 67e12, torch.bfloat16: 989e12}
-PEAK_NAME = {torch.float64: "FP64 tensor 67 TFLOP/s", torch.float32: "FP32 67 TFLOP/s",
-             torch.bfloat16: "BF16 tensor 989 TFLOP/s"}
+#: which of ``H100_SXM``'s peaks (dense, at the full 700 W limit) bounds a
+#: kernel of each dtype, and that peak's name
+PEAK = {torch.float64: (H100_SXM.peak_fp64, "FP64 tensor"),
+        torch.float32: (H100_SXM.peak_fp32, "FP32"),
+        torch.bfloat16: (H100_SXM.peak_bf16, "BF16 tensor")}
+PEAK_NAME = {dt: f"{name} {peak / 1e12:g} TFLOP/s" for dt, (peak, name) in PEAK.items()}
 #: max |kernel - plain| / max(|plain|, 1): f64 sums in another order; f32
 #: and bf16 are the reference's own test tolerances (tests/test_kernels.py)
 MATMUL_TOL = {torch.float64: 1e-10, torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -542,8 +543,8 @@ def device_ms_by_kernel(fn, parts: dict, reps: int = 5) -> dict:
 
 
 def bound(ops_count: float, bytes_count: float, dtype) -> tuple:
-    t_ops = ops_count / PEAK_OPS_PER_S[dtype] * 1e3
-    t_bytes = bytes_count / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_count / PEAK[dtype][0] * 1e3
+    t_bytes = bytes_count / H100_SXM.hbm_bw * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -1607,7 +1608,6 @@ def _untrace(ctx) -> None:
     set), so the same context and data run untraced."""
     ctx.tracer = ctx.executor.tracer = ctx.state.tracer = None
     ctx.state.clocks_sync.recorder = ctx.state.clocks_pipe.recorder = None
-    ctx.executor.backend.tracer = None
 
 
 def _newton_ctx(backend, dev, **kw):

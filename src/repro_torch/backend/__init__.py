@@ -4,7 +4,7 @@ A ``BlockBackend`` is the execution substrate under the NumS runtime: the
 scheduler (LSHS) and executor (sync/pipelined dispatch, lineage) are backend
 agnostic — placement decisions never read block values — so the same
 schedule can run through the numpy interpreter (the bit-exact reference),
-per-op torch callables with device-resident blocks, or the hand-written
+eager torch ops over device-resident blocks, or the hand-written
 Hopper kernels, interchangeably.
 
 Registry::
@@ -20,7 +20,6 @@ from __future__ import annotations
 from typing import Callable, Dict, Optional
 
 from .base import BackendStats, BlockBackend
-from .compile_cache import GLOBAL_COMPILE_CACHE, CompileCache, structural_key
 from .numpy_backend import NumpyBackend
 
 #: dtype a backend runs at when the user does not choose one: numpy keeps
@@ -81,12 +80,9 @@ register_backend("cuda", _make_cuda)
 __all__ = [
     "BackendStats",
     "BlockBackend",
-    "CompileCache",
-    "GLOBAL_COMPILE_CACHE",
     "NATURAL_DTYPE",
     "NumpyBackend",
     "available_backends",
     "make_backend",
     "register_backend",
-    "structural_key",
 ]

@@ -199,8 +199,6 @@ class ArrayContext:
         self.state.tracer = rec
         rec.attach_clocks(self.state.clocks_sync, "sync")
         rec.attach_clocks(self.state.clocks_pipe, "pipe")
-        if self.executor.backend is not None:
-            self.executor.backend.tracer = rec
 
     def _register_metrics(self) -> None:
         """Wire the runtime stats objects into the registry as providers, in
@@ -246,8 +244,7 @@ class ArrayContext:
             be = self.executor.backend
             if be is None:
                 return {}
-            self.sched_stats.note_backend(be)
-            return be.counters()
+            return be.stats.as_dict()
 
         def _memory():
             self.sched_stats.note_memory(self.executor.memory)

@@ -1,14 +1,14 @@
 """Block executors: the "underlying distributed system" of Fig. 1.
 
-Execution is delegated to a ``repro_torch.backend.BlockBackend`` (the compiled
+Execution is delegated to a ``repro_torch.backend.BlockBackend`` (the
 block-kernel subsystem):
 
 * ``numpy``  — blocks are host numpy arrays, ops run through the per-op
   interpreter (``graph_array.execute_block_op``) — the bit-exact reference.
 * ``torch``  — blocks stay ``torch.Tensor``s end-to-end on their
-  placement's device; every op dispatches a structurally-memoized torch
-  callable and ``fused`` chains run as a single callable.  No host
-  round-trips between ops.
+  placement's device; every op is one lookup in a table of eager torch
+  ops, and ``fused`` chains run as a single call.  No host round-trips
+  between ops.
 * ``cuda``   — the torch backend with every 2-D ``matmul`` routed through
   the hand-written Hopper matmul kernel (its plain PyTorch version for
   tensors on the CPU).
@@ -35,7 +35,7 @@ Two dispatch modes share one interface:
 The executor also implements task-lineage replay for fault tolerance
 (``fail_node``/``recover``): every op's recipe is recorded so lost blocks can
 be re-executed idempotently — the GraphArray analogue of checkpoint/restart.
-Replay runs on the *same* backend as the original execution (same compiled
+Replay runs on the *same* backend as the original execution (same
 kernels, same dtype), so recovered blocks are bit-identical to the lost
 ones.  Pending queues are flushed before a failure is injected or a replay
 starts, so lineage always reflects a quiesced system.

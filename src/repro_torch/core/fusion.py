@@ -75,8 +75,8 @@ def fuse_graph(ga: GraphArray) -> int:
         chain.reverse()  # apply bottom-up
         old_child = v.children[0]
         v.op = "fused"
-        # a tuple (not list) chain keeps the meta hashable, so both the plan
-        # fingerprint and the backend compile-cache key can memoize it
+        # a tuple (not list) chain keeps the meta hashable, so the plan
+        # fingerprint can memoize it
         v.meta = {"chain": tuple(chain)}
         v.children = [cur]
         if v in old_child.parents:

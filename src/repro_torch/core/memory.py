@@ -362,7 +362,7 @@ class MemoryManager:
                     tr.record("evict_drop", f"obj{vid}", node, -1,
                               args={"obj": vid, "elements": e})
             else:
-                host = ex.backend.spill_out(ex.store[vid])
+                host = ex.backend.to_host(ex.store[vid])
                 self.spill_store[vid] = host
                 self._forget(vid)
                 ex.store[vid] = None
@@ -426,7 +426,7 @@ class MemoryManager:
             ex.tracer.record("fault_in", f"obj{vid}", node, -1,
                              args={"obj": vid, "elements": e,
                                    "stall_s": self._stall_seconds(e)})
-        value = ex.backend.spill_in(host, (node, 0))
+        value = ex.backend.from_host(host, (node, 0))
         ex.store[vid] = value
         self.on_materialize(vid, node, e)
         return value, stall

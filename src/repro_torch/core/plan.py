@@ -428,15 +428,6 @@ class SchedStats:
     reshards: int = 0
     reshard_ops: int = 0
     reshard_moved_elements: float = 0.0
-    # backend compile-cache accounting (``repro_torch.backend``): snapshot of the
-    # active backend's structural compile cache + dispatch counters, refreshed
-    # by ``SchedStats.note_backend`` (``ArrayContext.loads`` calls it) — the
-    # per-op compilation analogue of the plan-cache split above
-    backend_compiles: int = 0
-    backend_compile_hits: int = 0
-    backend_compile_misses: int = 0
-    backend_compile_s: float = 0.0
-    backend_jit_calls: int = 0
     # communication-bound accounting (``core.bounds`` moved-element floors):
     # per linalg op, the measured ``ClusterState`` network elements a
     # scheduled subgraph moved, the matching lower bound, and their ratio —
@@ -469,20 +460,6 @@ class SchedStats:
         """Refresh the memory-budget counters from a ``MemoryManager``."""
         self.mem = manager.snapshot()
 
-    def note_backend(self, backend) -> None:
-        """Refresh the backend compile counters from a ``BlockBackend``."""
-        cc = backend.compile_cache
-        if cc is not None:
-            self.backend_compiles = cc.compiles
-            self.backend_compile_hits = cc.hits
-            self.backend_compile_misses = cc.misses
-            self.backend_compile_s = cc.compile_s
-        self.backend_jit_calls = backend.stats.jit_calls
-
-    def backend_compile_hit_rate(self) -> float:
-        total = self.backend_compile_hits + self.backend_compile_misses
-        return self.backend_compile_hits / total if total else 0.0
-
     @property
     def scheduling_overhead_s(self) -> float:
         return self.fingerprint_s + self.sched_cold_s + self.replay_s - self.dispatch_s
@@ -506,12 +483,6 @@ class SchedStats:
             "reshards": self.reshards,
             "reshard_ops": self.reshard_ops,
             "reshard_moved_elements": self.reshard_moved_elements,
-            "backend_compiles": self.backend_compiles,
-            "backend_compile_hits": self.backend_compile_hits,
-            "backend_compile_misses": self.backend_compile_misses,
-            "backend_compile_hit_rate": self.backend_compile_hit_rate(),
-            "backend_compile_s": self.backend_compile_s,
-            "backend_jit_calls": self.backend_jit_calls,
         }
         for op in self.comm_ratios:
             out[f"comm_moved_{op}"] = self.comm_moved[op]

@@ -29,7 +29,6 @@ kind            emitted at
 ``node_death``  node killed mid-drain (``args["lost"]`` blocks dropped)
 ``replay``      lineage replay re-executed a lost block
 ``plan_hit``/``plan_miss``      plan-cache lookup outcome
-``compile_hit``/``compile_miss``/``fallback``  structural kernel cache
 ==============  ==========================================================
 
 Times ``t0``/``t1`` are *simulated* seconds on the event's clock track
@@ -85,8 +84,7 @@ span                                   opened around
 ``repro_torch.sched.replay``           a cached plan's replay
 ``repro_torch.sched.lshs``             a cold schedule (``scheduler.schedule``)
 ``repro_torch.exec.drain``             the outermost ``Executor.flush``
-``repro_torch.backend.<op>``           one block op (``TorchBackend._dispatch``)
-``repro_torch.backend.compile.<op>``   a compile-cache miss: build, first run
+``repro_torch.backend.<op>``           one block op (``TorchBackend.execute``)
 ``repro_torch.pycollect.gen<N>``       one pass of Python's cyclic collector
 ``repro_torch.lm.mamba``               an LM layer's SSM mixer (``models``)
 ``repro_torch.lm.attention``           an LM layer's self-attention
@@ -284,13 +282,6 @@ def _retire_event(raw, epoch: float) -> TraceEvent:
                                      "work": work, "wall_s": wall_s})
 
 
-def _compile_hit_event(raw, epoch: float) -> TraceEvent:
-    # ("compile_hit", op, placement, wall)
-    _kind, op, placement, wall = raw
-    return TraceEvent("compile_hit", op, placement[0], placement[1], 0.0, 0.0,
-                      wall - epoch, {})
-
-
 def _gc_free_event(raw, epoch: float) -> TraceEvent:
     # ("gc_free", vid, elements, node, wall)
     _kind, vid, elements, node, wall = raw
@@ -300,7 +291,7 @@ def _gc_free_event(raw, epoch: float) -> TraceEvent:
 
 #: (kind, tuple length) -> decoder; ``record`` always appends 8 values
 _COMPACT = {("dispatch", 4): _dispatch_event, ("retire", 9): _retire_event,
-            ("compile_hit", 4): _compile_hit_event, ("gc_free", 5): _gc_free_event}
+            ("gc_free", 5): _gc_free_event}
 
 
 # -- spans on the profiler's timeline ------------------------------------------
@@ -394,7 +385,6 @@ class _SpanNames(dict):
 
 
 BACKEND_SPANS = _SpanNames("repro_torch.backend.")
-COMPILE_SPANS = _SpanNames("repro_torch.backend.compile.")
 PYCOLLECT_SPANS = _SpanNames("repro_torch.pycollect.gen")
 
 

@@ -37,8 +37,7 @@ _STALL_KINDS = ("retry", "mem_stall")
 _INSTANT_KINDS = (
     "evict_spill", "evict_drop", "fault_in", "gc_free", "oom",
     "backpressure", "spec_win", "spec_loss", "reroute", "node_death",
-    "replay", "plan_hit", "plan_miss", "compile_hit", "compile_miss",
-    "fallback",
+    "replay", "plan_hit", "plan_miss",
 )
 
 _TRACK_ORDER = ("chaos", "pipe", "sync")

@@ -1,7 +1,9 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports jax or the reference package, importing the port
 loads neither, the port reads none of the reference's environment defaults,
-and its entry points run on the card unless the caller asks for the CPU."""
+and its entry points run on the card unless the caller asks for the CPU.  The
+block backends import nothing of the runtime above them but block semantics
+and spans."""
 from __future__ import annotations
 
 import ast
@@ -18,9 +20,14 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+BACKEND_FILES = sorted((ROOT / "src" / "repro_torch" / "backend").glob("*.py"))
+#: the runtime modules a backend may import: block semantics and spans
+BACKEND_MAY_IMPORT = ("repro_torch.core.graph_array", "repro_torch.core.trace")
 
 
 def _imported_modules(path: Path):
+    """Every module ``path`` imports, relative imports resolved against its
+    package (``from . import x`` gives the package's ``x``)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -28,6 +35,14 @@ def _imported_modules(path: Path):
                 yield alias.name
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.module
+        elif isinstance(node, ast.ImportFrom) and node.level > 0:
+            package = path.relative_to(ROOT / "src").parent.parts
+            base = ".".join(package[:len(package) - node.level + 1])
+            if node.module:
+                yield f"{base}.{node.module}"
+            else:
+                for alias in node.names:
+                    yield f"{base}.{alias.name}"
         elif (isinstance(node, ast.Call) and getattr(node.func, "attr", getattr(
                 node.func, "id", None)) in ("import_module", "__import__")
               and node.args and isinstance(node.args[0], ast.Constant)):
@@ -39,6 +54,17 @@ def test_no_jax_or_reference_imports(path):
     assert path.exists(), path
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", BACKEND_FILES, ids=lambda p: p.name)
+def test_backend_imports_no_higher_layer(path):
+    """A backend reads block semantics (``core.graph_array``) and opens spans
+    (``core.trace``); nothing else of ``repro_torch.core`` sits below it."""
+    core = [m for m in _imported_modules(path)
+            if m == "repro_torch.core" or m.startswith("repro_torch.core.")]
+    bad = [m for m in core if not any(m == ok or m.startswith(ok + ".")
+                                      for ok in BACKEND_MAY_IMPORT)]
+    assert not bad, f"{path.name} imports {bad}"
 
 
 @pytest.mark.parametrize("modules", [

@@ -13,20 +13,16 @@ import pytest
 import torch
 
 import repro_torch.core.trace as T
-from repro_torch.backend.compile_cache import CompileCache
 from repro_torch.core import ArrayContext, ClusterSpec
 from repro_torch.glm import LogisticRegression
 
 PREFIX = "repro_torch."
-COMPILE = "repro_torch.backend.compile."
 
 
 def make_ctx(seed=0):
-    ctx = ArrayContext(cluster=ClusterSpec(4, 2), node_grid=(4, 1), backend="torch",
-                       dtype="float64", pipeline=True, plan_cache=True, gc=True,
-                       seed=seed, device="cpu")
-    ctx.executor.backend._cache = CompileCache()  # misses of its own
-    return ctx
+    return ArrayContext(cluster=ClusterSpec(4, 2), node_grid=(4, 1), backend="torch",
+                        dtype="float64", pipeline=True, plan_cache=True, gc=True,
+                        seed=seed, device="cpu")
 
 
 def workload(ctx, fits=2, product=True):
@@ -67,7 +63,6 @@ def traced():
     ctx = make_ctx()
     # plans recorded, so the profiled fits replay (and the product is cold)
     workload(ctx, fits=1, product=False)
-    ctx.executor.backend._cache = CompileCache()
     before = ctx.loads()
 
     def run():
@@ -88,7 +83,6 @@ def test_every_span_appears(traced):
                  "repro_torch.backend.matmul", "repro_torch.backend.mul",
                  "repro_torch.backend.solve", "repro_torch.pycollect.gen2"):
         assert name in names, name
-    assert any(n.startswith(COMPILE) for n in names)
 
 
 def test_spans_nest(traced):
@@ -99,18 +93,15 @@ def test_spans_nest(traced):
     sched = [sp for sp in spans if sp[0].startswith("repro_torch.sched.")]
     for i, a in enumerate(sched):
         assert not any(_inside(a, b) for j, b in enumerate(sched) if j != i), a
-    for comp in (sp for sp in ops if sp[0].startswith(COMPILE)):
-        op = comp[0][len(COMPILE):]
-        assert any(o[0] == f"repro_torch.backend.{op}" and _inside(comp, o) for o in ops)
+    # one span per op: no backend span opens inside another
+    for i, a in enumerate(ops):
+        assert not any(_inside(a, b) for j, b in enumerate(ops) if j != i), a
 
 
 def test_one_backend_span_per_dispatch(traced):
     _ctx, _out, spans, delta = traced
-    op_spans = [n for n, _s, _e in spans
-                if n.startswith("repro_torch.backend.") and not n.startswith(COMPILE)]
-    compile_spans = [n for n, _s, _e in spans if n.startswith(COMPILE)]
+    op_spans = [n for n, _s, _e in spans if n.startswith("repro_torch.backend.")]
     assert len(op_spans) == delta["backend_dispatches"] > 0
-    assert len(compile_spans) == delta["compile_misses"] > 0
 
 
 def test_no_span_without_profiler_and_same_bits(traced, monkeypatch):

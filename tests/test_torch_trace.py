@@ -7,9 +7,7 @@ runs give the same bits and exactly the same simulated clocks as untraced
 ones.  Here each case also runs the reference (numpy) on the same graph
 and seed and holds the port's event sequence (kind, op, node, worker,
 simulated start and end; wall fields excluded) equal to it on the numpy,
-torch and cuda backends (``device="cpu"``, f64).  torch and cuda also
-record their callable cache's hits and misses, which the numpy backends
-have no counterpart of; those are left out of the comparison.
+torch and cuda backends (``device="cpu"``, f64).
 """
 from __future__ import annotations
 
@@ -22,8 +20,6 @@ from repro.launch.workloads import logreg_newton_loop as r_newton_loop
 from repro_torch.launch.workloads import logreg_newton_loop as p_newton_loop
 
 BACKENDS = ["numpy", "torch", "cuda"]
-#: backend callable-cache events, which the numpy backends do not emit
-CACHE_KINDS = ("compile_hit", "compile_miss", "fallback")
 
 
 def make_ctx(pkg, backend="numpy", k=4, r=2, seed=0, **kw):
@@ -50,8 +46,6 @@ def events(recorder):
     ids = {}
     out = []
     for e in recorder.iter_events():
-        if e.kind in CACHE_KINDS:
-            continue
         row = (e.kind, ids.setdefault(e.name, len(ids)), e.node, e.worker, e.t0, e.t1)
         if e.kind == "op":
             a = e.args
@@ -85,10 +79,7 @@ def test_event_sequence_equals_reference(backend, pipeline, kw):
     for e, r in zip(ctx.tracer.of("gc_free", "retire"), ref.tracer.of("gc_free", "retire")):
         assert (e.kind, e.args.keys()) == (r.kind, r.args.keys())
     assert_values_match(b, b_ref, backend)
-    kinds = dict(ctx.tracer.counts())
-    if backend != "numpy":  # the callable cache is traced too
-        assert (kinds.get("compile_hit", 0) + kinds.get("compile_miss", 0)
-                == kinds["retire"])
+    assert dict(ctx.tracer.counts()) == dict(ref.tracer.counts())
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
@@ -186,13 +177,12 @@ def test_disabled_recorder_costs_nothing_structurally(backend):
     assert ctx.state.tracer is None
     assert ctx.state.clocks_sync.recorder is None
     assert ctx.state.clocks_pipe.recorder is None
-    assert ctx.executor.backend.tracer is None
 
 
 def test_recorder_instance_and_capacity():
     rec = P.FlightRecorder(capacity=1 << 12)
     ctx = make_ctx(P, "cuda", trace=rec)
-    assert ctx.tracer is rec and ctx.executor.backend.tracer is rec
+    assert ctx.tracer is rec and ctx.executor.tracer is rec and ctx.state.tracer is rec
     small_workload(ctx)
     assert len(rec) > 0
     assert make_ctx(P, "torch", trace=256).tracer.capacity == 256
