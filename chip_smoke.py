@@ -124,12 +124,13 @@ both (CUDA events), then drives the main paths at full width:
   counted.
 
 Each phase prints one JSON line (a matmul case also names the loader it
-took, vector or scalar; an attention-backward case the device time of each
-of its kernels); the kernel line, the card's name and power limit, and a
+took, tma, vector or scalar; an attention-backward case the device time of
+each of its kernels); the kernel line, the card's name and power limit, and a
 final ``{"ok": true, ...}`` line close the output.  The compiler's register
 report of every kernel goes to standard error; a register spill in the
 libraries redesigned for Hopper (``REDESIGNED``) fails the run, as does a
-Newton or DGEMM product on the scalar loader.  The attention forward is timed
+Newton or DGEMM product on the scalar loader, or an f64 kernel case with
+N > 8 off the TMA ring.  The attention forward is timed
 at prefill and at decode, where it splits the keys (two device kernels per
 call, whose device times a decode case also reports), also with one offset
 per row (``decode-ragged``: 8 slots at their own positions), and at the
@@ -622,8 +623,12 @@ def kernel_phase(dev):
     matmul_cases.append(matmul_case("DGEMM tile f64 1024^3", sq[0], sq[1]))
     del sq
     scalar = [c["case"] for c in matmul_cases if c["dtype"] != "bfloat16"
-              and c["loader"] != "vector"]
+              and c["loader"] == "scalar"]
     check(not scalar, f"matmul cases on the scalar loader: {scalar}")
+    # f64 with N > 8 on aligned operands fills dmma_kernel's ring by TMA
+    off_tma = [c["case"] for c in matmul_cases if c["dtype"] == "float64"
+               and c["shape"][2] > 8 and c["loader"] != "tma"]
+    check(not off_tma, f"f64 wide matmul cases off the TMA ring: {off_tma}")
     matmul_cases += block_matmul_cases(dev, g)
     glm_cases = []
     for n in (1 << 22, n_blk):

@@ -25,32 +25,58 @@
 //  * f64, wide outputs (N > 8): dmma_kernel runs the FP64 tensor cores
 //    (mma.sync m16n8k8 f64, DMMA; Hopper's wgmma has no f64 form).  Its warps
 //    each own 64x32 of the output (64 f64 accumulators a thread, the most
-//    the registers hold beside the fragments).  The first version (128x64
-//    block tiles, fragments read element by element from padded rows) ran a
-//    4096^3 tile at 36% of the bound; the same loop with the copies from
-//    global memory left out ran at 78%.  Each thread's share of a step's
-//    16-byte copies had been a loop whose trip count was known only at run
-//    time, recomputing 64-bit addresses and bounds for every chunk: some 200
-//    instructions a thread a step, against 32 DMMAs a warp, issued between
-//    the barrier and the first DMMA.  Now a thread copies the same chunk of
-//    every RS-th row (load_tile), so the copy loop unrolls and its pointer
-//    steps by a constant (64% of the bound at 4096^3).  Fragments are read
-//    as double2: k is permuted inside each k8 step, the same way for A and
-//    B, so that a lane's two k (or, where a tile is stored along m or n, its
-//    two rows or columns) are neighbours, and the tiles are dense with their
-//    16-byte chunks swizzled (Swizzled) so that those reads and the copies
-//    hit distinct banks.  Two block tiles, picked by the wrapper from the
-//    shape and orientation: 128x64 over four warps, 16 deep, a ring of four
-//    stages, two blocks an SM (DTileNarrow); 128x128 over eight warps, 32
-//    deep, three stages, one block an SM (DTileWide), which stages two
-//    thirds of the bytes a flop and took the products whose A is read along
-//    m (Newton's X^T (w*X)) 5-11% faster on an H100.
+//    the registers hold beside the fragments).  Two block tiles, picked by
+//    the wrapper from the shape and orientation: 128x64 over four warps, 32
+//    deep, a ring of two stages, two blocks an SM (DTileNarrow); 128x128 over
+//    eight warps, 32 deep, three stages, one block an SM (DTileWide), which
+//    stages two thirds of the bytes a flop and takes the products whose A is
+//    read along m (Newton's X^T (w*X)).
+//    The ring is filled by TMA.  One thread requests a stage's boxes (16 f64
+//    along the operand's unit-stride axis, CU_TENSOR_MAP_SWIZZLE_128B, zeros
+//    past the operand's edge) and their bytes complete on the stage's full
+//    mbarrier; each warp arrives on the stage's empty mbarrier once it has
+//    read the stage, and the thread refills the slot once all have: no
+//    block-wide barrier in the k loop.  Split-K chunks are whole multiples
+//    of BK, so only K's own edge is ragged.  Fragments land in the registers
+//    the DMMA takes them in: the mma's A operand from a tile stored along
+//    its rows (two neighbouring rows a double2), its B operand from one
+//    stored along k (two k a double2: k is permuted inside each k8 step, the
+//    same way for both operands), a tile lying the other way one double a
+//    read.  So the DGEMM's row-major operands are computed as C^T = B^T A^T,
+//    the same products in the same k order.  The earlier kernel read
+//    fragments into registers the DMMA could not take, and ptxas moved
+//    them: the row-major DGEMM's k loop (cuobjdump -sass) held 340
+//    IMAD.MOVs beside 32 DMMAs and 24 LDS a 16-deep step, 545 instructions;
+//    now none, 366 instructions for 64 DMMAs a 32-deep step.
+//    What bounds it: a 4096^3 product draws an NVIDIA H100 80GB HBM3 to its
+//    700 W limit, where the SM clock falls to 1650-1770 MHz (the 67 TFLOP/s
+//    peak is quoted at 1980); cuBLAS draws the same.  Values drawn in f32
+//    (fewer mantissa bits toggling) ran every kernel 6-8% faster at
+//    1830-1905 MHz: the 2.92 against 3.21 ms of the earlier kernel.
+//    Timed in one call (CUDA events, five rounds in turns, N(0,1) values),
+//    the earlier kernel (cp.async ring, a block barrier a k step) / this /
+//    cuBLAS, ms: 4096^3 3.2920 / 2.8837 / 2.5436; M M^T at 4096 (Cholesky's
+//    build, B stored along k) 3.1848 / 3.0396 / 2.6356; 1024^3 0.0733 /
+//    0.0602 / 0.0411; X^T (w*X) at 2^17 rows 0.3855 / 0.3733 / 0.3314, at
+//    2^21 rows 6.0124 / 6.1577 / 5.6463 (power-bound: +-5% between calls).
+//    The TMA ring alone, before the fragments were made register-exact,
+//    moved the 4096^3 product by -2% to +5% over four calls.  Tried and
+//    dropped, each against the version it changed: a cluster of two blocks
+//    along N multicasting A's boxes (3.20 against 3.10 ms at 4096^3; 4.89
+//    with cluster-scope release on the remote arrive; with CTA scope it gave
+//    wrong bits on 2 of 14 shapes in one of two runs, both with a spare
+//    block); a producer warp for the 128x128 tile (setmaxnreg 40 / 240:
+//    ptxas held the kernel at 168 registers and spilled 248-588 bytes, and
+//    its first launch faulted); refilling a slot after the step's DMMAs
+//    (3.11 against 3.10); reading the next k8 step's fragments ahead (3.45
+//    against 3.38); 16-deep stages, four of them (3.18 against 2.88: twice
+//    the barrier waits and refills).
 //  * f32, wide: sgemm_kernel, IEEE fmaf on 128x128 block tiles, 8x8 outputs
 //    a thread, operands read from shared memory as float4 out of padded rows,
-//    three stages.  Both kernels fill their rings by 16-byte cp.async copies
-//    a few k steps ahead of the one computed, each tile kept in shared memory
-//    along its operand's unit-stride axis (so global reads stay coalesced in
-//    either orientation).
+//    three stages, filled by 16-byte cp.async copies a few k steps ahead of
+//    the one computed, each tile kept in shared memory along its operand's
+//    unit-stride axis (so global reads stay coalesced in either
+//    orientation).
 //  * f64 and f32, skinny outputs (N <= 8, matrix-vector products): bound by
 //    the bytes of A, so skinny_*_kernel streams A with 16-byte loads along
 //    its unit-stride axis (skinny_mfast_kernel for X^T r read as the view
@@ -65,8 +91,10 @@
 //    store (a 16-byte copy of a row's last partial chunk zero-fills the
 //    rest); there is no padding copy.  Where an operand's base or leading
 //    stride is not 16-byte aligned (a view at an odd offset), the wrapper
-//    passes vec = 0 and the same kernels copy element by element through
-//    the full strides: the scalar loader.
+//    passes the scalar loader and the same kernels copy element by element
+//    through the full strides, with a block-wide barrier a k step.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from libcuda at run time
+
 #include <type_traits>
 
 #include "common.cuh"
@@ -121,24 +149,70 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// ---------------------------------------------------------------------------
+// TMA and mbarriers (sm_90)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+// make the initialised barriers visible to the TMA unit
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the producer's arrival, announcing the bytes its copies will bring
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// wait until the barrier has completed the phase of the given parity
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// One box of a 2-D tensor map at (c0, c1), c0 along the unit-stride axis,
+// into shared memory at dst; its bytes complete_tx on bar.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // Where tile element (s, f) sits in shared memory, in elements.  Padded: rows
-// of LD elements.  Swizzled (f64 only): dense rows of FAST elements in 16-byte
-// chunks of two, whose order within a row is permuted (the chunk index XOR a
-// function of the row) so that dmma_kernel's double2 fragment reads hit
-// distinct banks: rows of k (a tile stored along m or n) XOR 2 * ((s / 2) % 4),
-// rows of m or n (stored along k) XOR 4 * (s % 2).  A chunk stays inside its
-// aligned run of eight, so a warp's 16-byte copies into a row stay
-// conflict-free too.
+// of LD elements.  Swizzle128 (f64 only): TMA's 128-byte swizzle over a tile
+// of ROWS rows along s, cut along f into boxes of 16 elements (128 bytes a
+// row), each box ROWS x 128 bytes and 1024-byte aligned; 16-byte chunk c of
+// a box's row s sits at c ^ (s % 8), which is where a TMA copy with
+// CU_TENSOR_MAP_SWIZZLE_128B puts it.  The cp.async loaders write the same
+// layout, so the fragment reads are the same for every loader.
 template <int LD>
 struct Padded {
   __device__ __forceinline__ static int at(int s, int f) { return s * LD + f; }
 };
-template <int FAST, bool ROWS_OF_K>
-struct Swizzled {
-  static_assert(FAST >= 16, "a row holds at least eight 16-byte chunks");
+template <int ROWS>
+struct Swizzle128 {
+  static_assert(ROWS % 8 == 0, "whole 1024-byte periods of the swizzle a box");
   __device__ __forceinline__ static int at(int s, int f) {
-    const int x = ROWS_OF_K ? ((s >> 1) & 3) << 1 : (s & 1) << 2;
-    return s * FAST + ((((f >> 1) ^ x) << 1) | (f & 1));
+    return (f >> 4) * (ROWS * 16) + s * 16 + ((((f >> 1) & 7) ^ (s & 7)) << 1) + (f & 1);
   }
 };
 
@@ -238,25 +312,47 @@ __device__ __forceinline__ double2 ld2(const double* p) {
 }
 
 // An f64 block tile: BM x BN outputs over WM x WN warps of 64 x 32 (4 x 4
-// m16n8 tiles each), BK deep, in a ring of STAGES.
+// m16n8 tiles, or 2 x 8 where the mma computes C^T), BK deep, in a ring of
+// STAGES.
 template <int BM_, int BN_, int BK_, int STAGES_, int WM_, int WN_>
 struct DTile {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, STAGES = STAGES_, WM = WM_, WN = WN_;
-  static constexpr int THREADS = 32 * WM * WN, MI = BM / (16 * WM), NJ = BN / (8 * WN);
+  static constexpr int WARPS = WM * WN, THREADS = 32 * WARPS;
+  static constexpr int MI = BM / (16 * WM), NJ = BN / (8 * WN);
   static constexpr int A_SIZE = BM * BK, B_SIZE = BN * BK;  // elements of a stage
-  static constexpr int SMEM = STAGES * (A_SIZE + B_SIZE) * static_cast<int>(sizeof(double));
+  static constexpr int RING = STAGES * (A_SIZE + B_SIZE) * static_cast<int>(sizeof(double));
+  // the TMA ring: aligned up to the swizzle's 1024-byte period, then a full
+  // and an empty mbarrier a stage
+  static constexpr int SMEM_TMA = RING + 1024 + 2 * STAGES * 8;
   static_assert(MI * 16 * WM == BM && NJ * 8 * WN == BN && NJ % 2 == 0, "whole warp tiles");
-  static_assert(BK % 8 == 0 && STAGES >= 2, "whole k8 steps, a ring");
+  static_assert(BK % 16 == 0 && STAGES >= 2, "whole 128-byte boxes of k, a ring");
 };
 
-template <class D, bool A_KFAST, bool B_KFAST, bool VEC>
-__global__ void __launch_bounds__(D::THREADS, 1) dmma_kernel(const MatArgs<double> p) {
-  constexpr int BK = D::BK, MI = D::MI, NJ = D::NJ;
-  using LA = std::conditional_t<A_KFAST, Swizzled<BK, false>, Swizzled<D::BM, true>>;
-  using LB = std::conditional_t<B_KFAST, Swizzled<BK, false>, Swizzled<D::BN, true>>;
+// The loaders of the C interface: one cp.async copy an element (kScalar),
+// 16-byte cp.async copies (kVector), both by every thread with a block-wide
+// barrier a k step; TMA boxes requested by one thread and awaited on mbarriers
+// (kTma).  dmma_kernel takes kTma or kScalar, the other kernels kVector or
+// kScalar.
+enum Loader : int { kScalar = 0, kVector = 1, kTma = 2 };
+
+// mma row g of an m16 tile (column g of an n8 tile) read from a tile stored
+// along k sits at tile row rho(g) = 0, 4, 1, 5, 2, 6, 3, 7 for g = 0..7: the
+// two rows a quarter-warp reads at once are then four chunks apart under
+// the swizzle, so its 16-byte reads hit distinct banks.
+__device__ __forceinline__ int rho(int g) { return (g >> 1) | ((g & 1) << 2); }
+
+template <class D, bool A_KFAST, bool B_KFAST, bool TMA>
+__global__ void __launch_bounds__(D::THREADS, 1)
+    dmma_kernel(const MatArgs<double> p, const __grid_constant__ CUtensorMap ta,
+                const __grid_constant__ CUtensorMap tb) {
+  constexpr int BK = D::BK, MI = D::MI, NJ = D::NJ, S = D::STAGES;
+  using LA = Swizzle128<A_KFAST ? D::BM : BK>;
+  using LB = Swizzle128<B_KFAST ? D::BN : BK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* const As = reinterpret_cast<double*>(smem_raw);
-  double* const Bs = As + D::STAGES * D::A_SIZE;
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ring = TMA ? (raw + 1023u) & ~1023u : raw;
+  double* const As = reinterpret_cast<double*>(smem_raw + (ring - raw));
+  double* const Bs = As + S * D::A_SIZE;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int g = lane / 4, t = lane % 4;
@@ -266,91 +362,173 @@ __global__ void __launch_bounds__(D::THREADS, 1) dmma_kernel(const MatArgs<doubl
   const int64_t k_begin = static_cast<int64_t>(blockIdx.z) * p.k_chunk;
   const int64_t k_end = min(k_begin + p.k_chunk, p.K);
 
-  double acc[MI][NJ][4];  // [m16 tile][n8 tile][fragment]
+  // The mma's A operand (16 rows x 8 k) is read from the P tile, its B
+  // operand (8 k x 8 columns) from the Q tile.  A lane's reads land in the
+  // registers the mma takes them in, with no moves between them.  They are
+  // double2 reads, conflict-free under the swizzle, where P is stored along
+  // its rows and Q along k; the other two layouts take one double a read
+  // (two-way bank conflicts where P is stored along k).  So where A is
+  // stored along k and B along n (the DGEMM's row-major operands) the mma
+  // computes C^T = B^T A^T: P is B's tile and Q is A's.  Every output sums
+  // the same products in the same k order either way.
+  constexpr bool SWAP = A_KFAST && !B_KFAST;
+  constexpr bool P_KFAST = SWAP ? B_KFAST : A_KFAST, Q_KFAST = SWAP ? A_KFAST : B_KFAST;
+  // this warp's 64 x 32 of C in PI m16 tiles along P's side, QJ n8 tiles along Q's
+  constexpr int PI = SWAP ? NJ / 2 : MI, QJ = SWAP ? 2 * MI : NJ;
+  using LP = std::conditional_t<SWAP, LB, LA>;
+  using LQ = std::conditional_t<SWAP, LA, LB>;
+  const int pw = SWAP ? wn : wm, qw = SWAP ? wm : wn;
+
+  double acc[PI][QJ][4];  // [m16 tile][n8 tile][fragment]
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int i = 0; i < PI; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j)
+    for (int j = 0; j < QJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
 
   // The fragments of the k8 step at kk.  k is permuted inside the step, the
   // same way for both operands (the step's sum is unchanged): mma k slot t is
-  // k = kk + 2t and slot t + 4 is kk + 2t + 1, so a lane reads its two k as
-  // one double2 where the operand is stored along k.  Where A is stored along
-  // m, mma row g of an m16 tile is m = 2g and row g + 8 is 2g + 1; where B is
-  // stored along n, column g of the first n8 tile of a pair is n = 2g and of
-  // the second 2g + 1: a lane reads two neighbouring m (n) as one double2.
-  auto fragments = [&](const double* a_s, const double* b_s, int kk, double (&a)[MI][4],
-                       double (&b)[NJ][2]) {
+  // k = kk + 2t and slot t + 4 is kk + 2t + 1, so a lane reads its two k of
+  // Q as one double2 where Q is stored along k; there mma row (column) g is
+  // tile row rho(g).  Where P is stored along its rows, mma row g of an m16
+  // tile is row 2g and row g + 8 is 2g + 1: a lane reads them as one double2.
+  auto fragments = [&](const double* p_s, const double* q_s, int kk, double (&a)[PI][4],
+                       double (&b)[QJ][2]) {
     const int k = kk + 2 * t;
 #pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      if constexpr (A_KFAST) {
-        const int r = wm + 16 * i + g;
-        const double2 x = ld2(a_s + LA::at(r, k)), y = ld2(a_s + LA::at(r + 8, k));
-        a[i][0] = x.x; a[i][1] = y.x; a[i][2] = x.y; a[i][3] = y.y;
+    for (int i = 0; i < PI; ++i) {
+      if constexpr (P_KFAST) {
+        const int r = pw + 16 * i + rho(g);
+        a[i][0] = p_s[LP::at(r, k)];
+        a[i][1] = p_s[LP::at(r + 8, k)];
+        a[i][2] = p_s[LP::at(r, k + 1)];
+        a[i][3] = p_s[LP::at(r + 8, k + 1)];
       } else {
-        const int m = wm + 16 * i + 2 * g;
-        const double2 x = ld2(a_s + LA::at(k, m)), y = ld2(a_s + LA::at(k + 1, m));
+        const int r = pw + 16 * i + 2 * g;
+        const double2 x = ld2(p_s + LP::at(k, r)), y = ld2(p_s + LP::at(k + 1, r));
         a[i][0] = x.x; a[i][1] = x.y; a[i][2] = y.x; a[i][3] = y.y;
       }
     }
-    if constexpr (B_KFAST) {
+    if constexpr (Q_KFAST) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const double2 x = ld2(b_s + LB::at(wn + 8 * j + g, k));
+      for (int j = 0; j < QJ; ++j) {
+        const double2 x = ld2(q_s + LQ::at(qw + 8 * j + rho(g), k));
         b[j][0] = x.x; b[j][1] = x.y;
       }
     } else {
 #pragma unroll
-      for (int q = 0; q < NJ / 2; ++q) {
-        const int n = wn + 16 * q + 2 * g;
-        const double2 x = ld2(b_s + LB::at(k, n)), y = ld2(b_s + LB::at(k + 1, n));
-        b[2 * q][0] = x.x; b[2 * q + 1][0] = x.y; b[2 * q][1] = y.x; b[2 * q + 1][1] = y.y;
+      for (int j = 0; j < QJ; ++j) {
+        const int c = qw + 8 * j + g;
+        b[j][0] = q_s[LQ::at(k, c)];
+        b[j][1] = q_s[LQ::at(k + 1, c)];
       }
+    }
+  };
+  auto compute = [&](int slot) {
+    const double* a_s = As + slot * D::A_SIZE;
+    const double* b_s = Bs + slot * D::B_SIZE;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 8) {
+      double a[PI][4], b[QJ][2];
+      fragments(SWAP ? b_s : a_s, SWAP ? a_s : b_s, kk, a, b);
+#pragma unroll
+      for (int i = 0; i < PI; ++i)
+#pragma unroll
+        for (int j = 0; j < QJ; ++j) dmma(acc[i][j], a[i], b[j]);
     }
   };
 
   const int steps = static_cast<int>((k_end - k_begin + BK - 1) / BK);
-  k_loop<D::STAGES>(
-      steps,
-      [&](int slot, int st) {
-        load_step<double, D::BM, D::BN, BK, LA, LB, D::THREADS, A_KFAST, B_KFAST, VEC>(
-            As + slot * D::A_SIZE, Bs + slot * D::B_SIZE, p, m0, n0,
-            k_begin + static_cast<int64_t>(st) * BK, k_end, tid);
-      },
-      [&](int slot) {
-        const double* a_s = As + slot * D::A_SIZE;
-        const double* b_s = Bs + slot * D::B_SIZE;
+  if constexpr (TMA) {
+    // A full and an empty barrier a slot.  full: the producer's arrival with
+    // the stage's bytes, then the copies' bytes; empty: every warp, once it
+    // has read the slot.  A k loop with no block-wide barrier.
+    const uint32_t full = ring + D::RING, empty = full + 8 * S;
+    if (tid == 0) {
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 8) {
-          double a[MI][4], b[NJ][2];
-          fragments(a_s, b_s, kk, a, b);
+      for (int s = 0; s < S; ++s) {
+        mbar_init(full + 8 * s, 1);
+        mbar_init(empty + 8 * s, D::WARPS);
+      }
+      fence_mbar_init();
+    }
+    __syncthreads();
+    // step st's boxes into its slot: A, where stored along k, in BK / 16
+    // boxes of 16 k by BM rows, else in BM / 16 boxes of 16 m by BK rows; B
+    // likewise
+    auto load_stage = [&](int st) {
+      const int slot = st % S;
+      const uint32_t bar = full + 8 * slot;
+      const uint32_t a_s = ring + slot * D::A_SIZE * 8;
+      const uint32_t b_s = ring + (S * D::A_SIZE + slot * D::B_SIZE) * 8;
+      const int k0 = static_cast<int>(k_begin) + st * BK;
+      const int mi = static_cast<int>(m0), ni = static_cast<int>(n0);
+      mbar_expect_tx(bar, (D::A_SIZE + D::B_SIZE) * 8);
+      if constexpr (A_KFAST) {
 #pragma unroll
-          for (int i = 0; i < MI; ++i)
+        for (int kb = 0; kb < BK / 16; ++kb)
+          tma_load(a_s + kb * D::BM * 128, &ta, bar, k0 + 16 * kb, mi);
+      } else {
 #pragma unroll
-            for (int j = 0; j < NJ; ++j) dmma(acc[i][j], a[i], b[j]);
-        }
-      });
+        for (int mb = 0; mb < D::BM / 16; ++mb)
+          tma_load(a_s + mb * BK * 128, &ta, bar, mi + 16 * mb, k0);
+      }
+      if constexpr (B_KFAST) {
+#pragma unroll
+        for (int kb = 0; kb < BK / 16; ++kb)
+          tma_load(b_s + kb * D::BN * 128, &tb, bar, k0 + 16 * kb, ni);
+      } else {
+#pragma unroll
+        for (int nb = 0; nb < D::BN / 16; ++nb)
+          tma_load(b_s + nb * BK * 128, &tb, bar, ni + 16 * nb, k0);
+      }
+    };
+    if (tid == 0) {
+      prefetch_tensormap(&ta);
+      prefetch_tensormap(&tb);
+      for (int st = 0; st < S && st < steps; ++st) load_stage(st);
+    }
+    for (int st = 0; st < steps; ++st) {
+      const int slot = st % S;
+      // one thread refills the slot step st - 1 used, once every warp has
+      // released it, S - 1 steps ahead of this one
+      if (tid == 0 && st > 0 && st - 1 + S < steps) {
+        mbar_wait(empty + 8 * ((st - 1) % S), ((st - 1) / S) & 1);
+        load_stage(st - 1 + S);
+      }
+      mbar_wait(full + 8 * slot, (st / S) & 1);
+      compute(slot);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * slot);
+    }
+  } else {
+    k_loop<S>(
+        steps,
+        [&](int slot, int st) {
+          load_step<double, D::BM, D::BN, BK, LA, LB, D::THREADS, A_KFAST, B_KFAST, false>(
+              As + slot * D::A_SIZE, Bs + slot * D::B_SIZE, p, m0, n0,
+              k_begin + static_cast<int64_t>(st) * BK, k_end, tid);
+        },
+        compute);
+  }
 
-  // fragment (h, e) is mma row g + 8h, column 2t + e; a split writes its slice
+  // fragment (h, e) is mma row g + 8h, column 2t + e: row pr of P's side,
+  // column qc of Q's; a split writes its slice
   double* const out = p.part ? p.part + static_cast<int64_t>(blockIdx.z) * p.M * p.N : p.C;
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int i = 0; i < PI; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int64_t m = m0 + wm + 16 * i + (A_KFAST ? g + 8 * h : 2 * g + h);
-      if (m >= p.M) continue;
-      double* const row = out + m * p.N + n0 + wn;
-      const int n_left = static_cast<int>(min(p.N - n0 - wn, static_cast<int64_t>(8 * NJ)));
+      const int pr = pw + 16 * i + (P_KFAST ? rho(g) + 8 * h : 2 * g + h);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < QJ; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 2 * t + e;
-          const int n = B_KFAST ? 8 * j + c : 16 * (j / 2) + 2 * c + j % 2;
-          if (n < n_left) row[n] = acc[i][j][2 * h + e];
+          const int qc = qw + 8 * j + (Q_KFAST ? rho(c) : c);
+          const int64_t m = m0 + (SWAP ? qc : pr), n = n0 + (SWAP ? pr : qc);
+          if (m < p.M && n < p.N) out[m * p.N + n] = acc[i][j][2 * h + e];
         }
     }
 }
@@ -743,26 +921,97 @@ void with_flags(bool x, bool y, bool z, F&& f) {
 unsigned cdiv(int64_t a, int64_t b) { return static_cast<unsigned>((a + b - 1) / b); }
 
 // The f64 block tiles (kernels/matmul.py::F64_TILES picks one by shape)
-using DTileNarrow = DTile<128, 64, 16, 4, 2, 2>;
+using DTileNarrow = DTile<128, 64, 32, 2, 2, 2>;
 using DTileWide = DTile<128, 128, 32, 3, 2, 4>;
 
-template <class D>
-void launch_dmma(bool vec, const MatArgs<double>& p, int splits, cudaStream_t s) {
+// cuTensorMapEncodeTiled, fetched from libcuda through the runtime, so
+// that the library links nothing beyond the runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The TMA map of an f64 operand read along its unit-stride axis: `fast`
+// elements a row, `slow` rows `ld` elements apart, boxes of 16 x `rows`
+// elements under the 128-byte swizzle, zeros outside the operand.  False
+// where cuTensorMapEncodeTiled refuses it.
+bool encode_f64(CUtensorMap* map, const double* base, int64_t fast, int64_t slow, int64_t ld,
+                int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(fast), static_cast<cuuint64_t>(slow)};
+  // a single row's stride is never used: any whole 16 bytes past the row
+  const cuuint64_t stride[1] = {
+      static_cast<cuuint64_t>(slow > 1 ? ld * 8 : (fast * 8 + 15) / 16 * 16)};
+  const cuuint32_t box[2] = {16, static_cast<cuuint32_t>(rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 2, const_cast<double*>(base), dims, stride,
+                box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <class D, bool AK, bool BK, bool TMA>
+void launch_dmma_kernel(const MatArgs<double>& p, int splits, const CUtensorMap& ta,
+                        const CUtensorMap& tb, cudaStream_t s) {
+  auto kernel = dmma_kernel<D, AK, BK, TMA>;
+  const int smem = TMA ? D::SMEM_TMA : D::RING;
   const dim3 grid(cdiv(p.M, D::BM), cdiv(p.N, D::BN), splits);
-  with_flags(p.sak == 1, p.sbn != 1, vec, [&](auto AK, auto BK, auto V) {
-    auto kernel = dmma_kernel<D, decltype(AK)::value, decltype(BK)::value, decltype(V)::value>;
-    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, D::SMEM) ==
-        cudaSuccess)
-      kernel<<<grid, D::THREADS, D::SMEM, s>>>(p);
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) ==
+      cudaSuccess)
+    kernel<<<grid, D::THREADS, smem, s>>>(p, ta, tb);
+}
+
+// loader: kTma (the wrapper has checked what TMA needs of both operands) or
+// kScalar.  False where a tensor map is refused, or for the 128 x 128
+// tile where A is read along k (the wrapper never picks it there).
+template <class D>
+bool launch_dmma(int loader, const MatArgs<double>& p, int splits, cudaStream_t s) {
+  constexpr bool wide = std::is_same<D, DTileWide>::value;
+  const bool ak = p.sak == 1, bk = p.sbn != 1;
+  if (wide && ak) return false;
+  CUtensorMap ta{}, tb{};
+  if (loader == kTma) {
+    // A (M x K) in rows of k (ak) or of m; B (K x N) in rows of k (bk) or of n
+    const bool ok =
+        (ak ? encode_f64(&ta, p.A, p.K, p.M, p.sam, D::BM)
+            : encode_f64(&ta, p.A, p.M, p.K, p.sak, D::BK)) &&
+        (bk ? encode_f64(&tb, p.B, p.K, p.N, p.sbn, D::BN)
+            : encode_f64(&tb, p.B, p.N, p.K, p.sbk, D::BK));
+    if (!ok) return false;
+  }
+  with_flags(ak, bk, loader == kTma, [&](auto AK, auto BK, auto TMA) {
+    constexpr bool a = decltype(AK)::value, b = decltype(BK)::value;
+    if constexpr (!(wide && a))
+      launch_dmma_kernel<D, a, b, decltype(TMA)::value>(p, splits, ta, tb, s);
   });
+  return true;
 }
 
 // config 0: wide outputs (f64: the BM x BN block tile), 1: N <= 8; false
-// where f64 names no tile this file has
+// where f64 names no tile this file has or TMA refuses an operand.
 template <typename T>
-bool launch_main(int config, int bm, int bn, bool vec, const MatArgs<T>& p, int splits,
+bool launch_main(int config, int bm, int bn, int loader, const MatArgs<T>& p, int splits,
                  cudaStream_t s) {
-  const bool a_kfast = p.sak == 1, b_kfast = p.sbn != 1;
+  const bool a_kfast = p.sak == 1, b_kfast = p.sbn != 1, vec = loader != kScalar;
   if (config == 1) {
     constexpr int E = 16 / sizeof(T);
     const bool one = p.N == 1;
@@ -781,11 +1030,10 @@ bool launch_main(int config, int bm, int bn, bool vec, const MatArgs<T>& p, int 
     }
   } else if constexpr (std::is_same<T, double>::value) {
     if (bm == DTileNarrow::BM && bn == DTileNarrow::BN)
-      launch_dmma<DTileNarrow>(vec, p, splits, s);
-    else if (bm == DTileWide::BM && bn == DTileWide::BN)
-      launch_dmma<DTileWide>(vec, p, splits, s);
-    else
-      return false;
+      return launch_dmma<DTileNarrow>(loader, p, splits, s);
+    if (bm == DTileWide::BM && bn == DTileWide::BN)
+      return launch_dmma<DTileWide>(loader, p, splits, s);
+    return false;
   } else {
     const dim3 grid(cdiv(p.M, SG_BM), cdiv(p.N, SG_BN), splits);
     with_flags(a_kfast, b_kfast, vec, [&](auto AK, auto BK, auto V) {
@@ -827,7 +1075,7 @@ int reduce_splits(const MatArgs<T>& p, int splits, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch(int config, int bm, int bn, int vec, const void* A, const void* B, void* C,
+int launch(int config, int bm, int bn, int loader, const void* A, const void* B, void* C,
            void* part, int64_t M, int64_t N, int64_t K, int64_t sam, int64_t sak, int64_t sbk,
            int64_t sbn, int64_t k_chunk, int splits, cudaStream_t stream) {
   using Acc = typename AccOf<T>::type;
@@ -836,7 +1084,7 @@ int launch(int config, int bm, int bn, int vec, const void* A, const void* B, vo
                      M, N, K, sam, sak, sbk, sbn, k_chunk};
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     launch_bf16(config, p, splits, stream);
-  } else if (!launch_main<T>(config, bm, bn, vec != 0, p, splits, stream)) {
+  } else if (!launch_main<T>(config, bm, bn, loader, p, splits, stream)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaGetLastError();
@@ -847,24 +1095,24 @@ int launch(int config, int bm, int bn, int vec, const void* A, const void* B, vo
 }  // namespace
 
 // config: 0 wide outputs (N > 8), 1 skinny (N <= 8).  bm, bn: the f64 wide
-// block tile (128 x 64 or 128 x 128); other launches ignore them.  vec: 1 if
-// both operands take 16-byte copies along their unit-stride axis (the wrapper
-// checks base and leading-stride alignment), else 0: the element-by-element
-// loader.  bf16 ignores it.
-extern "C" int repro_matmul(int dtype, int config, int bm, int bn, int vec, const void* A,
+// block tile (128 x 64 or 128 x 128); other launches ignore them.  loader
+// (the wrapper checks base and leading-stride alignment): 2 TMA (f64, N > 8
+// only), 1 16-byte cp.async copies along each operand's unit-stride axis, 0
+// the element-by-element loader.  bf16 ignores it.
+extern "C" int repro_matmul(int dtype, int config, int bm, int bn, int loader, const void* A,
                             const void* B, void* C, void* part, int64_t M, int64_t N, int64_t K,
                             int64_t sam, int64_t sak, int64_t sbk, int64_t sbn, int64_t k_chunk,
                             int splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case REPRO_F32:
-      return launch<float>(config, bm, bn, vec, A, B, C, part, M, N, K, sam, sak, sbk, sbn,
+      return launch<float>(config, bm, bn, loader, A, B, C, part, M, N, K, sam, sak, sbk, sbn,
                            k_chunk, splits, s);
     case REPRO_F64:
-      return launch<double>(config, bm, bn, vec, A, B, C, part, M, N, K, sam, sak, sbk, sbn,
+      return launch<double>(config, bm, bn, loader, A, B, C, part, M, N, K, sam, sak, sbk, sbn,
                             k_chunk, splits, s);
     case REPRO_BF16:
-      return launch<__nv_bfloat16>(config, bm, bn, vec, A, B, C, part, M, N, K, sam, sak, sbk,
+      return launch<__nv_bfloat16>(config, bm, bn, loader, A, B, C, part, M, N, K, sam, sak, sbk,
                                    sbn, k_chunk, splits, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -10,8 +10,10 @@ bitwise reproducible.  Operands are passed by strides: a transposed view
 (``X.mT``) is read in place.  By dtype and output width: f64 with N > 8 on
 the FP64 tensor cores, f32 with N > 8 on register-blocked IEEE FMA, f64 and
 f32 with N <= 8 on a kernel that streams A; bf16 on the first tile kernel.
-Where an operand's rows are not 16-byte aligned the same kernels copy
-element by element (``vector_loads`` decides; ``loaders`` counts).
+f64 with N > 8 fills its ring by TMA where both operands allow it
+(``tma_loads``); the other kernels copy 16 bytes at a time by cp.async
+(``vector_loads``); any of them copies element by element where an operand
+is not aligned for that (``choose_loader`` decides, ``loaders`` counts).
 """
 from __future__ import annotations
 
@@ -49,9 +51,11 @@ class F64Tile(NamedTuple):
 
 #: dmma_kernel's block tiles (csrc/matmul.cu's DTileNarrow and DTileWide):
 #: 128 x 64 over four warps, 128 x 128 over eight
-F64_TILES = {"128x64": F64Tile(128, 64, 16, 4, 2), "128x128": F64Tile(128, 128, 32, 3, 1)}
+F64_TILES = {"128x64": F64Tile(128, 64, 32, 2, 2), "128x128": F64Tile(128, 128, 32, 3, 1)}
 #: launches by the loader they took since the last ``reset_loaders``
-loaders: Dict[str, int] = {"vector": 0, "scalar": 0}
+loaders: Dict[str, int] = {"vector": 0, "scalar": 0, "tma": 0}
+#: the loader codes of csrc/matmul.cu
+LOADER_CODES = {"scalar": 0, "vector": 1, "tma": 2}
 #: f64 wide launches by the block tile they took since the last ``reset_loaders``
 tiles: Dict[str, int] = {name: 0 for name in F64_TILES}
 
@@ -126,10 +130,11 @@ def a_kfast(a: torch.Tensor) -> bool:
 
 
 def vector_loads(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Whether the f32/f64 kernels may copy 16 bytes at a time: each operand
-    they stage (A, and B for N > 8) has a unit stride along the axis they
-    read fastest, a 16-byte aligned base and a leading stride of whole 16
-    bytes.  bf16 (element by element) never does."""
+    """Whether the f32/f64 kernels may copy 16 bytes at a time (f64 with
+    N > 8: whether TMA may, see ``tma_loads``): each operand they stage (A,
+    and B for N > 8) has a unit stride along the axis they read fastest, a
+    16-byte aligned base and a leading stride of whole 16 bytes.  bf16
+    (element by element) never does."""
     if a.dtype == torch.bfloat16:
         return False
 
@@ -140,6 +145,29 @@ def vector_loads(a: torch.Tensor, b: torch.Tensor) -> bool:
 
     return aligned(a, 1 if a_kfast(a) else 0) and (
         b.shape[1] <= 8 or aligned(b, 1 if b.stride(1) == 1 else 0))
+
+
+def tma_loads(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether an f64 product with N > 8 fills dmma_kernel's ring by TMA:
+    both operands pass ``vector_loads`` (a 16-byte aligned base, a unit
+    stride along the axis read fastest, a leading stride of whole 16 bytes)
+    and their rows do not coincide (a leading stride of 0, a broadcast: left
+    to the element loader)."""
+    def rows_apart(t, fast):
+        return t.shape[1 - fast] == 1 or t.stride(1 - fast) > 0
+
+    return (a.dtype == torch.float64 and b.shape[1] > 8 and vector_loads(a, b)
+            and rows_apart(a, 1 if a_kfast(a) else 0)
+            and rows_apart(b, 1 if b.stride(1) == 1 else 0))
+
+
+def choose_loader(a: torch.Tensor, b: torch.Tensor) -> str:
+    """How the kernel fills shared memory for ``a @ b``: "tma" (f64 with
+    N > 8), "vector" (16-byte cp.async copies, the other kernels) or
+    "scalar" (one copy an element, where the operands allow neither)."""
+    if a.dtype == torch.float64 and b.shape[1] > 8:
+        return "tma" if tma_loads(a, b) else "scalar"
+    return "vector" if vector_loads(a, b) else "scalar"
 
 
 def _kernel():
@@ -159,20 +187,20 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     M, K = a.shape
     N = b.shape[1]
     plan = split_plan(M, N, K, a.dtype, a_kfast(a))
-    vec = vector_loads(a, b)
+    how = choose_loader(a, b)
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     part = (torch.empty((plan.splits, M, N), dtype=acc_dtype(a.dtype), device=a.device)
             if plan.splits > 1 else None)
     with torch.cuda.device(a.device):
         err = _kernel()(
-            DTYPE_CODES[a.dtype], plan.config, plan.bm, plan.bn, int(vec), a.data_ptr(),
-            b.data_ptr(),
-            out.data_ptr(), part.data_ptr() if part is not None else None,
+            DTYPE_CODES[a.dtype], plan.config, plan.bm, plan.bn, LOADER_CODES[how],
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            part.data_ptr() if part is not None else None,
             M, N, K, a.stride(0), a.stride(1), b.stride(0), b.stride(1),
             plan.k_chunk, plan.splits, torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
-    loaders["vector" if vec else "scalar"] += 1
+    loaders[how] += 1
     if a.dtype == torch.float64 and plan.config == 0:
         tiles[f"{plan.bm}x{plan.bn}"] += 1
     return out

@@ -386,14 +386,17 @@ def _np_product(a, b):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
 def test_matmul_kernel_both_orientations_ragged_vs_numpy(cuda_device, m, k, n, ta, tb, dtype):
     """Either unit-stride axis of either operand (a transposed view read in
-    place), ragged edges, the vector loader; f64 against numpy at 1e-10."""
+    place), ragged edges, the vector loader (TMA for f64 with N > 8); f64
+    against numpy at 1e-10."""
     a = _uniform(11, (k, m) if ta else (m, k), cuda_device, dtype)
     b = _uniform(12, (n, k) if tb else (k, n), cuda_device, dtype)
     A, B = (a.mT if ta else a), (b.mT if tb else b)
     reset_launches()
     got = ops.matmul(A, B)
     torch.cuda.synchronize()
-    assert launches["matmul"] == 1 and loaders == {"vector": 1, "scalar": 0}
+    want_loader = "tma" if dtype == torch.float64 and n > 8 else "vector"
+    assert launches["matmul"] == 1
+    assert loaders == {name: int(name == want_loader) for name in loaders}
     want = _np_product(A, B)
     err = np.abs(got.double().cpu().numpy() - want).max() / max(np.abs(want).max(), 1.0)
     assert err <= TOL[dtype], err
@@ -411,13 +414,17 @@ def test_matmul_kernel_misaligned_view_takes_the_scalar_loader(cuda_device, n, d
         reset_launches()
         got = ops.matmul(A, B)
         torch.cuda.synchronize()
-        assert loaders == {"vector": 0, "scalar": 1}
+        assert loaders == {"vector": 0, "scalar": 1, "tma": 0}
         want = _np_product(A, B)
         assert np.abs(got.double().cpu().numpy() - want).max() <= TOL[dtype] * np.abs(want).max()
 
 
+#: (m, k, n).  (4096, 1000, 4160): an odd count of N tiles in both block
+#: tiles (65 of 64, 33 of 128) and K not a multiple of BK (32); (256, 40002,
+#: 136): 3 and 2 N tiles, K split into chunks (44 of 928 in the 128 x 64
+#: tile, 33 of 1216 in the 128 x 128), the last ragged
 F64_TILE_SHAPES = [(4096, 4096, 4096), (1024, 1024, 1024), (1000, 1000, 1000),
-                   (4100, 4099, 4097)]
+                   (4100, 4099, 4097), (4096, 1000, 4160), (256, 40002, 136)]
 
 
 @pytest.mark.parametrize("m,k,n", F64_TILE_SHAPES, ids=str)
@@ -426,8 +433,10 @@ F64_TILE_SHAPES = [(4096, 4096, 4096), (1024, 1024, 1024), (1000, 1000, 1000),
 def test_f64_block_tiles_vs_numpy_in_every_orientation(cuda_device, m, k, n, ta, tb):
     """dmma_kernel's two block tiles, taken by shape and orientation (128 x
     128 where A is read along m, else 128 x 64): numpy's product to 1e-10,
-    the same bits on three more launches, and the launch counted under the
-    tile that ran.  Odd leading strides (4099, 4097) take the scalar loader."""
+    the same bits on three more launches, each launch counted under the tile
+    and the loader that ran it.  Aligned operands fill the ring by TMA, and
+    give the bits of the element loader on the same values 8 bytes past an
+    aligned base; odd leading strides (4099, 4097) take the element loader."""
     a = _uniform(21, (k, m) if ta else (m, k), cuda_device, torch.float64)
     b = _uniform(22, (n, k) if tb else (k, n), cuda_device, torch.float64)
     A, B = (a.mT if ta else a), (b.mT if tb else b)
@@ -436,10 +445,19 @@ def test_f64_block_tiles_vs_numpy_in_every_orientation(cuda_device, m, k, n, ta,
     got = ops.matmul(A, B)
     torch.cuda.synchronize()
     want_tile = "128x128" if ta else "128x64"
+    want_loader = "tma" if vec else "scalar"
     assert tiles == {name: int(name == want_tile) for name in tiles}
-    assert loaders == {"vector": int(vec), "scalar": int(not vec)}
+    assert loaders == {name: int(name == want_loader) for name in loaders}
     assert vec == ((m if ta else k) % 2 == 0 and (k if tb else n) % 2 == 0)
     assert all(torch.equal(got, ops.matmul(A, B)) for _ in range(3))
+    assert loaders == {name: 4 * int(name == want_loader) for name in loaders}
+    if vec:
+        buf = torch.empty(a.numel() + 1, dtype=torch.float64, device=cuda_device)
+        a_odd = buf[1:].view(a.shape)
+        a_odd.copy_(a)
+        reset_launches()
+        assert torch.equal(got, ops.matmul(a_odd.mT if ta else a_odd, B))
+        assert loaders == {name: int(name == "scalar") for name in loaders}
     want = _np_product(A, B)
     err = np.abs(got.cpu().numpy() - want).max() / np.abs(want).max()
     assert err <= 1e-10, err

@@ -22,8 +22,8 @@ import torch
 from repro.kernels import glm_fused as ref_glm_fused
 from repro.kernels import matmul as ref_matmul
 from repro_torch.kernels import build, launches, ops, reset_launches
-from repro_torch.kernels.matmul import (F64_TILES, SMS, a_kfast, matmul_ref, split_plan,
-                                        tile, vector_loads)
+from repro_torch.kernels.matmul import (F64_TILES, SMS, a_kfast, choose_loader, matmul_ref,
+                                        split_plan, tile, tma_loads, vector_loads)
 
 SHAPES = [(128, 128, 128), (256, 128, 384), (384, 256, 128), (100, 96, 60)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -163,12 +163,21 @@ class TestMatmul:
 
     @pytest.mark.parametrize("name", sorted(F64_TILES))
     def test_f64_tile_ring_fits_shared_memory(self, name):
-        """A block's ring of (A, B) stages fits the 227 KB of shared memory an
-        H100 block may have, and the blocks a wave holds fit 132 SMs' 228 KB."""
+        """A block's ring of (A, B) stages, aligned up to the 128-byte
+        swizzle's 1024-byte period, with a full and an empty mbarrier a stage,
+        fits the 227 KB of shared memory an H100 block may have, and the
+        blocks a wave holds fit 132 SMs' 228 KB.  Every TMA box (16 f64 along
+        the unit-stride axis, the 128 bytes the swizzle takes) holds whole
+        1024-byte periods and at most 256 rows: A's tile, B's tile, or one
+        slice of k."""
         bm, bn, bk, stages, per_sm = F64_TILES[name]
         ring = stages * (bm + bn) * bk * 8
-        assert ring <= 232448 and per_sm * (ring + 1024) <= 233472
+        smem = ring + 1024 + 2 * stages * 8
+        assert smem <= 232448 and per_sm * (smem + 1024) <= 233472
         assert split_plan(4096, 4096, 4096, torch.float64, bm != bn).wave == SMS * per_sm
+        assert bk % 16 == 0
+        for rows in (bm, bn, bk):
+            assert rows <= 256 and rows * 128 % 1024 == 0
 
     def test_main_path_operands_take_the_vector_loader(self):
         X = torch.zeros(4096, 256, dtype=torch.float64)
@@ -193,6 +202,35 @@ class TestMatmul:
         assert vector_loads(Y[2:].view(4096, 256), torch.zeros(256, 1, dtype=torch.float64))
         assert not vector_loads(torch.zeros(8, 8, dtype=torch.bfloat16),
                                 torch.zeros(8, 8, dtype=torch.bfloat16))
+
+    def test_tma_loads_follow_the_vector_rule(self):
+        """f64 with N > 8 takes TMA where both operands are aligned as the
+        16-byte copies need, through a transposed view too; not where a base
+        is 8 bytes off, a leading stride is odd, N <= 8, the dtype is f32, or
+        rows coincide (a broadcast).  An f64 product with N > 8 that TMA
+        cannot take copies element by element."""
+        X = torch.zeros(4096, 256, dtype=torch.float64)
+        W = torch.zeros(256, 64, dtype=torch.float64)
+        assert tma_loads(X, W) and tma_loads(X.mT, X) and tma_loads(W.mT, X.mT)
+        assert choose_loader(X.mT, X) == "tma"
+        n = 4096 * 256
+        Y = torch.zeros(n + 2, dtype=torch.float64)
+        assert Y.data_ptr() % 16 == 0
+        Xo = Y[1:n + 1].view(4096, 256)                   # 8 bytes past an aligned base
+        assert not tma_loads(Xo, W) and not tma_loads(Xo.mT, X) and not tma_loads(X.mT, Xo)
+        assert choose_loader(Xo.mT, X) == "scalar"
+        Z = torch.zeros(4096, 257, dtype=torch.float64)
+        assert not tma_loads(Z[:, :256], W)               # odd leading stride
+        assert not tma_loads(W.mT, Z[:, :256].mT)
+        assert not tma_loads(X, torch.zeros(256, 8, dtype=torch.float64))   # N <= 8
+        assert choose_loader(X, torch.zeros(256, 8, dtype=torch.float64)) == "vector"
+        assert not tma_loads(X.float(), W.float())
+        assert choose_loader(X.float(), W.float()) == "vector"
+        row = torch.zeros(1, 256, dtype=torch.float64)
+        assert vector_loads(row.expand(4096, 256), W)
+        assert not tma_loads(row.expand(4096, 256), W)   # every row the same memory
+        assert choose_loader(row.expand(4096, 256), W) == "scalar"
+        assert tma_loads(row, W)                          # one row: its stride is not read
 
     def test_library_path_is_keyed_by_sources(self):
         p = build.library_path("matmul")
