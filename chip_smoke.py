@@ -2,10 +2,10 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the seven hand-written Hopper kernel libraries from
+Builds the eight hand-written Hopper kernel libraries from
 ``src/repro_torch/csrc`` (``matmul``, ``glm_fused``, ``flash_attention``,
-``flash_attention_bwd``, ``mamba_scan``, ``mamba_scan_bwd``, ``mamba_step``;
-one ``nvcc`` each, all at once), holds
+``flash_attention_bwd``, ``mamba_scan``, ``mamba_scan_bwd``, ``mamba_step``,
+``mamba2_step``; one ``nvcc`` each, all at once), holds
 each against its plain PyTorch version at its main path's shapes and times
 both (CUDA events), then drives the main paths at full width:
 
@@ -79,6 +79,15 @@ both (CUDA events), then drives the main paths at full width:
   as ``serve_dense`` runs its models (routes, planted fault, launches, the
   share of tokens each layer's prefill routed to other experts on the two
   routes), and an f32 leg at 2 layers where "gather" agrees with "einsum";
+- the hybrid Mamba-2 decoder: granite-4.0-h-small at its published width,
+  cut to one whole period of 10 layers (9 Mamba-2, attention at 5, the MoE
+  of 72 experts and a shared expert on all; 8.36 B parameters in bf16),
+  through ``serve.ContinuousBatcher``: 4 prompts of 100-1100 tokens
+  admitted in prefill chunks of 512 (the SSD prefill continuing its state
+  across chunks and ending mid SSD chunk), then 8 decode steps, each
+  Mamba-2 layer's step on the ``mamba2_step`` kernel, launches exact; the
+  plain route teacher-forced with the kernel route's tokens and routing
+  within the bf16 serve tolerance, step by step;
 - the encoder-decoder: whisper-small as published (12 encoder + 12
   decoder layers, d 768, bf16, seeded weights) serves 8 requests of 1500
   frames (30 s of audio; the stub frontend's frames drawn by numpy) with a
@@ -182,6 +191,7 @@ from repro_torch.kernels.flash_attention_bwd import flash_attention_bwd_ref  # n
 from repro_torch.kernels.glm_fused import glm_fused_ref  # noqa: E402
 from repro_torch.kernels.mamba_scan import mamba_scan_bwd_ref, mamba_scan_ref  # noqa: E402
 from repro_torch.kernels.mamba_step import conv_step_ref, state_step_ref  # noqa: E402
+from repro_torch.kernels.mamba2_step import state_step_ref as state_step2_ref  # noqa: E402
 from repro_torch.kernels.matmul import loaders, matmul_ref, tiles  # noqa: E402
 from repro_torch.launch import chaos as chaos_driver  # noqa: E402
 from repro_torch.launch.chaos import _newton_iteration  # noqa: E402
@@ -389,6 +399,12 @@ SERVE_MOE = dict(layers={"qwen3-moe-235b-a22b": 11, "phi3.5-moe-42b-a6.6b": 22},
 #: the same tokens
 SERVE_MOE_F32 = dict(layers=2, batch=2, prompt_len=512, gen=8)
 MOE_MODES_TOL = 1e-5
+#: granite-4.0-h-small through the batcher at its published width, cut to
+#: one whole period (granite-decode-256's stage: Mamba-2 at 0-4 and 6-9,
+#: attention at 5); the prompts end mid SSD chunk (256) and the longer ones
+#: cross prefill chunks; seeded prompts and weights, bf16
+SERVE_GRANITE = dict(arch="granite-4.0-h-small", layers=10, prompts=(100, 300, 517, 1100),
+                     prefill_chunk=512, max_len=1280, steps=8)
 #: the encoder-decoder train path (train_whisper): whisper-small as published
 #: (12 + 12 layers), f32 masters and AdamW, bf16 compute, full remat; 8
 #: requests of 1500 frames and 448 target tokens (whisper's text context);
@@ -438,14 +454,21 @@ STEP_SRC = ("src/repro_torch/csrc/mamba_step.cu",
 #: tests/test_torch_mamba_step.py holds them (the plain versions round to
 #: bf16 where the kernels keep f32)
 STEP = dict(arch="jamba2-mini", batch=32, tol={"y": 3e-2, "ssm": 1e-2})
+#: replaces no TPU kernel: the reference has no Mamba-2
+STEP2_SRC = ("src/repro_torch/csrc/mamba2_step.cu", "none (the reference has no Mamba-2)")
+#: the Mamba-2 decode step at granite-decode-256's shapes: 256 rows, 128 heads
+#: of 64, N 128, one group, bf16; the kernels against the plain version
+#: relative to the largest plain value, as tests/test_torch_granite.py holds
+#: them (both keep f32 until y rounds to bf16)
+STEP2 = dict(arch="granite-4.0-h-small", batch=256, tol={"y": 8e-3, "ssm": 1e-5})
 #: the libraries whose kernels were redesigned for Hopper (tensor cores,
 #: asynchronous copies, split-KV, the scan's checkpoints); their ptxas report
 #: must show no register spills
 REDESIGNED = ("matmul", "flash_attention", "flash_attention_bwd", "mamba_scan",
-              "mamba_scan_bwd", "mamba_step")
+              "mamba_scan_bwd", "mamba_step", "mamba2_step")
 #: every kernel library, built at once
 KERNELS = ["matmul", "glm_fused", "flash_attention", "flash_attention_bwd", "mamba_scan",
-           "mamba_scan_bwd", "mamba_step"]
+           "mamba_scan_bwd", "mamba_step", "mamba2_step"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -822,6 +845,54 @@ def step_case(dev, g):
                 peak=PEAK_NAME[torch.float32])
     emit("kernel_case", kernel="mamba_step", **case)
     check(all(err[k] <= STEP["tol"][k] for k in err), f"mamba_step: rel err {err}")
+    return case
+
+
+def step2_case(dev, g):
+    """The Mamba-2 decode step after its conv at STEP2's shapes: the state
+    and norm kernels against the plain version on copies of the state;
+    device time of each kernel, the call's CUDA-event time on both routes,
+    and the byte bound (the f32 state read and written, xBC, dt and z read,
+    y written, the head parameters and the norm's scale read)."""
+    cfg = get_config(STEP2["arch"])
+    s, B = cfg.ssm, STEP2["batch"]
+    H, P, N, G = s.n_heads, s.head_dim, s.d_state, s.n_groups
+    DI, CC = H * P, H * P + 2 * G * N
+
+    def u(*shape, scale=1.0, dtype=torch.bfloat16):
+        return ((torch.rand(shape, device=dev, generator=g) * 2 - 1) * scale).to(dtype)
+
+    xbc, dt, z = u(B, 1, CC), u(B, 1, H), u(B, 1, DI)
+    params = (u(H, scale=0.5) - 4.6,
+              torch.log(torch.arange(1, H + 1, device=dev).float()).bfloat16(),
+              torch.ones(H, device=dev).bfloat16(), u(DI, scale=0.3))
+    state0 = u(B, H, P, N, dtype=torch.float32)
+    kern, plain = state0.clone(), state0.clone()
+
+    def step(state, route=ops.mamba2_state_step):
+        return route(xbc, dt, z, state, *params, eps=cfg.norm_eps)[0]
+
+    reset_launches()
+    y, y_ref = step(kern), step(plain, state_step2_ref)
+    sync()
+    check(launches["mamba2_step"] == 1, f"mamba2_step launches {launches['mamba2_step']}")
+    err = {"y": ((y.float() - y_ref.float()).abs().max() / y_ref.float().abs().max()).item(),
+           "ssm": ((kern - plain).abs().max() / plain.abs().max()).item()}
+    state_bytes = 8 * B * H * P * N + 2 * (B * (CC + H + 2 * DI) + 3 * H + DI)
+    # two fused multiply-adds a state element, then ~8 an output channel
+    bound_ms, bound_by = bound(4.0 * B * H * P * N + 8.0 * B * DI, state_bytes,
+                               torch.float32)
+    device = device_ms_by_kernel(lambda: step(kern), {"state": "mamba2_state_kernel",
+                                                      "norm": "mamba2_norm_kernel"})
+    case = dict(case=f"decode B {B} H {H} P {P} N {N} bf16", dtype="bfloat16",
+                shape=[B, H, P, N], max_abs_err=max(err.values()), rel_err=err,
+                tol=STEP2["tol"], ms=device["state"] + device["norm"], device_ms=device,
+                step_ms=time_ms(lambda: step(kern)),
+                plain_ms=time_ms(lambda: step(plain, state_step2_ref), max_reps=5),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                peak=PEAK_NAME[torch.float32])
+    emit("kernel_case", kernel="mamba2_step", **case)
+    check(all(err[k] <= STEP2["tol"][k] for k in err), f"mamba2_step: rel err {err}")
     return case
 
 
@@ -2252,6 +2323,84 @@ def serve_moe_phase(dev):
     return total
 
 
+def granite_run(dev, cfg, params, impl, spec, forced=None, replay=None):
+    """SERVE_GRANITE's prompts through one ContinuousBatcher on route
+    ``impl``: every prompt admitted, then ``spec["steps"] + 1`` decode steps
+    of every row, fed the greedy tokens or ``forced`` ones (another run's,
+    teacher forcing), routed as the router picks or as ``replay`` (another
+    run's ``RoutingTap.picks``).  Returns the prompt logits and each step's
+    (rows, V) f32 logits on the host, the tokens fed, the picks, the launches
+    from the first admission on, the host wall of each decode step, and the
+    Mamba-2 state after the last step."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in spec["prompts"]]
+    _release()
+    batcher = ContinuousBatcher(cfg, params, max_slots=len(prompts), max_len=spec["max_len"],
+                                impl=impl, prefill_chunk=spec["prefill_chunk"])
+    for prompt in prompts:
+        batcher.submit(prompt, max_new=spec["steps"] + 2)
+    fed, logits, wall = [], [], []
+    sync()
+    reset_launches()
+    with RoutingTap(replay=replay) as tap:
+        batcher._admit()  # the first step's own admission: nothing left to admit
+        for i in range(spec["steps"] + 1):
+            if forced is not None:
+                batcher.cur_tokens = forced[i].clone()
+            fed.append(batcher.cur_tokens.clone())
+            t0 = time.perf_counter()
+            batcher.step()
+            sync()
+            wall.append(time.perf_counter() - t0)
+            logits.append(batcher.logits.float().cpu())
+    prompt_logits = torch.stack(batcher.prompt_logits).float().cpu()
+    return dict(logits=torch.stack([prompt_logits] + logits).numpy(), fed=fed,
+                picks=tap.picks, launches=dict(launches), wall_s=wall,
+                ssm=batcher.cache["ssm"].clone(), prompts=[p.size for p in prompts])
+
+
+def serve_granite_phase(dev):
+    """granite-4.0-h-small at its published width and SERVE_GRANITE's depth
+    through the batcher: the kernel route, then the plain route fed the
+    kernel route's tokens and routing; step by step (step 0 is the prompts'
+    last positions) within SERVE_TOL of the plain route's max|logit|; the
+    kernel route launches ``mamba2_step`` once a Mamba-2 layer and decode
+    step and nothing of Mamba-1, the plain route nothing.  Returns the
+    kernel route's launches."""
+    spec = SERVE_GRANITE
+    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=spec["layers"])
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    weight_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    kern = granite_run(dev, cfg, params, "kernel", spec)
+    plain = granite_run(dev, cfg, params, "plain", spec, forced=kern["fed"],
+                        replay=kern["picks"])
+    scale = np.abs(plain["logits"]).max(axis=(1, 2))
+    err = (np.abs(kern["logits"] - plain["logits"]).max(axis=(1, 2)) / scale).tolist()
+    ssm_err = float((kern["ssm"] - plain["ssm"]).abs().max() / plain["ssm"].abs().max())
+    steps = spec["steps"] + 1
+    chunks = sum(-(-n // spec["prefill_chunk"]) for n in kern["prompts"])
+    mamba2 = cfg.layer_count("ssm")
+    want = {"mamba2_step": mamba2 * steps, "mamba_step": 0, "mamba_scan": 0,
+            "flash_attention": cfg.layer_count("attn") * (chunks + steps)}
+    got = {k: kern["launches"][k] for k in want}
+    decode = kern["wall_s"][1:]
+    emit("serve_granite", arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+         published_layers=get_config(spec["arch"]).n_layers, mamba2_layers=mamba2,
+         params=cfg.param_count(), weight_gb=weight_bytes / 1e9, prompts=kern["prompts"],
+         prefill_chunk=spec["prefill_chunk"], decode_steps=steps,
+         rel_err_per_step=err, tol=SERVE_TOL["bfloat16"], ssm_state_rel_err=ssm_err,
+         routing="the kernel route's, on both", launches=got,
+         decode_s_per_step=dict(mean=float(np.mean(decode)), max=max(decode)))
+    check(max(err) <= SERVE_TOL["bfloat16"], f"serve_granite: the routes part: {err}")
+    check(got == want, f"serve_granite kernel launches {got} != {want}")
+    check(not any(plain["launches"].values()),
+          f"serve_granite plain route launched kernels: {plain['launches']}")
+    launched = kern["launches"]
+    del params, kern, plain
+    _release()
+    return launched
+
+
 def whisper_inputs(dev, cfg, spec, seed=0):
     """SERVE_WHISPER's requests from numpy, as the reference driver draws an
     encoder-decoder's (frames first, then prompt tokens), at its frames."""
@@ -3148,6 +3297,8 @@ def main() -> int:
     matmul_cases, glm_cases = kernel_phase(dev)
     _release()
     flash_cases, scan_cases, step_cases = serve_kernel_phase(dev)
+    step2_cases = [step2_case(dev, torch.Generator(device=dev).manual_seed(2))]
+    _release()
     flash_cases += dense_kernel_cases(dev)
     flash_cases += whisper_kernel_cases(dev)
     flash_cases += moe_kernel_cases(dev)
@@ -3218,6 +3369,10 @@ def main() -> int:
     # the MoE decoders at their published width, cut in depth
     moe_launches = serve_moe_phase(dev)
     lap("serve_moe")
+    # the hybrid Mamba-2 decoder through the batcher, every Mamba-2 decode
+    # step on the mamba2_step kernel
+    granite_launches = serve_granite_phase(dev)
+    lap("serve_granite")
     # the encoder-decoder: whisper-small's encoder, self- and cross-attention
     # through the attention kernel (no mask on the encoder and cross)
     whisper_launches = serve_whisper_phase(dev)
@@ -3253,7 +3408,8 @@ def main() -> int:
                           + moe_launches[k] + train_launches[k] + dense_train_launches[k]
                           + whisper_train_launches[k] + spmd_launches[k]
                           for k in ("flash_attention", "mamba_scan")})
-    main_launches["flash_attention"] += whisper_launches["flash_attention"]
+    main_launches["flash_attention"] += (whisper_launches["flash_attention"]
+                                         + granite_launches["flash_attention"])
     main_launches["mamba_step"] = serve_launches["mamba_step"] + batched_launches["mamba_step"]
     main_launches.update({k: train_launches[k] + dense_train_launches[k]
                           + whisper_train_launches[k] + spmd_launches[k]
@@ -3277,6 +3433,8 @@ def main() -> int:
                      scan_bwd_cases[0]["case"], main_launches["mamba_scan_bwd"]),
         kernel_entry("mamba_step", STEP_SRC, step_cases, step_cases[0]["case"],
                      main_launches["mamba_step"]),
+        kernel_entry("mamba2_step", STEP2_SRC, step2_cases, step2_cases[0]["case"],
+                     granite_launches["mamba2_step"]),
     ]}, default=float), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

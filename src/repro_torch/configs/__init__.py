@@ -5,7 +5,9 @@ and every architecture of the reference's LM zoo: the hybrid
 ``qwen2-vl-7b``), the MoE decoders (``qwen3-moe-235b-a22b``,
 ``phi3.5-moe-42b-a6.6b``) and the encoder-decoder ``whisper-small``; and
 the port's own ``jamba2-mini`` (Mamba-1, attention and MoE layers by a
-layer schedule), which the reference's zoo lacks.
+layer schedule) and ``granite-4.0-h-small`` (Mamba-2 and attention by a
+schedule, a MoE with a shared expert on every layer), which the
+reference's zoo lacks.
 
 Each module exports ``CONFIG`` (exact published sizes).  ``get_config(id)``
 and ``list_archs()`` are the programmatic API, as in ``repro.configs``.
@@ -26,6 +28,7 @@ _MODULES = {
     "phi3.5-moe-42b-a6.6b": "phi3p5_moe_42b_a6p6b",
     "whisper-small": "whisper_small",
     "jamba2-mini": "jamba2_mini",
+    "granite-4.0-h-small": "granite_4_0_h_small",
     "glm_logreg": "glm_logreg",
 }
 

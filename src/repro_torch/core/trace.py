@@ -86,7 +86,8 @@ span                                   opened around
 ``repro_torch.exec.drain``             the outermost ``Executor.flush``
 ``repro_torch.backend.<op>``           one block op (``TorchBackend.execute``)
 ``repro_torch.pycollect.gen<N>``       one pass of Python's cyclic collector
-``repro_torch.lm.mamba``               an LM layer's SSM mixer (``models``)
+``repro_torch.lm.mamba``               an LM layer's Mamba-1 mixer (``models``)
+``repro_torch.lm.mamba2``              an LM layer's Mamba-2 (SSD) mixer
 ``repro_torch.lm.attention``           an LM layer's self-attention
 ``repro_torch.lm.moe``                 an LM layer's MoE channel
 ``repro_torch.lm.mlp``                 an LM layer's dense MLP
@@ -301,6 +302,7 @@ SCHED_REPLAY = "repro_torch.sched.replay"
 SCHED_LSHS = "repro_torch.sched.lshs"
 EXEC_DRAIN = "repro_torch.exec.drain"
 LM_MAMBA = "repro_torch.lm.mamba"
+LM_MAMBA2 = "repro_torch.lm.mamba2"
 LM_ATTENTION = "repro_torch.lm.attention"
 LM_MOE = "repro_torch.lm.moe"
 LM_MLP = "repro_torch.lm.mlp"

@@ -72,16 +72,23 @@ def visible(q_len: int, kv_len: int, causal: bool, window: Optional[int],
     return mask
 
 
+def _scaled(s: torch.Tensor, hd: int, scale: Optional[float]) -> torch.Tensor:
+    """Scores s times ``scale``, or divided by sqrt(hd) where it is None."""
+    return s / math.sqrt(hd) if scale is None else s * scale
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: Optional[int] = None,
-                        q_offset: Offset = 0, return_lse: bool = False):
+                        q_offset: Offset = 0, return_lse: bool = False,
+                        scale: Optional[float] = None):
     """Plain version: the same online-softmax arithmetic in one pass, in f32.
-    Returns the output, or (output, lse) with ``return_lse``."""
+    Returns the output, or (output, lse) with ``return_lse``.  ``scale``
+    multiplies the scores (None: 1/sqrt(hd))."""
     B, H, Sq, hd = q.shape
     KV, Skv = k.shape[1], k.shape[2]
     rep = H // KV
     qg = q.reshape(B, KV, rep, Sq, hd).float()
-    s = torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()) / math.sqrt(hd)
+    s = _scaled(torch.einsum("bkrqd,bksd->bkrqs", qg, k.float()), hd, scale)
     mask = visible(Sq, Skv, causal, window, q_offset, q.device)
     if mask.ndim == 3:  # per-row offsets: (B, Sq, Skv)
         mask = mask[:, None, None]
@@ -147,7 +154,8 @@ def kv_splits(B: int, KV: int, rep: int, Sq: int, Skv: int, hd: int, causal: boo
 def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               causal: bool = True, window: Optional[int] = None,
                               q_offset: Offset = 0, return_lse: bool = False,
-                              splits: Optional[int] = None, bk: Optional[int] = None):
+                              splits: Optional[int] = None, bk: Optional[int] = None,
+                              scale: Optional[float] = None):
     """Plain version of the split-KV arithmetic, in f32: the visible key
     range (whole tiles of ``bk`` keys) cut into ``splits`` ranges as
     ``split_ranges`` cuts it, each range's partial (m, l, unnormalised O)
@@ -167,7 +175,7 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             splits = kv_splits(B, KV, rep, Sq, Skv, hd, causal, window,
                                max(offsets))
         rows = [flash_attention_split_ref(q[b:b + 1], k[b:b + 1], v[b:b + 1], causal, window,
-                                          off, True, splits, bk)
+                                          off, True, splits, bk, scale)
                 for b, off in enumerate(offsets)]
         out = torch.cat([o for o, _ in rows])
         return (out, torch.cat([lse for _, lse in rows])) if return_lse else out
@@ -185,7 +193,7 @@ def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           torch.zeros(rows, device=q.device),
                           torch.zeros(rows + (hd,), device=q.device)))
             continue
-        s = torch.einsum("bkrqd,bksd->bkrqs", qg, k[:, :, lo:hi].float()) / math.sqrt(hd)
+        s = _scaled(torch.einsum("bkrqd,bksd->bkrqs", qg, k[:, :, lo:hi].float()), hd, scale)
         s = s.masked_fill(~mask[:, lo:hi], -math.inf)
         m = s.amax(dim=-1)
         p = torch.exp(s - torch.where(m == -math.inf, 0.0, m)[..., None])
@@ -234,7 +242,8 @@ def _strides(t: torch.Tensor):
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool, window: Optional[int], q_offset: int,
                          return_lse: bool = False,
-                         q_offsets: Optional[torch.Tensor] = None):
+                         q_offsets: Optional[torch.Tensor] = None,
+                         scale: Optional[float] = None):
     """Launch the kernel on CUDA tensors the wrapper (``ops.flash_attention``)
     has checked.  ``q_offsets``, a (B,) int32 tensor on the card, gives each
     batch row its own offset; ``q_offset`` is then the largest of them, from
@@ -266,7 +275,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             None if q_offsets is None else q_offsets.data_ptr(),
             *_strides(q), *_strides(k), *_strides(v), *_strides(out),
             B, KV, Sq, Skv, rep, int(causal), window or 0, q_offset, splits,
-            1.0 / math.sqrt(hd), torch.cuda.current_stream(q.device).cuda_stream)
+            1.0 / math.sqrt(hd) if scale is None else scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
     return (out, lse) if return_lse else out

@@ -15,7 +15,9 @@ versions on the CPU).
 
 The Mamba decode step (``mamba_conv_step``, then the caller's ``x_proj``
 product, then ``mamba_state_step``) updates the serving cache in place on
-both routes and returns the cache tensors it was given.
+both routes and returns the cache tensors it was given; so does the Mamba-2
+decode step (``mamba_conv_step`` over x, B and C, then
+``mamba2_state_step``).
 """
 from __future__ import annotations
 
@@ -38,12 +40,17 @@ from .mamba_scan import (STATE_DIMS, MambaScan, checkpoint_shape, mamba_scan_bwd
 from .mamba_step import CONV_WIDTH, MAX_DT_RANK
 from .mamba_step import DTYPE_CODES as _STEP_DTYPES
 from .mamba_step import conv_step_cuda, conv_step_ref, state_step_cuda, state_step_ref
+from .mamba2_step import DTYPE_CODES as _STEP2_DTYPES
+from .mamba2_step import SHAPES as _STEP2_SHAPES
+from .mamba2_step import groups_of
+from .mamba2_step import state_step_cuda as state_step2_cuda
+from .mamba2_step import state_step_ref as state_step2_ref
 from .matmul import a_kfast, matmul_cuda, matmul_ref, reset_loaders, split_plan
 
 #: kernel launches per wrapper since the last ``reset_launches``
 launches: Dict[str, int] = {"matmul": 0, "glm_fused": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "mamba_scan": 0,
-                            "mamba_scan_bwd": 0, "mamba_step": 0}
+                            "mamba_scan_bwd": 0, "mamba_step": 0, "mamba2_step": 0}
 
 _GRID_LIMIT = 65535  # CUDA's limit on gridDim.y and gridDim.z
 
@@ -180,7 +187,7 @@ def _check_attention_launch(name: str, *tensors: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: Offset = 0, max_offset: Optional[int] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, scale: Optional[float] = None):
     """Grouped-query attention of q (B, H, Sq, hd) over k, v (B, KV, Skv, hd)
     with a 1/sqrt(hd) scale: causal from absolute query position
     ``q_offset``, and with a sliding ``window`` (key j visible to query
@@ -195,10 +202,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sq) f32.  Differentiable (``FlashAttention``) when an input requires
     grad.  On the card one call counts one launch, though a call whose grid
     is too small to fill the card (every decode step) runs two device
-    kernels: partials over ``kv_splits`` key ranges, then their merge."""
+    kernels: partials over ``kv_splits`` key ranges, then their merge.
+    ``scale``, where given, multiplies the scores in place of 1/sqrt(hd)
+    (not under autograd: the backward takes 1/sqrt(hd))."""
     _check_attention("flash_attention", q, k, v, window, q_offset)
     per_row = isinstance(q_offset, torch.Tensor)
     if _wants_grad(q, k, v):
+        if scale is not None:
+            raise NotImplementedError("flash_attention: a softmax scale other than "
+                                      "1/sqrt(hd) is for serving; the backward takes 1/sqrt(hd)")
         if per_row:
             raise NotImplementedError(
                 "flash_attention: per-row query offsets are for serving (ROADMAP Queue 1 "
@@ -208,7 +220,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              "FlashAttention; lse is not differentiable")
         return FlashAttention.apply(q, k, v, causal, window, q_offset)
     if _device_kind("flash_attention", q, k, v) == "cpu":
-        return flash_attention_ref(q, k, v, causal, window, q_offset, return_lse)
+        return flash_attention_ref(q, k, v, causal, window, q_offset, return_lse, scale)
     _check_attention_launch("flash_attention", q, k, v)
     host_offset = q_offset
     if per_row:
@@ -227,7 +239,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "or positions beyond the kernel's range")
     launches["flash_attention"] += 1
     return flash_attention_cuda(q, k, v, causal, window, host_offset, return_lse,
-                                q_offset.contiguous() if per_row else None)
+                                q_offset.contiguous() if per_row else None, scale)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -434,3 +446,47 @@ def mamba_state_step(proj: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
     _check_step_launch("mamba_state_step", B, DI, [x, ssm_state, *params], (proj, z))
     launches["mamba_step"] += 1
     return state_step_cuda(proj, x, z, ssm_state, dt_proj, dt_bias, A_log, D, norms, eps)
+
+
+def mamba2_state_step(xbc: torch.Tensor, dt: torch.Tensor, z: torch.Tensor,
+                      ssm_state: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+                      D: torch.Tensor, norm: torch.Tensor, *, eps: float = 1e-5
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 decode step after its conv: xbc (B, 1, H*P + 2*G*N) the
+    conv's output (x | B | C), dt (B, 1, H) and z (B, 1, H*P) the raw dt and
+    gate of in_proj's output (views; their channel dims contiguous); the
+    carried ssm_state (B, H, P, N) f32 is updated in place.  dt_bias, A_log
+    and D (H,), norm (H*P,), the gated RMSNorm's scale, all in xbc's dtype
+    (f32 or bf16).  Returns (y (B, 1, H*P), the normed output, and
+    ssm_state).  On the card one call counts one ``mamba2_step``: the state
+    kernel and the norm kernel after it."""
+    if ssm_state.ndim != 4 or xbc.ndim != 3 or xbc.shape[1] != 1:
+        raise ValueError(f"mamba2_state_step: need ssm_state (B, H, P, N) and xbc (B, 1, "
+                         f"H*P + 2*G*N), got {tuple(ssm_state.shape)} and {tuple(xbc.shape)}")
+    B, H, P, N = ssm_state.shape
+    G = groups_of(xbc.shape[2], H, P, N)
+    want = {"dt": (B, 1, H), "z": (B, 1, H * P), "dt_bias": (H,), "A_log": (H,), "D": (H,),
+            "norm": (H * P,)}
+    got = dict(dt=dt, z=z, dt_bias=dt_bias, A_log=A_log, D=D, norm=norm)
+    bad = {k: tuple(got[k].shape) for k, shape in want.items() if tuple(got[k].shape) != shape}
+    if xbc.shape[0] != B or G == 0 or H % G or bad:
+        raise ValueError(f"mamba2_state_step: xbc {tuple(xbc.shape)} and {bad} do not fit "
+                         f"ssm_state {tuple(ssm_state.shape)}; need {want} and G dividing H")
+    if ssm_state.dtype != torch.float32:
+        raise TypeError(f"mamba2_state_step: the SSM state must be f32, got {ssm_state.dtype}")
+    dtype = xbc.dtype
+    params = (dt_bias, A_log, D, norm)
+    if dtype not in _STEP2_DTYPES or any(t.dtype != dtype for t in (dt, z) + params):
+        raise TypeError(f"mamba2_state_step: dtypes {[str(t.dtype) for t in (xbc, dt, z)]} and "
+                        f"{[str(t.dtype) for t in params]}; need one of "
+                        f"{sorted(map(str, _STEP2_DTYPES))} on all")
+    if _device_kind("mamba2_state_step", xbc, dt, z, ssm_state, *params) == "cpu":
+        return state_step2_ref(xbc, dt, z, ssm_state, *params, eps=eps)
+    if (P, N) not in _STEP2_SHAPES:
+        raise ValueError(f"mamba2_state_step: head dim {P}, state width {N}; the kernel takes "
+                         f"{_STEP2_SHAPES}")
+    _check_step_launch("mamba2_state_step", B, H * P, [ssm_state, *params], (xbc, dt, z))
+    if ssm_state.data_ptr() % 16:
+        raise ValueError("mamba2_state_step: the kernel needs a 16-byte aligned state")
+    launches["mamba2_step"] += 1
+    return state_step2_cuda(xbc, dt, z, ssm_state, *params, eps)

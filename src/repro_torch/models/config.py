@@ -1,7 +1,8 @@
 """Model configuration for the LM zoo (assigned architectures).
 
 One :class:`ModelConfig` describes any member of the zoo: dense decoder
-transformers (GQA + RoPE variants), sliding-window hybrids, MoE, Mamba-1 SSM,
+transformers (GQA + RoPE variants), sliding-window hybrids, MoE (with a
+shared expert), Mamba-1 and Mamba-2 SSM,
 parallel attn+SSM hybrids (hymba), encoder-decoder (whisper) and stub-fronted
 VLM/audio backbones.  ``reduced()`` produces the CPU smoke-test variant of the
 same family.
@@ -15,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from dataclasses import dataclass, field
-from typing import ClassVar, Dict, Optional, Tuple
+from typing import ClassVar, Dict, Optional, Tuple, Union
 
 
 @dataclass(frozen=True)
@@ -30,6 +31,9 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
+    """A Mamba-1 selective state-space mixer (``models/ssm.py``): a
+    (d_inner, d_state) state with a per-channel A and a low-rank dt
+    (``dt_rank``)."""
     d_state: int = 16
     d_conv: int = 4
     expand: int = 2
@@ -40,6 +44,39 @@ class SSMConfig:
 
     def resolved_dt_rank(self, d_model: int) -> int:
         return self.dt_rank if self.dt_rank is not None else max(1, d_model // 16)
+
+
+@dataclass(frozen=True)
+class Mamba2Config:
+    """A Mamba-2 (SSD, Dao & Gu 2024) mixer (``models/ssd.py``): ``n_heads``
+    heads of ``head_dim`` channels, a scalar A and dt a head, B and C of
+    ``d_state`` shared by the heads of each of ``n_groups`` groups, a
+    (head_dim, d_state) state a head, a gated RMSNorm before out_proj, and a
+    prefill in chunks of ``chunk_size`` positions."""
+    n_heads: int
+    head_dim: int
+    d_state: int = 128
+    d_conv: int = 4
+    n_groups: int = 1
+    chunk_size: int = 256
+
+    @property
+    def d_inner(self) -> int:
+        return self.n_heads * self.head_dim
+
+    @property
+    def conv_channels(self) -> int:
+        """Channels of the causal conv: x, B and C."""
+        return self.d_inner + 2 * self.n_groups * self.d_state
+
+    def n_params(self, d_model: int) -> int:
+        """Parameters of one mixer."""
+        di, cc, h = self.d_inner, self.conv_channels, self.n_heads
+        return (d_model * (di + cc + h)      # in_proj (z, xBC, dt)
+                + cc * self.d_conv + cc      # conv and its bias
+                + 3 * h                      # dt_bias, A_log, D
+                + di                         # the gated norm
+                + di * d_model)              # out_proj
 
 
 @dataclass(frozen=True)
@@ -70,7 +107,7 @@ class ModelConfig:
     norm: str = "rmsnorm"
     norm_eps: float = 1e-6
     moe: Optional[MoEConfig] = None
-    ssm: Optional[SSMConfig] = None
+    ssm: Optional[Union[SSMConfig, Mamba2Config]] = None
     hybrid_parallel: bool = False    # hymba: attention + SSM heads in parallel
     # encoder-decoder (whisper)
     encdec: bool = False
@@ -151,7 +188,9 @@ class ModelConfig:
         parts: Dict[str, int] = {}
         if not self.attention_free:
             parts["attn"] = 2 * d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd
-        if self.ssm is not None:
+        if isinstance(self.ssm, Mamba2Config):
+            parts["ssm"] = self.ssm.n_params(d)
+        elif self.ssm is not None:
             s = self.ssm
             di, dtr = s.d_inner(d), s.resolved_dt_rank(d)
             parts["ssm"] = (d * 2 * di                 # in_proj (x, z)
@@ -165,7 +204,8 @@ class ModelConfig:
                 parts["ssm"] += dtr + 2 * s.d_state
         if self.moe is not None:
             e = self.moe
-            parts["moe"] = d * e.num_experts + e.num_experts * fmul * d * e.d_ff_expert
+            parts["moe"] = (d * e.num_experts + e.num_experts * fmul * d * e.d_ff_expert
+                            + fmul * d * getattr(self, "shared_d_ff", 0))
         if self.d_ff:
             parts["mlp"] = fmul * d * self.d_ff
         return parts
@@ -232,9 +272,16 @@ class ScheduledModelConfig(ModelConfig):
     Mixtral), or left as the softmax over all experts gave them.
     ``moe_dropless``: every (token, choice) pair reaches its expert
     (``moe.moe_block``'s grouped route), with no capacity.
-    ``ssm_inner_norms``: RMSNorms on dt, B and C after ``x_proj``.  The
-    zoo's other configs lack these options: ``moe.py`` and ``ssm.py`` read
-    them where a config has them."""
+    ``ssm_inner_norms``: RMSNorms on dt, B and C after ``x_proj``.
+    ``shared_d_ff``: the width of a shared expert, a gated MLP over every
+    token added to the routed experts' output, ungated by the router (0:
+    none).  Granite's multipliers: the embeddings times
+    ``embedding_multiplier``, each sublayer's output times
+    ``residual_multiplier`` before its residual add, attention's scores
+    times ``attention_scale`` (None: 1/sqrt(head dim)), the logits over
+    ``logits_scaling``.  The zoo's other configs lack these options:
+    ``moe.py``, ``ssm.py``, ``layers.py`` and ``transformer.py`` read them
+    where a config has them."""
     attn_layer_period: int = 1
     attn_layer_offset: int = 0
     expert_layer_period: int = 1
@@ -242,6 +289,11 @@ class ScheduledModelConfig(ModelConfig):
     moe_renormalize: bool = True
     moe_dropless: bool = False
     ssm_inner_norms: bool = False
+    shared_d_ff: int = 0
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_scale: Optional[float] = None
+    logits_scaling: float = 1.0
     scheduled: ClassVar[bool] = True
 
     def is_attention_layer(self, layer_idx: int) -> bool:
@@ -256,9 +308,16 @@ class ScheduledModelConfig(ModelConfig):
                 and layer_idx % self.expert_layer_period == self.expert_layer_offset)
 
     def reduced(self) -> "ScheduledModelConfig":
-        """Tiny sizes, keeping one whole period of the layers."""
+        """Tiny sizes, keeping one whole period of the layers (and a shared
+        expert and Mamba-2's heads, groups and chunks where the config has
+        them)."""
         period = max(2, self.attn_layer_period, self.expert_layer_period)
-        return dataclasses.replace(super().reduced(), n_layers=min(self.n_layers, period))
+        kw = dict(n_layers=min(self.n_layers, period))
+        if self.shared_d_ff:
+            kw["shared_d_ff"] = 96
+        if isinstance(self.ssm, Mamba2Config):
+            kw["ssm"] = Mamba2Config(n_heads=8, head_dim=16, d_state=16, chunk_size=16)
+        return dataclasses.replace(super().reduced(), **kw)
 
 
 @functools.lru_cache(maxsize=64)

@@ -5,8 +5,11 @@ Host counts (decode steps, prefill chunks and tokens) are Python ints.  The
 routing counts stay on the device: each MoE layer adds its per-expert token
 counts into a device tensor, so a step gains no sync; :meth:`LMCounters.loads`
 reads them to the host, once, where it is called.  With ``choices`` a list,
-every MoE layer also appends its expert choices there, as references to the
-device tensors the router made (no copy, no sync).
+every MoE layer also appends its expert choices there, as a compact copy on
+the device (one launch, no sync): the router's choices are a view of its
+whole sort over the experts, which the log would otherwise keep alive (1.5
+MB a decode step of 256 rows over 72 experts, which grew the allocator on
+every step).
 """
 from __future__ import annotations
 
@@ -33,8 +36,10 @@ class LMCounters:
         #: set by the batcher around an admission: the slot being prefilled
         self.slot: Optional[int] = None
         #: (MoE layer, slot or None for a decode step's rows, (N, K) expert
-        #: choices) in call order, while a list
+        #: choices in ``choice_dtype``) in call order, while a list
         self.choices: Optional[List[Tuple[int, Optional[int], torch.Tensor]]] = None
+        #: the smallest integer type that holds an expert's index
+        self.choice_dtype = torch.uint8 if experts <= 256 else torch.int32
 
     def routed(self, layer: int, choices: torch.Tensor, counts: torch.Tensor) -> None:
         """MoE layer ``layer`` (its index among the MoE layers) routed the
@@ -43,7 +48,7 @@ class LMCounters:
         if self.decoding:
             self.experts_hit[layer] += (counts > 0).sum()
         if self.choices is not None:
-            self.choices.append((layer, self.slot, choices))
+            self.choices.append((layer, self.slot, choices.to(self.choice_dtype)))
 
     def loads(self) -> Dict[str, float]:
         """Every count by name, read to the host (one sync)."""

@@ -172,9 +172,9 @@ ATTN_CHUNK = 1024   # q-chunk size above which chunked attention kicks in
 ATTN_CHUNK_MIN_SQ = 2048
 
 
-def _attention_dense(qg, k, v, mask, softcap, hd):
+def _attention_dense(qg, k, v, mask, softcap, hd, scale=None):
     scores = torch.einsum("bqkrd,bskd->bkrqs", qg, k).float()
-    scores = scores / math.sqrt(hd)
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
     if mask is not None:
@@ -183,7 +183,7 @@ def _attention_dense(qg, k, v, mask, softcap, hd):
     return torch.einsum("bkrqs,bskd->bqkrd", probs, v)
 
 
-def _attention_plain(q, k, v, mask, softcap):
+def _attention_plain(q, k, v, mask, softcap, scale=None):
     """The reference's grouped-query attention: dense scores, in q chunks of
     ATTN_CHUNK for long queries so the (Sq, Skv) matrix is never whole."""
     B, Sq, H, hd = q.shape
@@ -195,13 +195,14 @@ def _attention_plain(q, k, v, mask, softcap):
         elif mask.ndim == 3:  # (B, Sq, Skv)
             mask = mask[:, None, None]
     if Sq < ATTN_CHUNK_MIN_SQ or Sq % ATTN_CHUNK:
-        return _attention_dense(qg, k, v, mask, softcap, hd).reshape(B, Sq, H, hd)
+        return _attention_dense(qg, k, v, mask, softcap, hd, scale).reshape(B, Sq, H, hd)
     chunks = []
     for q0 in range(0, Sq, ATTN_CHUNK):
         mc = mask
         if mask is not None and mask.shape[3] == Sq:
             mc = mask[:, :, :, q0:q0 + ATTN_CHUNK]
-        chunks.append(_attention_dense(qg[:, q0:q0 + ATTN_CHUNK], k, v, mc, softcap, hd))
+        chunks.append(_attention_dense(qg[:, q0:q0 + ATTN_CHUNK], k, v, mc, softcap, hd,
+                                       scale))
     return torch.cat(chunks, dim=1).reshape(B, Sq, H, hd)
 
 
@@ -212,15 +213,17 @@ def attention_scores(
     mask: Union[None, torch.Tensor, CausalMask],
     softcap: Optional[float] = None,
     impl: str = "kernel",
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Grouped-query attention, (B, Sq, H, hd) out.  ``mask`` is a
     :class:`CausalMask`, None (every key visible to every query: the
     encoder's self-attention and cross-attention) or, on the plain route,
-    any boolean tensor broadcastable to (B, H, Sq, Skv)."""
+    any boolean tensor broadcastable to (B, H, Sq, Skv).  ``scale``
+    multiplies the scores (None: 1/sqrt(hd))."""
     if impl == "plain":
         if isinstance(mask, CausalMask):
             mask = mask.dense(q.device)
-        return _attention_plain(q, k, v, mask, softcap)
+        return _attention_plain(q, k, v, mask, softcap, scale)
     if impl != "kernel":
         raise ValueError(f"attention_scores: impl must be one of {IMPLS}, got {impl!r}")
     if softcap is not None:
@@ -228,7 +231,8 @@ def attention_scores(
                                   "flash-attention kernel (nor in the reference's): ROADMAP "
                                   "Queue 1 item 6 (attention logit soft-capping)")
     if mask is None:
-        return local_call(_flash, (q, k, v), _ATTN_DIMS, _ATTN_DIMS[:1], causal=False)
+        return local_call(_flash, (q, k, v), _ATTN_DIMS, _ATTN_DIMS[:1], causal=False,
+                          scale=scale)
     if not isinstance(mask, CausalMask):
         raise ValueError("attention_scores: the kernel route takes a CausalMask or None; "
                          "a boolean mask tensor is for impl='plain'")
@@ -242,7 +246,8 @@ def attention_scores(
                                       "batching) are for one card, not under sharding rules")
         offset, max_offset = mask.device_offsets(q.device), max(mask.q_offset)
     return local_call(_flash, (q, k, v), _ATTN_DIMS, _ATTN_DIMS[:1], causal=True,
-                      window=mask.window, q_offset=offset, max_offset=max_offset)
+                      window=mask.window, q_offset=offset, max_offset=max_offset,
+                      scale=scale)
 
 
 #: attention's operands and output, (B, S, heads, hd), by role: the batch
@@ -288,7 +293,8 @@ def attention_block(
             q = q + params["bq"].reshape(1, 1, H, hd)
         if cfg.qk_norm:
             q = rmsnorm(q, params["q_norm"], cfg.norm_eps)
-        out = attention_scores(q, cache["k"], cache["v"], mask, cfg.logit_softcap, impl)
+        out = attention_scores(q, cache["k"], cache["v"], mask, cfg.logit_softcap, impl,
+                               getattr(cfg, "attention_scale", None))
         out = out.reshape(B, S, H * hd) @ params["wo"]
         return constrain(out, "batch", "seq", "embed"), None
     src = x if kv_x is None else kv_x
@@ -329,7 +335,8 @@ def attention_block(
             cv[:, pos:pos + S] = v.to(cv.dtype)
             new_cache = {"k": ck, "v": cv, "pos": pos + S}
         k, v = ck, cv
-    out = attention_scores(q, k, v, mask, cfg.logit_softcap, impl)
+    out = attention_scores(q, k, v, mask, cfg.logit_softcap, impl,
+                           getattr(cfg, "attention_scale", None))
     out = constrain(out, "batch", "seq", "heads", None)
     out = out.reshape(B, S, H * hd) @ params["wo"]
     return constrain(out, "batch", "seq", "embed"), new_cache

@@ -21,7 +21,10 @@ The router runs in float32; the gates are the top-k probabilities,
 renormalised (the dropless route only where the config's ``moe_renormalize``
 is on: Jamba keeps them as the softmax over all experts gave them); the
 Switch load-balancing loss (its eq. 4) times ``load_balance_coef`` is
-returned beside the output.  The
+returned beside the output.  A config with a shared expert
+(``ScheduledModelConfig.shared_d_ff``, Granite) adds to the routed output a gated MLP
+over every token (leaves ``shared_w_gate``, ``shared_w_up``,
+``shared_w_down``), which the router does not gate.  The
 expert products of the capacity routes are plain batched products
 (``torch.bmm``), as the reference's are ``jnp`` einsums: no Pallas kernel of
 the reference covers this layer.  ``route_tap``, when given, is called with
@@ -36,7 +39,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import _ACT
+from .layers import _ACT, mlp_block
 from .partitioning import constrain
 
 _GROUP_TOKENS = 2048  # target tokens per dispatch group
@@ -140,7 +143,7 @@ def moe_block(
         first = _expert_counts(gate_idx[:, 0], E).float() / N
         aux = E * torch.sum(probs.mean(dim=0) * first) * e.load_balance_coef
         out = _dropless(params, xf, cfg, gate_vals, gate_idx, counts).reshape(B, S, D)
-        return constrain(out, "batch", "seq", "embed"), aux
+        return constrain(_with_shared(params, x, out, cfg), "batch", "seq", "embed"), aux
     # group tokens: G groups of Sg tokens (Sg divides N by construction)
     Sg = min(_GROUP_TOKENS, N)
     while N % Sg:
@@ -203,5 +206,14 @@ def moe_block(
         out_e = _expert_mlp(params, xin, cfg).reshape(E, G, C, D)
         out = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), out_e)
 
-    out = out.reshape(B, S, D)
+    out = _with_shared(params, x, out.reshape(B, S, D), cfg)
     return constrain(out, "batch", "seq", "embed"), aux
+
+
+def _with_shared(params: Dict, x: torch.Tensor, out: torch.Tensor, cfg) -> torch.Tensor:
+    """The routed output plus the shared expert's over every token, where
+    the config has one."""
+    if not getattr(cfg, "shared_d_ff", 0):
+        return out
+    shared = {k[len("shared_"):]: v for k, v in params.items() if k.startswith("shared_")}
+    return out + mlp_block(shared, x, cfg)

@@ -19,6 +19,9 @@ back, so the caller has nothing to copy.  A config with ``ssm_inner_norms``
 ``dt_norm``, ``b_norm``, ``c_norm``).  A prefill in chunks
 (``transformer.prefill``) passes each chunk the conv and SSM state the one
 before left in the cache, so dA and dBx are built for one chunk at a time.
+The module owns the mixer's parameter shapes (``param_shapes``), its cache
+(``cache_shapes``) and its span (``SPAN``), which ``transformer`` takes from
+the module of the config's SSM (``models/ssd.py`` for Mamba-2).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.trace import LM_MAMBA
 from ..kernels import ops
 from ..kernels.mamba_scan import mamba_scan_ref
 from ..kernels.mamba_step import conv_step_ref, state_step_ref
@@ -36,6 +40,39 @@ from .partitioning import constrain, local_call
 
 #: the norms' leaves, in the order the decode step takes them
 _INNER_NORMS = ("dt_norm", "b_norm", "c_norm")
+#: the span a Mamba-1 layer opens while the profiler records
+SPAN = LM_MAMBA
+
+
+def param_shapes(cfg) -> Dict[str, tuple]:
+    """One layer's leaves and their shapes."""
+    s = cfg.ssm
+    D = cfg.d_model
+    DI = s.d_inner(D)
+    N, R = s.d_state, s.resolved_dt_rank(D)
+    shapes = {
+        "in_proj": (D, 2 * DI),
+        "conv_w": (s.d_conv, DI),
+        "conv_b": (DI,),
+        "x_proj": (DI, R + 2 * N),
+        "dt_proj": (R, DI),
+        "dt_bias": (DI,),
+        "A_log": (DI, N),
+        "D": (DI,),
+        "out_proj": (DI, D),
+    }
+    if getattr(cfg, "ssm_inner_norms", False):
+        shapes.update({"dt_norm": (R,), "b_norm": (N,), "c_norm": (N,)})
+    return shapes
+
+
+def cache_shapes(cfg) -> Dict[str, Tuple[tuple, Optional[torch.dtype], tuple]]:
+    """A row's serving cache: each leaf's shape, dtype (None: the model's)
+    and logical axes."""
+    s = cfg.ssm
+    DI = s.d_inner(cfg.d_model)
+    return {"conv": ((s.d_conv - 1, DI), None, (None, "ff")),
+            "ssm": ((DI, s.d_state), torch.float32, ("ff", None))}
 
 
 def _decode_step(params, xz, cfg, conv_state, ssm_state, impl):
@@ -125,3 +162,6 @@ def ssm_block(
     if cache is not None:
         new_cache = {"conv": new_conv, "ssm": new_ssm}
     return out, new_cache
+
+
+block = ssm_block

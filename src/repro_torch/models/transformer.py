@@ -7,11 +7,15 @@ leaves are stacked with a leading L dimension, and the stack is a Python
 loop over layers (the reference's ``lax.scan``), so each layer's attention
 gets its own window: ``cfg.window`` on local layers, none on global ones.
 A config with a layer schedule (``ModelConfig.scheduled``: Jamba's attention
-and Mamba layers, MoE and dense MLPs) stacks each part over the layers that
-have it (``layers["attn"]`` over the attention layers, ``layers["ssm"]`` over
-the SSM layers, ...; the norms over all L), and its serving caches likewise:
+and Mamba layers, MoE and dense MLPs; Granite's attention and Mamba-2 layers)
+stacks each part over the layers that have it (``layers["attn"]`` over the
+attention layers, ``layers["ssm"]`` over the SSM layers, ...; the norms over
+all L), and its serving caches likewise:
 keys and values for the attention layers, conv and SSM state for the SSM
-layers (``ModelConfig.layer_slots`` maps a layer to its rows).
+layers (``ModelConfig.layer_slots`` maps a layer to its rows).  The SSM
+mixer's module, ``models/ssm.py`` (Mamba-1) or ``models/ssd.py`` (Mamba-2),
+chosen by the type of the config's ``ssm``, owns its parameter and cache
+shapes, its span and its block.
 
 Three entry points share all code paths:
     forward(params, batch, cfg, remat)       -> logits, aux  [training]
@@ -38,6 +42,9 @@ that each continue the state) and ``caches`` (write into given caches, such
 as one slot's views of a batcher's pool); ``prefill`` and ``decode_step``
 take ``counters`` (``models.counters.LMCounters``).  While ``torch.profiler``
 records, each sublayer opens its span (``repro_torch.lm.*``, ``core/trace.py``).
+Granite's multipliers (``ScheduledModelConfig.embedding_multiplier``,
+``residual_multiplier``, ``attention_scale``, ``logits_scaling``) apply only
+where a config sets them, so every other config runs the ops it ran before.
 """
 from __future__ import annotations
 
@@ -51,13 +58,12 @@ import torch.nn.functional as F
 import torch.utils.checkpoint as torch_checkpoint
 from torch.distributed.tensor import distribute_tensor
 
-from ..core.trace import (LM_ATTENTION, LM_HEAD, LM_MAMBA, LM_MLP, LM_MOE, maybe_span,
-                          profiling)
-from .config import ModelConfig
+from ..core.trace import LM_ATTENTION, LM_HEAD, LM_MLP, LM_MOE, maybe_span, profiling
+from . import ssd, ssm
+from .config import Mamba2Config, ModelConfig, SSMConfig
 from .layers import CausalMask, apply_norm, attention_block, mlp_block, softcap_logits
 from .moe import moe_block
 from .partitioning import constrain, gather_weights, get_rules
-from .ssm import ssm_block
 
 REMATS = ("none", "dots", "full")
 
@@ -98,28 +104,23 @@ def _moe_shapes(cfg) -> Dict[str, tuple]:
     s = {"router": (D, E), "w_up": (E, D, F), "w_down": (E, F, D)}
     if cfg.gated_mlp:
         s["w_gate"] = (E, D, F)
+    shared = getattr(cfg, "shared_d_ff", 0)
+    if shared:
+        s.update({f"shared_{k}": v for k, v in _mlp_shapes(cfg, shared).items()})
     return s
 
 
+#: the SSM mixer of each kind of SSM config: the module that owns its
+#: parameter and cache shapes, its span and its block
+_MIXERS = {SSMConfig: ssm, Mamba2Config: ssd}
+
+
+def _mixer(cfg):
+    return _MIXERS[type(cfg.ssm)]
+
+
 def _ssm_shapes(cfg) -> Dict[str, tuple]:
-    s = cfg.ssm
-    D = cfg.d_model
-    DI = s.d_inner(D)
-    N, R = s.d_state, s.resolved_dt_rank(D)
-    shapes = {
-        "in_proj": (D, 2 * DI),
-        "conv_w": (s.d_conv, DI),
-        "conv_b": (DI,),
-        "x_proj": (DI, R + 2 * N),
-        "dt_proj": (R, DI),
-        "dt_bias": (DI,),
-        "A_log": (DI, N),
-        "D": (DI,),
-        "out_proj": (DI, D),
-    }
-    if getattr(cfg, "ssm_inner_norms", False):
-        shapes.update({"dt_norm": (R,), "b_norm": (N,), "c_norm": (N,)})
-    return shapes
+    return _mixer(cfg).param_shapes(cfg)
 
 
 #: a layer's parts, each stacked over the layers that have it under a schedule
@@ -212,7 +213,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters on the generator's device, by the reference's
     scheme: 1-D leaves zero, every other leaf N(0, 1) / sqrt(shape[-2]) drawn
     in f32 (stacked layer leaves included, so stacked norm scales are
-    random); SSM A_log = log(1..N), D = 1, dt_bias = -4.6.  A stacked layer
+    random); SSM A_log = log(1..N) along its last axis (Mamba-1's state,
+    Mamba-2's heads), D = 1, dt_bias = -4.6.  A stacked layer
     leaf (L, ...) is drawn one layer's slice at a time, so the f32 draw
     never holds more than one layer of it (command-r-35b's (40, 8192, 22528)
     MLP leaves would take 29.5 GB each whole).  The numbers differ from the
@@ -240,12 +242,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             node = node.setdefault(k, {})
         node[path[-1]] = leaf
     if cfg.ssm is not None:
-        ssm = params["layers"]["ssm"]
-        N = cfg.ssm.d_state
+        mixer = params["layers"]["ssm"]
+        N = mixer["A_log"].shape[-1]
         A = torch.log(torch.arange(1, N + 1, dtype=torch.float32, device=dev))
-        ssm["A_log"] = A.expand(ssm["A_log"].shape).to(dt).contiguous()
-        ssm["D"] = torch.ones_like(ssm["D"])
-        ssm["dt_bias"] = torch.full_like(ssm["dt_bias"], -4.6)
+        mixer["A_log"] = A.expand(mixer["A_log"].shape).to(dt).contiguous()
+        mixer["D"] = torch.ones_like(mixer["D"])
+        mixer["dt_bias"] = torch.full_like(mixer["dt_bias"], -4.6)
     return params
 
 
@@ -274,13 +276,23 @@ def _mix(cfg, lp, x, positions, mask, cache, cache_pos, impl, spans=False):
         s_cache = None
         if cache is not None:
             s_cache = {"conv": cache["conv"], "ssm": cache["ssm"]}
-        with maybe_span(spans, LM_MAMBA):
-            s_out, s_cache_new = ssm_block(lp["ssm"], h, cfg, s_cache, impl)
+        mixer = _mixer(cfg)
+        with maybe_span(spans, mixer.SPAN):
+            s_out, s_cache_new = mixer.block(lp["ssm"], h, cfg, s_cache, impl)
         outs.append(s_out)
         if s_cache_new is not None:
             new_cache.update(s_cache_new)
     mixed = outs[0] if len(outs) == 1 else 0.5 * (outs[0] + outs[1])
-    return x + mixed, (new_cache if cache is not None else None)
+    return _residual(cfg, x, mixed), (new_cache if cache is not None else None)
+
+
+def _residual(cfg, x, out):
+    """x + out, the sublayer's output scaled by ``residual_multiplier`` where
+    the config sets one (Granite)."""
+    scale = getattr(cfg, "residual_multiplier", 1.0)
+    if scale != 1.0:
+        out = out * scale
+    return x + out
 
 
 def _channel(cfg, lp, x, dispatch_mode, capacity_factor, spans=False, route_tap=None):
@@ -292,12 +304,12 @@ def _channel(cfg, lp, x, dispatch_mode, capacity_factor, spans=False, route_tap=
         with maybe_span(spans, LM_MOE):
             out, aux = moe_block(lp["moe"], h, cfg, capacity_factor, dispatch_mode,
                                  route_tap)
-        return x + out, aux
+        return _residual(cfg, x, out), aux
     if "mlp" in lp:
         h = apply_norm(x, lp["norm2"], cfg.norm, cfg.norm_eps)
         with maybe_span(spans, LM_MLP):
             out = mlp_block(lp["mlp"], h, cfg)
-        return x + out, None
+        return _residual(cfg, x, out), None
     return x, None
 
 
@@ -492,6 +504,8 @@ def _embed_inputs(cfg, params, batch):
         x = F.embedding(batch["tokens"], gather_weights(params["embed"]))
     if cfg.scale_embed:
         x = x * math.sqrt(cfg.d_model)
+    if getattr(cfg, "embedding_multiplier", 1.0) != 1.0:
+        x = x * cfg.embedding_multiplier
     if cfg.learned_pos:
         S = x.shape[1]
         off = batch.get("pos_offset", 0)
@@ -506,6 +520,8 @@ def _embed_inputs(cfg, params, batch):
 def _lm_logits(cfg, params, x):
     head = gather_weights(params["embed"] if cfg.tie_embeddings else params["lm_head"])
     logits = constrain(x @ head.T, "batch", "seq", "vocab")
+    if getattr(cfg, "logits_scaling", 1.0) != 1.0:
+        logits = logits / cfg.logits_scaling
     return softcap_logits(logits, cfg.logit_softcap)
 
 
@@ -533,11 +549,9 @@ def _make_caches(cfg, B, max_len, dtype, device):
         per["k"] = zeros((La, B, max_len, KV, hd), dtype, *kv)
         per["v"] = zeros((La, B, max_len, KV, hd), dtype, *kv)
     if cfg.ssm is not None:
-        s = cfg.ssm
-        DI = s.d_inner(cfg.d_model)
         Ls = cfg.layer_count("ssm")
-        per["conv"] = zeros((Ls, B, s.d_conv - 1, DI), dtype, None, "batch", None, "ff")
-        per["ssm"] = zeros((Ls, B, DI, s.d_state), torch.float32, None, "batch", "ff", None)
+        for name, (shape, dt, axes) in _mixer(cfg).cache_shapes(cfg).items():
+            per[name] = zeros((Ls, B) + shape, dt or dtype, None, "batch", *axes)
     return per
 
 

@@ -136,7 +136,8 @@ def test_newton_step_with_kernels_on_card(cuda_device):
         hess64 = hess64 + X.mT @ ((mu64 * (1 - mu64)) * X)
     assert dict(launches) == {"matmul": 3 * len(Xs), "glm_fused": len(Xs),
                               "flash_attention": 0, "flash_attention_bwd": 0,
-                              "mamba_scan": 0, "mamba_scan_bwd": 0, "mamba_step": 0}
+                              "mamba_scan": 0, "mamba_scan_bwd": 0, "mamba_step": 0,
+                              "mamba2_step": 0}
     assert ((grad - grad64).abs().max() / scale.max()).item() < 1e-5
     assert ((hess - hess64).abs().max() / hess64.abs().max()).item() < 1e-5
 

@@ -99,7 +99,7 @@ class TestMatmul:
         assert torch.equal(ops.matmul(a, b), matmul_ref(a, b))
         assert launches == {"matmul": 0, "glm_fused": 0, "flash_attention": 0,
                             "flash_attention_bwd": 0, "mamba_scan": 0,
-                            "mamba_scan_bwd": 0, "mamba_step": 0}
+                            "mamba_scan_bwd": 0, "mamba_step": 0, "mamba2_step": 0}
 
     @pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16],
                              ids=str)

@@ -117,7 +117,10 @@ def test_ssm_block_matches_reference(impl, carried, S):
     if carried:
         conv, state = arr((B, K - 1, DI)), arr((B, DI, N))
         cache_j = {"conv": jnp.asarray(conv), "ssm": jnp.asarray(state)}
-        cache_t = {"conv": torch.from_numpy(conv), "ssm": torch.from_numpy(state)}
+        # the port's own copies: jnp.asarray may alias the numpy arrays, and
+        # the reference's dispatch is asynchronous, while the decode step
+        # (S == 1) writes the port's cache in place
+        cache_t = {"conv": torch.from_numpy(conv.copy()), "ssm": torch.from_numpy(state.copy())}
     want, want_cache = ref_ssm.ssm_block(pj, jnp.asarray(x), rcfg, cache_j)
     got, got_cache = ssm.ssm_block(pt, torch.from_numpy(x), cfg, cache_t, impl=impl)
     assert_close(got, want)
